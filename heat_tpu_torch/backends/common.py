@@ -1,0 +1,290 @@
+"""Shared device-side solve loop: chunked with heartbeat,
+checkpointing, numerics checks and timing.
+
+The reference's hot loop is a host loop launching one kernel per step
+(fortran/cuda_kernel/heat.F90:30-34). Here the host calls ``advance(T, k)``
+once per *chunk* of steps — the steps between two host-visible events
+(heartbeat, checkpoint) — and each backend's ``advance`` queues that chunk's
+launches without waiting for the device. The cuda backend swaps two field
+buffers between passes (replacing the per-step ``T_old_d = T_d`` device
+copy at fortran/cuda_kernel/heat.F90:32).
+
+Counterpart of ``heat_tpu.backends.common``. Before the timed region, the
+warm-up builds the kernel library and runs each pass depth of each chunk
+size once on a copy, so no build or first-launch cost lands in ``solve_s``.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..config import HeatConfig
+from ..runtime import async_io, checkpoint, debug, faults
+from ..runtime.logging import master_print
+from ..runtime.timing import Timing, sync
+from ..utils import torch_dtype
+from . import SolveResult
+
+# --on-nan rollback: how many times the same flagged step may be retried
+# before the blow-up is declared deterministic (a genuine CFL violation
+# reproduces identically; a soft-error/injected NaN does not).
+_MAX_ROLLBACKS_PER_STEP = 2
+
+
+def host_fetch(x) -> np.ndarray:
+    """A host copy of a tensor (numpy), bf16 widened to f32 exactly. Always
+    a copy: the drive loop's buffers are reused after the fetch."""
+    if not isinstance(x, torch.Tensor):
+        return np.array(x)
+    t = x.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def event_interval(cfg: HeatConfig) -> int:
+    """Steps per ``advance`` call: gcd of the host-visible event intervals."""
+    ivals = [v for v in (cfg.heartbeat_every, cfg.checkpoint_every) if v > 0]
+    if not ivals:
+        return max(cfg.ntime, 1)
+    g = ivals[0]
+    for v in ivals[1:]:
+        g = math.gcd(g, v)
+    return g
+
+
+def chunk_sizes(cfg: HeatConfig, remaining: int) -> list[int]:
+    """Every step count the drive loop will call ``advance`` with (at most
+    two: the steady chunk and a final remainder)."""
+    if remaining <= 0:
+        return []
+    k0 = min(event_interval(cfg), remaining)
+    sizes = {k0}
+    if remaining % k0:
+        sizes.add(remaining % k0)
+    return sorted(sizes)
+
+
+def drive(
+    cfg: HeatConfig,
+    T_dev: torch.Tensor,
+    advance: Callable[[torch.Tensor, int], torch.Tensor],
+    warm: Callable[[torch.Tensor, int], None],
+    start_step: int = 0,
+    kernel: Optional[str] = None,
+) -> SolveResult:
+    """Run ``advance(T, k)`` to ``cfg.ntime``.
+
+    ``warm(T, k)`` runs, on a throwaway copy, each distinct launch that
+    ``advance(T, k)`` would make, once: it builds the kernel library and
+    takes first-launch costs before the clock starts.
+
+    Host-visible events run through the asynchronous I/O pipeline by
+    default (``cfg.async_io``): a checkpoint boundary costs one on-device
+    clone and stepping resumes immediately, with the device-to-host copy and
+    the atomic-rename write in a bounded-queue background writer — drained
+    on every exit path, writer errors surfaced at the next boundary.
+    ``--async-io off`` restores the inline sync -> fetch -> save stall.
+    """
+    t_all0 = time.perf_counter()
+    chunk = event_interval(cfg)
+    remaining = cfg.ntime - start_step
+    device = T_dev.device
+
+    compile_s = 0.0
+    if remaining > 0:
+        t_c0 = time.perf_counter()
+        for k in chunk_sizes(cfg, remaining):
+            warm(T_dev.clone(), k)
+        sync(T_dev)
+        compile_s = time.perf_counter() - t_c0
+
+    t0 = time.perf_counter()
+    step = start_step
+    async_on = cfg.use_async_io() and bool(cfg.checkpoint_every
+                                           or cfg.check_numerics)
+    writer = (async_io.SnapshotWriter()
+              if async_on and cfg.checkpoint_every else None)
+    # pending boundary flag from the async numerics leg:
+    # (device scalar, step, snapshot-or-None, deferred-checkpoint?)
+    pending_flag = None
+    plan = faults.plan_for(cfg)  # None in every normal run
+    # --on-nan rollback: one device snapshot of the newest boundary whose
+    # finite flag PASSED; a flagged boundary restores it and re-steps.
+    rollback = cfg.on_nan == "rollback" and cfg.check_numerics
+    last_good = ((async_io.device_snapshot(T_dev), step) if rollback
+                 else None)
+    rollbacks_at: dict = {}
+
+    def _submit_snapshot(T_snap, at_step: int) -> None:
+        check = cfg.check_numerics
+
+        def job():
+            # the device-to-host copy lands HERE, in the writer thread
+            T_ck = T_snap.detach().cpu()
+            if check:
+                # the writer re-validates the snapshot it is about to
+                # persist: a non-finite field never reaches disk
+                debug.check_finite(T_ck, at_step, label="checkpoint snapshot")
+            checkpoint.save(cfg, T_ck, at_step)
+
+        writer.submit(job)
+
+    def _try_rollback(bad_step: int) -> bool:
+        """Restore the last verified-finite boundary after a flagged one;
+        False -> no rollback possible/allowed, the caller re-raises."""
+        nonlocal T_dev, step
+        if not rollback or last_good is None:
+            return False
+        n = rollbacks_at.get(bad_step, 0)
+        if n >= _MAX_ROLLBACKS_PER_STEP:
+            master_print(f"on-nan rollback: step {bad_step} flagged again "
+                         f"after {n} rollbacks — deterministic blow-up, "
+                         f"aborting")
+            return False
+        rollbacks_at[bad_step] = n + 1
+        snap, good = last_good
+        master_print(f"on-nan rollback: non-finite field at step {bad_step}; "
+                     f"rolling back to verified boundary {good} "
+                     f"(attempt {n + 1}/{_MAX_ROLLBACKS_PER_STEP})")
+        # a copy: last_good must stay restorable for a second try
+        T_dev = async_io.device_snapshot(snap)
+        step = good
+        return True
+
+    def _settle_pending() -> bool:
+        """Async mode: judge the boundary flag posted one chunk ago. True ->
+        it flagged and we rolled back (caller continues stepping)."""
+        nonlocal pending_flag, last_good
+        flag, fstep, snap, is_ckpt = pending_flag
+        pending_flag = None
+        try:
+            debug.raise_if_flagged(flag, fstep)
+        except FloatingPointError:
+            if _try_rollback(fstep):
+                return True
+            raise
+        if rollback:
+            last_good = (snap, fstep)
+            if is_ckpt:
+                _submit_snapshot(snap, fstep)
+        return False
+
+    try:
+        with debug.maybe_profile(cfg.profile_dir, device):
+            while True:
+                while step < cfg.ntime:
+                    k = min(chunk, cfg.ntime - step)
+                    T_dev = advance(T_dev, k)
+                    step += k
+                    if plan is not None:
+                        plan.maybe_crash(step)
+                        T_dev = plan.maybe_nan(step, T_dev)
+                    if cfg.check_numerics:
+                        if async_on:
+                            if (pending_flag is not None
+                                    and _settle_pending()):
+                                continue  # rolled back: re-step the chunk
+                            pending_flag = (
+                                debug.finite_flag(T_dev), step,
+                                async_io.device_snapshot(T_dev)
+                                if rollback else None,
+                                rollback and writer is not None
+                                and cfg.checkpoint_every
+                                and step % cfg.checkpoint_every == 0)
+                        else:
+                            try:
+                                debug.check_finite(T_dev, step)
+                            except FloatingPointError:
+                                if _try_rollback(step):
+                                    continue
+                                raise
+                            if rollback:
+                                last_good = (async_io.device_snapshot(T_dev),
+                                             step)
+                    if cfg.heartbeat_every and step % cfg.heartbeat_every == 0:
+                        master_print(" time_it:", step)  # fortran/serial/heat.f90:62
+                    if cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
+                        if writer is not None:
+                            if not (rollback and async_on):
+                                _submit_snapshot(
+                                    async_io.device_snapshot(T_dev), step)
+                            # else deferred to _settle_pending: persist only
+                            # flag-verified snapshots
+                        else:
+                            sync(T_dev)
+                            checkpoint.save(cfg, T_dev, step)
+                if pending_flag is None or not _settle_pending():
+                    break
+                # final boundary flagged and rolled back: resume stepping
+            sync(T_dev)
+    except BaseException:
+        # drain-on-exception: every queued snapshot still lands on disk (a
+        # blow-up's last good boundary is exactly the state a resume
+        # needs); a writer error is logged but never masks the solve error
+        if writer is not None:
+            writer.drain(raise_errors=False)
+        raise
+    solve_s = time.perf_counter() - t0
+    if writer is not None:
+        # post-solve flush, deliberately OUTSIDE solve_s: the device has
+        # finished stepping, so the remaining writes overlap nothing
+        writer.drain()
+
+    T_host = host_fetch(T_dev)
+    gsum = gsum_dtype = None
+    if cfg.report_sum:
+        # the reference's commented-out global reduction
+        # (mpi+cuda/heat.F90:266-273), accumulated in f64 on the host so
+        # every backend reports the identical sum regardless of storage dtype
+        gsum = float(np.sum(np.asarray(T_host, np.float64)))
+        gsum_dtype = "float64"
+    timing = Timing(total_s=time.perf_counter() - t_all0,
+                    compile_s=compile_s, solve_s=solve_s, steps=remaining,
+                    points=cfg.points,
+                    overlap_s=writer.hidden_s if writer is not None else None,
+                    io_wait_s=writer.wait_s if writer is not None else None,
+                    kernel=kernel)
+    return SolveResult(cfg=cfg, T=T_host, timing=timing, gsum=gsum,
+                       gsum_dtype=gsum_dtype, start_step=start_step,
+                       T_dev=T_dev, device=str(device))
+
+
+def resolve_initial_field(cfg: HeatConfig, T0: Optional[np.ndarray], device):
+    """(T on ``device``, start_step): explicit T0 > checkpoint (both host
+    arrays, copied over) > IC built directly on the device."""
+    T0_host, start_step = load_or_init(cfg, T0, default_ic=False)
+    if T0_host is None:
+        from ..grid import initial_condition_device
+
+        return initial_condition_device(cfg, device), start_step
+    # torch.tensor copies: the drive loop later reuses this buffer, so it must
+    # not alias the caller's array
+    T = torch.tensor(np.asarray(T0_host), device=device)
+    return T.to(torch_dtype(cfg.dtype)), start_step
+
+
+def load_or_init(cfg: HeatConfig, T0: Optional[np.ndarray], default_ic: bool = True):
+    """Resolve the starting field: explicit T0 > latest checkpoint > IC.
+
+    With ``default_ic=False`` the IC fallback returns ``(None, 0)`` instead
+    of a host array — device backends then build the IC on the device.
+    """
+    from ..grid import initial_condition
+
+    start_step = 0
+    if T0 is None and cfg.checkpoint_every:
+        ck = checkpoint.latest(cfg, max_step=cfg.ntime)
+        if ck is not None:
+            T0, start_step = checkpoint.load(ck, cfg)
+            master_print(f"resumed from {ck} at step {start_step}")
+    if T0 is None:
+        if not default_ic:
+            return None, 0
+        T0 = initial_condition(cfg)
+    return np.asarray(T0), start_step

@@ -1,0 +1,82 @@
+"""Build and load the hand-written CUDA kernels.
+
+The sources under ``ops/csrc`` have a plain C interface; ``nvcc`` compiles
+them straight into a shared library for ``sm_90a``, which ``ctypes`` loads.
+(Including PyTorch's headers, as ``torch.utils.cpp_extension.load`` does,
+makes one file take minutes to compile; this takes seconds.) The library
+lands in ``heat_tpu_torch/_build/``, named by a hash of the source and the
+flags, so a changed source or flag set builds anew and an unchanged one is
+reused by every later process of the same checkout.
+
+Nothing here runs at import: the first CUDA launch builds, so the package
+imports on hosts without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+_CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+
+# -fmad=false: no contraction of a*b+c anywhere the source does not ask for
+# one with __fmaf_rn (the kernel's bytes depend on it); no --use_fast_math
+# (it flushes subnormals). -Xptxas=-v puts registers/spills in the log.
+NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the one on PATH,
+    else ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        return str(Path(home) / "bin" / "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` (once per source+flags hash) and return the
+    library's path. Raises with nvcc's output when the build fails."""
+    src = _CSRC / f"{name}.cu"
+    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    so = BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / f"{name}.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {src.name} "
+                           f"(rc={proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)  # atomic: a concurrent build never loads a torn file
+    return so
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it on first use."""
+    with _lock:
+        lib: Optional[ctypes.CDLL] = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = ctypes.CDLL(str(build(name)))
+        return lib
+
+
+def build_log(name: str) -> str:
+    """nvcc's command line and output (ptxas register/spill report) from the
+    last build of ``name`` in this checkout, or "" if none."""
+    p = BUILD_DIR / f"{name}.log"
+    return p.read_text() if p.exists() else ""
