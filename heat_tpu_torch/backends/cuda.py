@@ -1,14 +1,18 @@
-"""The ``cuda`` backend: the hand-written Hopper kernel, one device.
+"""The ``cuda`` backend: the hand-written Hopper kernels, one device.
 
 Counterpart of heat_tpu's ``pallas`` backend (and of the reference's
 explicit CUDA Fortran / HIP C++ kernels, fortran/cuda_kernel/heat.F90,
 fortran/hip/heat_kernel.cpp). Each chunk runs ``fuse_depth`` fused steps
-per kernel launch, then one-step launches for the remainder, exactly the
-reference's pass schedule (heat_tpu/backends/pallas.py:61-66). For the
-edges BC the launches ping-pong between two field buffers, so stepping
-allocates nothing. f64 has no kernel and takes the plain PyTorch step, as
-the reference's Pallas backend takes the XLA step; the timing record says
-so (``kernel: torch-step (f64)``).
+per multistep call, then one-step calls for the remainder, exactly the
+reference's schedule (heat_tpu/backends/pallas.py:61-66); a multistep call
+is cut into kernel launches where the reference cuts it
+(``ops.pass_schedule``: 16 steps are one ``ftcs2d`` launch in 2D, two
+8-step ``ftcs3d`` launches at 512^3 f32). For the edges BC the last launch
+of a call writes into a second field buffer, so the two ping-pong and a
+one-launch call allocates nothing. f64, and 3D shapes where the
+reference's planner has no plan, have no kernel and take the plain
+PyTorch step, as the reference's Pallas backend takes the XLA step; the
+timing record says so (``kernel: torch-step (f64)``).
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ from ..utils import torch_dtype
 from . import SolveResult, register
 from .common import drive, resolve_initial_field
 
-# default temporal-blocking depth: one kernel launch per 16 steps, the
-# reference's default and the kernel's widest halo
+# default temporal-blocking depth: 16 steps per multistep call, the
+# reference's default
 _AUTO_FUSE = 16
 
 
@@ -81,20 +85,22 @@ def make_advance(cfg: HeatConfig):
     return advance, warm
 
 
+def kernel_label(cfg: HeatConfig, device) -> str:
+    """What steps the field: the timing record's ``kernel``."""
+    if cfg.dtype == "float64":
+        return "torch-step (f64)"
+    if not kernel_available(cfg.shape, torch_dtype(cfg.dtype)):
+        return "torch-step (no 3D kernel plan)"
+    name = "ftcs2d" if cfg.ndim == 2 else "ftcs3d"
+    if torch.device(device).type == "cuda":
+        return f"cuda {name}"
+    return f"{name} plain version (cpu)"  # a CPU solve, asked for
+
+
 @register("cuda")
 def solve(cfg: HeatConfig, T0: Optional[np.ndarray] = None, device=None,
           **_) -> SolveResult:
-    if cfg.ndim != 2:
-        raise NotImplementedError(
-            "the cuda backend runs 2D fields in this port; --ndim 3 comes "
-            "with the 3D kernel K3 (ROADMAP.md §1 step 5); the torch "
-            "backend runs 3D")
     T, start_step = resolve_initial_field(cfg, T0, device)
-    if not kernel_available(cfg.shape, torch_dtype(cfg.dtype)):
-        kernel = "torch-step (f64)"
-    elif T.device.type == "cuda":
-        kernel = "cuda ftcs2d"
-    else:  # a CPU solve, asked for: the wrappers run the plain version
-        kernel = "ftcs2d plain version (cpu)"
     advance, warm = make_advance(cfg)
-    return drive(cfg, T, advance, warm, start_step=start_step, kernel=kernel)
+    return drive(cfg, T, advance, warm, start_step=start_step,
+                 kernel=kernel_label(cfg, T.device))

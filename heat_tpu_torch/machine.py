@@ -22,6 +22,9 @@ class PeakRates:
     source: str
 
 
+# f32 operations per cell-step of the fused stencil, by dimension
+_OPS_PER_CELL_STEP = {2: 7, 3: 9}
+
 # Keyed by a substring of the reported device name.
 PEAKS = {
     "H100": PeakRates(3.35e12, 67e12, "NVIDIA H100 SXM data sheet"),
@@ -39,14 +42,17 @@ class DeviceModel:
     peaks: Optional[PeakRates]            # None for a part not in PEAKS
 
     def pass_bound_s(self, points: int, itemsize: int, ksteps: int,
-                     ops_per_point_step: int = 7) -> tuple:
+                     ndim: int = 2) -> tuple:
         """(seconds, "bytes"|"operations"): the least time one fused pass
         could take — the field read once and written once over the memory
-        rate, against the f32 operations over the f32 rate."""
+        rate, against the f32 operations over the f32 rate. A cell-step is
+        7 operations in 2D (3 adds, the exact 4*c, a subtract, the update
+        FMA as 2) and 9 in 3D (5 adds, two FMAs of 2 each)."""
         if self.peaks is None:
             raise ValueError(f"no published peak rates for {self.name!r}")
         t_bytes = 2 * itemsize * points / self.peaks.hbm_bytes_per_s
-        t_ops = ops_per_point_step * points * ksteps / self.peaks.f32_flops_per_s
+        t_ops = (_OPS_PER_CELL_STEP[ndim] * points * ksteps
+                 / self.peaks.f32_flops_per_s)
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

@@ -20,10 +20,13 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
 _CSRC = Path(__file__).parent / "csrc"
+# the kernels, by source name: csrc/<name>.cu exports heat_<name>()
+KERNELS = ("ftcs2d", "ftcs3d")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 # -fmad=false: no contraction of a*b+c anywhere the source does not ask for
@@ -64,6 +67,13 @@ def build(name: str) -> Path:
                            f"(rc={proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, so)  # atomic: a concurrent build never loads a torn file
     return so
+
+
+def build_all() -> dict:
+    """Build every kernel's library at once, one ``nvcc`` each, all started
+    together; returns {name: path}."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        return dict(zip(KERNELS, pool.map(build, KERNELS)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -15,7 +15,11 @@
 // shared buffers; the valid region shrinks by one cell per side per step, so
 // after k steps exactly the tile is valid. Each thread owns one band column
 // and a run of rows, keeping up/centre/down in registers (3 shared loads and
-// 1 store per cell-step).
+// 1 store per cell-step). The kernel is templated on its halo width KH:
+// passes of k <= 16 run the KH = 16 instance (128 x 4 threads, 96 KB, two
+// blocks per SM), deeper passes (the reference's thin kernel passes up to
+// 32 steps, and each pass boundary is a bf16 rounding point) the KH = 32
+// instance (160 x 4 threads, 160 KB, one block per SM).
 //
 // Arithmetic, in the Pallas body's order (pallas_stencil.py:239-249):
 //   maskr = frozen ? 0 : r          (r rounded to f32; frozen where the GLOBAL
@@ -42,14 +46,17 @@
 
 namespace {
 
-constexpr int KMAX = 16;               // max steps per pass (halo width)
+constexpr int KMAX = 32;               // max steps per pass (widest halo)
 constexpr int BR = 64;                 // output tile rows
 constexpr int BC = 96;                 // output tile cols
-constexpr int TX = BC + 2 * KMAX;      // threads across the widest band: 128
 constexpr int TY = 4;                  // row groups
-constexpr int HMAX = BR + 2 * KMAX;
-constexpr int WMAX = BC + 2 * KMAX;
-constexpr int SMEM_MAX = 2 * HMAX * WMAX * (int)sizeof(float);  // 98304 B
+
+// threads across the widest band, and the dynamic shared memory, of the
+// instance with halo width KH: 128 / 98304 B at 16, 160 / 163840 B at 32
+template <int KH> struct Geometry {
+  static constexpr int TX = BC + 2 * KH;
+  static constexpr int SMEM_MAX = 2 * (BR + 2 * KH) * (BC + 2 * KH) * (int)sizeof(float);
+};
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
@@ -60,10 +67,11 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(TX * TY, 2)  // two blocks per SM
+template <typename T, int KH>
+__global__ void __launch_bounds__(Geometry<KH>::TX * TY, KH <= 16 ? 2 : 1)
 ftcs2d_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t m,
               int64_t n, float r, int k, int rlo, int rhi, int clo, int chi) {
+  constexpr int TX = Geometry<KH>::TX;
   extern __shared__ float smem[];
   const int H = BR + 2 * k;
   const int W = BC + 2 * k;
@@ -128,21 +136,30 @@ ftcs2d_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t m,
   }
 }
 
-template <typename T>
-int launch(const void* in, void* out, int64_t m, int64_t n, float r, int k,
-           int rlo, int rhi, int clo, int chi, cudaStream_t stream) {
+template <typename T, int KH>
+int launch_kh(const void* in, void* out, int64_t m, int64_t n, float r, int k,
+              int rlo, int rhi, int clo, int chi, cudaStream_t stream) {
   // above 48 KB of dynamic shared memory only after opting in (per device,
   // so on every launch: it costs about a microsecond of host time)
-  cudaError_t e = cudaFuncSetAttribute(
-      ftcs2d_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  cudaError_t e = cudaFuncSetAttribute(ftcs2d_kernel<T, KH>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       Geometry<KH>::SMEM_MAX);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = 2 * (size_t)(BR + 2 * k) * (BC + 2 * k) * sizeof(float);
   dim3 grid((unsigned)((n + BC - 1) / BC), (unsigned)((m + BR - 1) / BR));
-  dim3 block(TX, TY);
-  ftcs2d_kernel<T><<<grid, block, smem, stream>>>(
+  dim3 block(Geometry<KH>::TX, TY);
+  ftcs2d_kernel<T, KH><<<grid, block, smem, stream>>>(
       static_cast<const T*>(in), static_cast<T*>(out), m, n, r, k, rlo, rhi,
       clo, chi);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* in, void* out, int64_t m, int64_t n, float r, int k,
+           int rlo, int rhi, int clo, int chi, cudaStream_t stream) {
+  if (k <= 16)
+    return launch_kh<T, 16>(in, out, m, n, r, k, rlo, rhi, clo, chi, stream);
+  return launch_kh<T, 32>(in, out, m, n, r, k, rlo, rhi, clo, chi, stream);
 }
 
 }  // namespace

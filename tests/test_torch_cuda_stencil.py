@@ -52,15 +52,7 @@ def _bytes_equal(got: torch.Tensor, ref) -> None:
 def test_plain_matches_k1_edges(k, r, dtype):
     T = _field((67, 130), seed=k)
     ref = ps.ftcs_multistep_edges_pallas(_ref(T, dtype), r, k)
-    if dtype == "bfloat16" and k > cs._KMAX:
-        # the reference passes min(k, 32) steps at this width: follow its
-        # schedule (the port's own 16-step schedule is the gap test below)
-        got = _port(T, dtype)
-        for kk in (32, k - 32):
-            got = cs.ftcs_multistep_2d_plain(got, r, kk)
-    else:
-        got = cs.ftcs_multistep_edges_cuda(_port(T, dtype), r, k)
-    _bytes_equal(got, ref)
+    _bytes_equal(cs.ftcs_multistep_edges_cuda(_port(T, dtype), r, k), ref)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -68,22 +60,21 @@ def test_plain_matches_k1_edges(k, r, dtype):
 def test_plain_matches_k1_edges_wide(k, dtype):
     T = _field((100, 500), seed=7)
     ref = ps.ftcs_multistep_edges_pallas(_ref(T, dtype), 0.2, k)
-    got = _port(T, dtype)
-    for kk in ([k] if k <= 32 else [32, k - 32]):  # the reference's passes
-        got = cs.ftcs_multistep_2d_plain(got, 0.2, kk)
-    _bytes_equal(got, ref)
+    _bytes_equal(cs.ftcs_multistep_edges_cuda(_port(T, dtype), 0.2, k), ref)
 
 
-def test_bf16_deep_fusion_gap_is_pass_schedule():
-    """Known gap (ROADMAP §3): with --fuse-steps > 16 a bf16 field rounds
-    at every 16th step in the port, where the reference's thin kernel
-    rounds every 32nd. The port's result IS the reference's arithmetic run
-    in 16-step passes."""
+def test_bf16_deep_fusion_matches_reference():
+    """bf16 rounds to storage at every pass boundary, so 40 fused steps
+    must be cut where the reference cuts them: 32 + 8 on this width (its
+    thin kernel's cap), which a 16-step cap (16 + 16 + 8) would miss."""
     T = _field((67, 130), seed=3)
-    ref = _ref(T, "bfloat16")
-    for kk in (16, 16, 8):
-        ref = ps.ftcs_multistep_edges_pallas(ref, 0.2, kk)
+    ref = ps.ftcs_multistep_edges_pallas(_ref(T, "bfloat16"), 0.2, 40)
     _bytes_equal(cs.ftcs_multistep_edges_cuda(_port(T, "bfloat16"), 0.2, 40), ref)
+    sixteens = _ref(T, "bfloat16")
+    for kk in (16, 16, 8):
+        sixteens = ps.ftcs_multistep_edges_pallas(sixteens, 0.2, kk)
+    assert not np.array_equal(np.asarray(sixteens.astype(jnp.float32)),
+                              np.asarray(ref.astype(jnp.float32)))
     # f32 bytes do not depend on the pass schedule at all
     ref32 = ps.ftcs_multistep_edges_pallas(_ref(T, "float32"), 0.2, 40)
     _bytes_equal(cs.ftcs_multistep_edges_cuda(_port(T, "float32"), 0.2, 40), ref32)
@@ -98,7 +89,7 @@ def test_plain_matches_k1_ghost(k, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("k", [5, 16])
+@pytest.mark.parametrize("k", [5, 16, 40])
 def test_plain_matches_k1_periodic(k, dtype):
     T = _field((67, 130), seed=13)
     ref = ps.ftcs_multistep_periodic_pallas(_ref(T, dtype), 0.2, k)
@@ -170,12 +161,17 @@ def test_fma_is_single_rounding():
 def test_wrappers_refuse_other_devices_and_depths():
     T = torch.zeros(8, 8)
     with pytest.raises(ValueError):
-        cs._launch(T, 0.2, cs._KMAX + 1, (0, 7, 0, 7), None)
+        cs._launch(T, 0.2, cs._KMAX_2D + 1, (0, 7, 0, 7), None)
+    with pytest.raises(ValueError):
+        cs._launch(torch.zeros(8, 8, 8), 0.2, cs._KMAX_3D + 1,
+                   (0, 7) * 3, None)
     with pytest.raises(ValueError):
         cs._pass(T.to("meta"), 0.2, 1, (0, 7, 0, 7))
     assert cs.kernel_available((8, 8), torch.float32)
     assert not cs.kernel_available((8, 8), torch.float64)
-    assert not cs.kernel_available((8, 8, 8), torch.float32)
+    assert cs.kernel_available((8, 8, 8), torch.float32)
+    assert not cs.kernel_available((8, 8, 8), torch.float64)
+    assert not cs.kernel_available((8,), torch.float32)
 
 
 @pytest.mark.cuda
@@ -185,7 +181,7 @@ def test_kernel_matches_plain_on_card():
     for dtype in (torch.float32, torch.bfloat16):
         T = torch.rand(1000, 4099, generator=torch.Generator().manual_seed(0))
         T = (1 + T).to(dtype).cuda()
-        for k in (1, 7, 16):
+        for k in (1, 7, 16, 32):
             got = cs.ftcs_multistep_edges_cuda(T, 0.2, k)
             want = cs.ftcs_multistep_edges_cuda(T, 0.2, k, plain=True)
             assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16

@@ -95,9 +95,82 @@ def test_cuda_backend_pass_schedule():
 def test_cuda_backend_refuses_paths_of_later_slices():
     port, _ = _cfgs("python_cuda", None, "cuda")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(port.with_(ndim=3, n=9), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve(port.with_(backend="sharded"), device="cpu")
+    # 3D runs on cuda since K3 was ported
+    res = solve(port.with_(ndim=3, n=9), device="cpu")
+    assert res.T.shape == (9, 9, 9)
+    assert res.timing.kernel == "ftcs3d plain version (cpu)"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bc", ["edges", "ghost", "periodic"])
+def test_cuda_backend_3d_matches_pallas(bc, dtype):
+    """3D on the cuda backend against the reference's pallas backend (K3 in
+    interpret mode) at sigma 0.15: 20 steps are one 16-step multistep cut
+    into the planned passes plus four one-step passes."""
+    kw = dict(n=20, ndim=3, ntime=20, sigma=0.15, bc=bc, dtype=dtype,
+              ic="hat", heartbeat_every=0, write_int=False)
+    got = solve(config.HeatConfig(backend="cuda", **kw), device="cpu")
+    want = ref_solve(ref_config.HeatConfig(backend="pallas", **kw))
+    np.testing.assert_array_equal(np.asarray(got.T, np.float32),
+                                  np.asarray(want.T).astype(np.float32))
+    assert got.timing.kernel == "ftcs3d plain version (cpu)"
+
+
+def test_cuda_backend_labels_what_steps_the_field():
+    from heat_tpu_torch.backends.cuda import kernel_label
+
+    cfg = config.HeatConfig(backend="cuda", n=40, ndim=3)
+    assert kernel_label(cfg, "cuda") == "cuda ftcs3d"
+    assert kernel_label(cfg.with_(ndim=2), "cuda") == "cuda ftcs2d"
+    assert kernel_label(cfg.with_(dtype="float64"), "cuda") == "torch-step (f64)"
+    # a lane extent so long that the reference's 3D planner finds no plan
+    assert (kernel_label(cfg.with_(n=40000), "cuda")
+            == "torch-step (no 3D kernel plan)")
+
+
+def test_cuda_backend_bf16_deep_fusion_matches_pallas():
+    """--fuse-steps 40 in bf16 2D: the reference's 32 + 8 passes."""
+    port, ref = _cfgs("python_cuda", "bfloat16", "cuda", fuse_steps=40,
+                      sigma=0.2)
+    np.testing.assert_array_equal(
+        np.asarray(solve(port, device="cpu").T, np.float32),
+        np.asarray(ref_solve(ref).T).astype(np.float32))
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_3d_checkpoints_resume_across_packages(tmp_cwd, writer):
+    """A 3D cuda/pallas solve cut at step 12 and resumed by the other
+    package ends on the bytes of an uninterrupted solve."""
+    kw = dict(n=14, ndim=3, ntime=20, sigma=0.15, dtype="float32", ic="hat",
+              checkpoint_every=12, checkpoint_dir=str(tmp_cwd / "ck"))
+    port_cfg = config.HeatConfig(backend="cuda", **kw)
+    ref_cfg = ref_config.HeatConfig(backend="pallas", **kw)
+    whole = ref_solve(ref_cfg.with_(checkpoint_every=0)).T
+    if writer == "port":
+        solve(port_cfg.with_(ntime=12), device="cpu")
+        res = ref_solve(ref_cfg)
+    else:
+        ref_solve(ref_cfg.with_(ntime=12))
+        res = solve(port_cfg, device="cpu")
+    assert res.start_step == 12
+    np.testing.assert_array_equal(np.asarray(res.T), np.asarray(whole))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_cuda_solve_on_card_is_the_plain_version(ndim):
+    """On the card the solve goes through the kernel, and ends on the bytes
+    the plain version computes on the CPU in the same passes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cuda_stencil.reset_launches()
+    port, _ = _cfgs("python_cuda", None, "cuda", ndim=ndim, n=40 if ndim == 3
+                    else 67, sigma=0.15)
+    got = solve(port, device="cuda")
+    name = "ftcs2d" if ndim == 2 else "ftcs3d"
+    assert got.timing.kernel == f"cuda {name}" and cuda_stencil.launches[name]
+    np.testing.assert_array_equal(got.T, solve(port, device="cpu").T)
 
 
 def test_solve_defaults_to_cuda(monkeypatch):
