@@ -25,6 +25,13 @@ a checkout of the repository, it exits non-zero and prints no result):
    k=8, bf16 k=4) and a 1024^3 f32 k=5 pass;
    then per-pass times of kernel and plain version at the main path's
    shapes and depths, and of the 4096^2 k=32 and 512^3 f32 k=4 passes;
+   the lane kernels ``lanes2d`` (2D buckets 12, 256, 1024) and ``lanes3d``
+   (3D buckets 8, 64, 256) through ``cuda_lanes.lane_multistep`` against
+   ``plain=True``: f32/bf16, edges/ghost, k in {1, 5, 16, 37}, 4 lanes with
+   their own r (one with n < B, one whose countdown ends inside the chunk,
+   one with none left, one with a NaN in its centre): fields and finite bits
+   byte-equal, resid/tmin/tmax equal on finite lanes, heat within a relative
+   1e-5; then one serving chunk of 8 lanes timed at the main path's buckets;
 3. the main path, ``heat_tpu_torch.cli.main(["run", "--backend", "cuda",
    "--json", ...])`` (what ``python -m heat_tpu_torch run`` calls) with the
    launch counts zeroed just before and read just after:
@@ -45,7 +52,28 @@ a checkout of the repository, it exits non-zero and prints no result):
    solve at sigma 0.15 under edges and ghost BC for 50 steps, each written
    to soln.dat and read back, against the serial numpy oracle at the
    reference's f32 cross-backend tolerance (atol 5e-6,
-   tests/test_backends.py).
+   tests/test_backends.py);
+5. the serve main path, ``heat_tpu_torch.cli.main(["serve", "--requests",
+   F, "--out-dir", D, "--json", "--lanes", "8", "--chunk", "16",
+   "--buckets", "256,512,1024"])`` with the lane launch counts zeroed just
+   before and read just after; F holds 56 requests from
+   ``numpy.random.default_rng(0)``: 40 2D f32 (sides 128-1024, ntime
+   1000-8000 and not a multiple of 16), 8 bf16 twins of f32 requests, 8 3D
+   f32 (sides 64-256, ntime 100-800); sigma per request, edges and ghost BC
+   in turn, four initial conditions. Every record ok; the lane launches
+   equal the passes of the dispatched chunks; no lane-kernel fallback;
+   served a second time under ``torch.profiler``, every record ok and the
+   npz files byte-equal to the first run's (the card's busy time by kernel
+   is a measurement: "not measured" where the profiler fails or sees no
+   device time); served a third time with ``--serve-lane-kernel torch``
+   (the plain versions, on the card), byte-equal npz files; six small f32
+   requests against the serial oracle (5e-6 per 30 steps); every field in
+   the maximum principle's [1, 2] envelope. Prints the served cell-steps
+   per second, the chunks, the tail chunks, the boundary wait and the
+   launches by bucket, and each bf16 twin's mean gap from its f32 request
+   beside the gaps that a wrong sigma or initial condition makes in f32
+   (a measurement: bf16 lanes round every step and stagnate, see
+   phase_serve).
 
 The last two lines: the ``nvidia-smi`` line is printed before a JSON
 object with one entry per kernel and main-path shape, and the very last
@@ -66,13 +94,24 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "_smoke"          # scratch for input.dat / soln.dat (gitignored)
-SOURCES = {"ftcs2d": "heat_tpu_torch/ops/csrc/ftcs2d.cu",
-           "ftcs3d": "heat_tpu_torch/ops/csrc/ftcs3d.cu"}
+SOURCES = {name: f"heat_tpu_torch/ops/csrc/{name}.cu"
+           for name in ("ftcs2d", "ftcs3d", "lanes2d", "lanes3d")}
 K1 = "heat_tpu/ops/pallas_stencil.py:256"   # _pallas_2d
 K2 = "heat_tpu/ops/pallas_stencil.py:633"   # _pallas_2d_coltiled
 K3 = "heat_tpu/ops/pallas_stencil.py:489"   # _pallas_3d_aligned
+K4 = "heat_tpu/ops/pallas_stencil.py:1115"  # _lane_pallas_2d
+K5 = "heat_tpu/ops/pallas_stencil.py:1279"  # _lane_pallas_3d
+# the reference's CostEstimate counts of operations per lane cell-step
+# (pallas_stencil.py:1156 and :1310), for a second bound beside the kernels'
+# own count (machine.py: 7 / 9 f32 operations per live cell-step)
+LANE_COST_ESTIMATE_OPS = {2: 11, 3: 13}
+LANE_R = {2: (0.25, 0.2, 0.1), 3: (1 / 6, 0.15, 0.1)}
+# phase 5: the serve main path's engine knobs
+SERVE_ARGS = ("--lanes", "8", "--chunk", "16", "--buckets", "256,512,1024")
 F32_ATOL = 5e-6                 # tests/test_backends.py:33
 SIGMA_3D = 1 / 6                # benchmarks/run_all.py:192
+ENVELOPE_TOL = 1e-5             # phase 5: rounding past the [1, 2] envelope
+ICS = ("hat", "hat_small", "hat_half", "uniform")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -446,6 +485,382 @@ def phase_oracle():
     return errs
 
 
+def lane_case(nd, B, dtype, k, seed):
+    """One phase-2 lane case on the card: (fields, r, n, rem) of 4 lanes."""
+    import torch
+
+    L = 4
+    m = B + 2
+    f = field((L,) + (m,) * nd, dtype, seed)
+    f[(3,) + (1 + B // 2,) * nd] = float("nan")
+    dev = f.device
+    n = torch.tensor([B - 3, B, B, B], dtype=torch.int32, device=dev)
+    rem = torch.tensor([k + 3, k // 2 if k > 1 else 0, 0, k + 1],
+                       dtype=torch.int32, device=dev)
+    r = torch.tensor(LANE_R[nd] + LANE_R[nd][:1], dtype=torch.float32,
+                     device=dev)
+    return f, r, n, rem
+
+
+def phase_lane_compare():
+    """lanes2d/lanes3d against their plain versions, bytes. Returns max
+    |err| per (kernel, bucket)."""
+    import torch
+
+    from heat_tpu_torch.ops import cuda_lanes as cl
+
+    errs = {}
+    t0 = time.perf_counter()
+    ncases = 0
+    for nd, buckets in ((2, (12, 256, 1024)), (3, (8, 64, 256))):
+        for B in buckets:
+            for dt in (torch.float32, torch.bfloat16):
+                for bc_lo in (0, 1):
+                    for k in (1, 5, 16, 37):
+                        f, r, n, rem = lane_case(nd, B, dt, k, seed=ncases)
+                        got = cl.lane_multistep(f, r, n, rem, k, bc_lo)
+                        want = cl.lane_multistep(f, r, n, rem, k, bc_lo,
+                                                 plain=True)
+                        torch.cuda.synchronize()
+                        ndiff = int((bits(got[0]) != bits(want[0])).sum())
+                        fin_ok = torch.equal(got[1], want[1])
+                        ok = want[1]
+                        st_ok = torch.equal(got[2][:3, ok], want[2][:3, ok])
+                        heat = float(((got[2][3, ok] - want[2][3, ok]).abs()
+                                      / want[2][3, ok].abs()).max())
+                        g, w = got[0].float(), want[0].float()
+                        both = torch.isfinite(g) & torch.isfinite(w)
+                        err = float((g[both] - w[both]).abs().max())
+                        key = (cl._KERNELS[nd], B)
+                        errs[key] = max(errs.get(key, 0.0), err)
+                        what = (f"{key[0]} B={B} {dt_name(dt)} "
+                                f"{('ghost', 'edges')[bc_lo]} k={k}")
+                        if ndiff or not (fin_ok and st_ok) or heat > 1e-5:
+                            print(f"  {what}: {ndiff} cells differ, finite "
+                                  f"{got[1].tolist()} vs {want[1].tolist()}, "
+                                  f"stats equal {st_ok}, heat rel {heat:g}")
+                        check(ndiff == 0, f"lane kernel != plain: {what}")
+                        check(fin_ok, f"finite bits differ: {what}")
+                        check(st_ok, f"resid/tmin/tmax differ: {what}")
+                        check(heat <= 1e-5, f"heat off by {heat:g}: {what}")
+                        ncases += 1
+                        del f, got, want, g, w
+            torch.cuda.empty_cache()
+    print(f"[phase 2] {ncases} lane-kernel-vs-plain cases, 0 differing bytes, "
+          f"stats equal, heat within 1e-5 ({time.perf_counter() - t0:.1f} s)")
+    return errs
+
+
+def phase_lane_times():
+    """One serving chunk (``lane_chunk``: the stats init and the kernel
+    passes) of 8 lanes at the main path's buckets: kernel and plain version,
+    and the bound: the stack read and written once per pass against 7 (2D)
+    or 9 (3D) f32 operations per live cell-step (every lane n = B under
+    edges BC: (B-2)^nd live cells, each stepped k times); beside it the
+    bound at the reference's CostEstimate count over every cell."""
+    import torch
+
+    from heat_tpu_torch.machine import device_model
+    from heat_tpu_torch.ops import cuda_lanes as cl
+
+    dm = device_model(0)
+    f32, bf16 = torch.float32, torch.bfloat16
+    times = {}
+    L = 8
+    for nd, B, dt, k, reps in ((2, 256, f32, 16, 200), (2, 512, f32, 16, 100),
+                               (2, 1024, f32, 16, 50), (2, 1024, bf16, 16, 50),
+                               (3, 256, f32, 1, 50), (3, 256, bf16, 1, 50)):
+        m = B + 2
+        A = field((L,) + (m,) * nd, dt, seed=B)
+        S = torch.empty_like(A)
+        dev = A.device
+        n = torch.full((L,), B, dtype=torch.int32, device=dev)
+        rem = torch.full((L,), 1 << 30, dtype=torch.int32, device=dev)
+        rem_out = torch.empty_like(rem)
+        r = torch.tensor((LANE_R[nd] * 3)[:L], dtype=torch.float32, device=dev)
+        bnd = torch.empty((cl.K_BOUNDARY, L), dtype=torch.int32, device=dev)
+
+        def chunk(plain):
+            return cl.lane_chunk(A, S, r, n, rem, rem_out, bnd, k, 1,
+                                 plain=plain)
+
+        ms = event_ms(lambda: chunk(False), reps)
+        plain_ms = event_ms(lambda: chunk(True), 1)
+        bound_s, bound_by = dm.pass_bound_s(
+            A.numel(), A.element_size(), k, ndim=nd,
+            op_points=L * (B - 2) ** nd)
+        bytes_s, _ = dm.pass_bound_s(A.numel(), A.element_size(), k,
+                                     ndim=nd, op_points=0)
+        ce_s = max(bytes_s, LANE_COST_ESTIMATE_OPS[nd] * A.numel() * k
+                   / dm.peaks.f32_flops_per_s)
+        name = cl._KERNELS[nd]
+        times[(name, B, dt)] = dict(k=k, ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound_s * 1e3, bound_by=bound_by,
+                                    cost_estimate_bound_ms=ce_s * 1e3)
+        print(f"  {name} {L}x{m}^{nd} {dt_name(dt)} k={k}: {ms:.4f} ms/chunk "
+              f"(plain {plain_ms:.2f} ms, bound {bound_s * 1e3:.4f} ms by "
+              f"{bound_by}, {bound_s * 1e3 / ms:.1%} of it; at the "
+              f"reference's CostEstimate count {ce_s * 1e3:.4f} ms)")
+        del A, S
+        torch.cuda.empty_cache()
+    print("[phase 2] lane times taken")
+    return times
+
+
+def serve_population(path: Path) -> list:
+    """Phase 5's requests, written to ``path`` as JSON lines; returns them."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    ics = ICS
+
+    def ntime(lo, hi):
+        while True:
+            t = int(rng.integers(lo, hi + 1))
+            if t % 16:
+                return t
+
+    reqs = []
+    for i in range(40):
+        reqs.append(dict(id=f"f32-{i:02d}", n=int(rng.integers(128, 1025)),
+                         ntime=ntime(1000, 8000), dtype="float32",
+                         sigma=float(rng.choice(LANE_R[2])),
+                         bc=("edges", "ghost")[i % 2], bc_value=1.0,
+                         ic=ics[i % 4]))
+    for i in range(8):        # bf16 twins of every fifth f32 request
+        reqs.append(dict(reqs[5 * i], id=f"bf16-{i}", dtype="bfloat16"))
+    for i in range(8):
+        reqs.append(dict(id=f"3d-{i}", ndim=3, n=int(rng.integers(64, 257)),
+                         ntime=ntime(100, 800), dtype="float32",
+                         sigma=float(rng.choice(LANE_R[3])),
+                         bc=("edges", "ghost")[i % 2], bc_value=1.0,
+                         ic=ics[i % 4]))
+    path.write_text("".join(json.dumps(r) + "\n" for r in reqs))
+    return reqs
+
+
+def cli_serve(reqfile: Path, out_dir: Path, *extra):
+    """One ``serve`` through the CLI entry point, the lane launch counts
+    zeroed just before and read just after. Returns (rc, records, summary,
+    launches by kernel, wall seconds)."""
+    from heat_tpu_torch import cli
+    from heat_tpu_torch.ops import cuda_lanes as cl
+
+    buf = io.StringIO()
+    cl.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["serve", "--requests", str(reqfile), "--out-dir",
+                       str(out_dir), "--json", *SERVE_ARGS, *extra])
+    wall = time.perf_counter() - t0
+    launches = dict(cl.launches)
+    lines = buf.getvalue().splitlines()
+    records = [json.loads(x) for x in lines if x.startswith("{")
+               and json.loads(x).get("event") == "serve_request"]
+    summary = json.loads(lines[-1])
+    print("".join(f"    | {x}\n" for x in lines
+                  if not x.startswith('{"bc"')), end="")
+    return rc, records, summary, launches, wall
+
+
+def npz_differ(ids, a: Path, b: Path) -> list:
+    """The ids whose ``<id>.npz`` in ``a`` and ``b`` are not byte-equal."""
+    return [i for i in ids
+            if (a / f"{i}.npz").read_bytes() != (b / f"{i}.npz").read_bytes()]
+
+
+def phase_serve(smi):
+    """The serve main path on the card (see the module docstring)."""
+    import numpy as np
+
+    from heat_tpu_torch import HeatConfig, solve
+    from heat_tpu_torch.serve.engine import bf16_to_float32
+
+    reqfile = WORK / "requests.jsonl"
+    reqs = serve_population(reqfile)
+    ids = [r["id"] for r in reqs]
+    by_id = {r["id"]: r for r in reqs}
+    out_k, out_t = WORK / "serve-cuda", WORK / "serve-torch"
+    print(f"[phase 5] serve {len(reqs)} requests: {' '.join(SERVE_ARGS)}")
+    rc, recs, summary, launches, wall = cli_serve(reqfile, out_k)
+    check(rc == 0, f"serve exited {rc}")
+    check(len(recs) == len(reqs) and all(r["status"] == "ok" for r in recs),
+          "not every request served ok")
+    check(summary["lane_kernel_fallbacks"] == 0, "a bucket fell back to torch")
+    passes = summary["lane_passes"]
+    check(launches == {k: passes.get(k, 0) for k in launches},
+          f"lane launches {launches} != the dispatched chunks' passes {passes}")
+    check(launches["lanes2d"] > 0 and launches["lanes3d"] > 0,
+          f"serve did not launch both lane kernels: {launches}")
+    # the launches by bucket, from the scheduler's count of the dispatched
+    # chunks' passes (whose totals the wrappers' counts just matched)
+    by_bucket = summary["lane_passes_by_bucket"]
+    cell_steps = sum(r["n"] ** r.get("ndim", 2) * r["ntime"] for r in reqs)
+    rate = cell_steps / wall
+    print(f"  served {len(recs)} requests, {cell_steps} cell-steps in "
+          f"{wall:.3f} s: {rate:.6g} cell-steps/s; "
+          f"{summary['chunks_dispatched']} chunks ({summary['tail_chunks']} "
+          f"tail), boundary_wait_s {summary['boundary_wait_s']}, est. device "
+          f"idle {summary['device_idle_s']} s, launches {launches} on {smi}")
+    for bucket, count in by_bucket.items():
+        print(f"    {count} launches of {bucket}")
+
+    profile = profiled_serve(reqfile, WORK / "serve-profiled", wall, ids, out_k)
+
+    print("[phase 5] the same file with --serve-lane-kernel torch (the plain "
+          "versions, on the card)")
+    rc_t, recs_t, summary_t, launches_t, wall_t = cli_serve(
+        reqfile, out_t, "--serve-lane-kernel", "torch")
+    check(rc_t == 0 and all(r["status"] == "ok" for r in recs_t),
+          "torch lane body run failed")
+    check(not any(launches_t.values()) and not summary_t["lane_passes"],
+          f"torch body launched {launches_t}")
+    ndiff = npz_differ(ids, out_k, out_t)
+    print(f"  {len(reqs) - len(ndiff)} of {len(reqs)} npz files byte-equal "
+          f"(torch body {wall_t:.3f} s, {cell_steps / wall_t:.6g} "
+          f"cell-steps/s)")
+    check(not ndiff, f"npz differ from the plain versions' run: {ndiff}")
+
+    def field_of(rid):
+        with np.load(out_k / f"{rid}.npz") as z:
+            T = z["T"]
+        return bf16_to_float32(T) if T.dtype == np.dtype("V2") else T
+
+    def cost(r):
+        return r["n"] ** r.get("ndim", 2) * r["ntime"]
+
+    def config(r):
+        return HeatConfig(**{k: v for k, v in r.items() if k != "id"})
+
+    small = (sorted((r for r in reqs if r["dtype"] == "float32"
+                     and r.get("ndim", 2) == 2), key=cost)[:4]
+             + sorted((r for r in reqs if r.get("ndim", 2) == 3), key=cost)[:2])
+    oracle_errs = {}
+    for r in small:
+        cfg = config(r)
+        want = solve(cfg.with_(backend="serial")).T
+        got = field_of(r["id"])
+        check(got.shape == want.shape and np.isfinite(got).all(),
+              f"bad field {r['id']}")
+        err = float(np.abs(got - want).max())
+        atol = F32_ATOL * cfg.ntime / 30
+        oracle_errs[r["id"]] = err
+        print(f"  {r['id']} ({cfg.n}^{cfg.ndim}, {cfg.ntime} steps, sigma "
+              f"{cfg.sigma:.6g}, {cfg.bc}) vs serial oracle: max|err| "
+              f"{err:g} (atol {atol:g} = 5e-6 per 30 steps)")
+        check(err <= atol, f"{r['id']} off the serial oracle")
+    # every field inside the discrete maximum principle's envelope: the
+    # initial conditions and bc_value lie in [1, 2], and an FTCS step at
+    # sigma <= 1/(2 ndim) is a convex combination (an ulp of rounding aside)
+    for r in reqs:
+        T = field_of(r["id"])
+        lo, hi = float(T.min()), float(T.max())
+        check(1.0 - ENVELOPE_TOL <= lo and hi <= 2.0 + ENVELOPE_TOL,
+              f"{r['id']} left the [1, 2] envelope: [{lo!r}, {hi!r}]")
+    print(f"  all {len(reqs)} fields inside the [1, 2] envelope "
+          f"(+-{ENVELOPE_TOL:g})")
+    # bf16 against f32: a measurement, not a check. The lanes round to bf16
+    # after EVERY step (the reference's lane programs do), so a cell stops
+    # moving once its update is under half a bf16 ulp (2^-8 on [1, 2)) and
+    # over thousands of steps the bf16 field stagnates behind the f32 one.
+    # Beside each gap stand the planted faults' readings: how far the f32
+    # request's field lies from an f32 solve (on the card) of the same
+    # request with another sigma or another initial condition, that is, the
+    # gap a lane that took another request's r or IC would show. Where the
+    # stagnation gap is the larger, no limit on it tells such a fault apart;
+    # the bf16 lanes are held to the plain body's bytes above instead (and,
+    # in the CPU tests, to the JAX engine's).
+    drift = {}
+    for i in range(8):
+        twin = by_id[f"bf16-{i}"]
+        src = next(r for r in reqs if r["dtype"] == "float32"
+                   and all(r.get(k) == twin.get(k) for k in
+                           ("n", "ntime", "sigma", "bc", "ic")))
+        f32 = field_of(src["id"]).astype(np.float64)
+        d = float(np.mean(np.abs(field_of(twin["id"]) - f32)))
+        planted = {}
+        for key, values in (("sigma", LANE_R[2]), ("ic", ICS)):
+            for v in values:
+                if v != src[key]:
+                    T = solve(config(dict(src, **{key: v})).with_(
+                        backend="cuda"), device="cuda").T
+                    planted[f"{key} {v:.6g}" if key == "sigma"
+                            else f"{key} {v}"] = float(np.mean(np.abs(T - f32)))
+        drift[twin["id"]] = dict(gap=d, planted=planted)
+        print(f"  {twin['id']} ({twin['n']}^2, {twin['ntime']} steps, sigma "
+              f"{twin['sigma']:.6g}, {twin['ic']}) vs {src['id']}: mean |dT| "
+              f"{d:.6g}; planted faults in f32: "
+              + ", ".join(f"{k} {v:.6g}" for k, v in planted.items()))
+    return dict(launches=launches, by_bucket=by_bucket, summary=summary,
+                wall_s=wall, cell_steps_per_s=rate, oracle_errs=oracle_errs,
+                bf16_drift=drift, profile=profile)
+
+
+def profiled_serve(reqfile: Path, out_dir: Path, wall: float, ids: list,
+                   ref_dir: Path):
+    """The kernel-body serve once more under ``torch.profiler``: the card's
+    busy time by kernel (the unprofiled run's wall is the denominator of the
+    busy share, since profiling slows the host) and the host's heaviest
+    calls. The run is checked as the first one is (exit code, every record
+    ok) and its npz files must be byte-equal to the first run's; only the
+    profiler's own steps report "not measured" where they fail."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    print("[phase 5] the same file once more under torch.profiler")
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except Exception as e:  # noqa: BLE001 — a measurement, not a check
+        print(f"  device busy share: not measured (the profiler did not "
+              f"start: {type(e).__name__}: {e})")
+        prof = None
+    rc, recs, _, _, pwall = cli_serve(reqfile, out_dir)
+    check(rc == 0, f"profiled serve exited {rc}")
+    check(len(recs) == len(ids) and all(r["status"] == "ok" for r in recs),
+          "not every request of the profiled serve ok")
+    ndiff = npz_differ(ids, out_dir, ref_dir)
+    check(not ndiff, f"profiled serve's npz differ from the first run's: "
+                     f"{ndiff}")
+    print(f"  {len(ids)} of {len(ids)} npz files byte-equal to the first "
+          f"run's")
+    if prof is None:
+        return None
+    try:
+        prof.stop()
+        torch.cuda.synchronize()
+        rows = prof.key_averages()
+    except Exception as e:  # noqa: BLE001 — a measurement, not a check
+        print(f"  device busy share: not measured ({type(e).__name__}: {e})")
+        return None
+
+    def dev_us(evt):
+        return getattr(evt, "self_device_time_total",
+                       getattr(evt, "self_cuda_time_total", 0))
+
+    device = sorted(((dev_us(e), e.key, e.count) for e in rows
+                     if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                    reverse=True)
+    busy_s = sum(t for t, _, _ in device) / 1e6
+    if busy_s <= 0:
+        print("  device busy share: not measured (the profiler recorded no "
+              "device time)")
+        return None
+    print(f"  device busy {busy_s:.6f} s: {busy_s / wall:.1%} of the "
+          f"unprofiled serve's {wall:.3f} s wall ({busy_s / pwall:.1%} of "
+          f"the profiled {pwall:.3f} s)")
+    for t, key, count in device[:6]:
+        print(f"    device {t / 1e6:.6f} s in {count} x {key[:60]}")
+    host = sorted(((e.self_cpu_time_total, e.key, e.count) for e in rows
+                   if e.device_type == DeviceType.CPU), reverse=True)
+    for t, key, count in host[:8]:
+        print(f"    host {t / 1e6:.6f} s in {count} x {key[:60]}")
+    return dict(busy_s=busy_s, busy_share=busy_s / wall,
+                profiled_wall_s=pwall,
+                device=[(key, t / 1e6, count) for t, key, count in device[:6]])
+
+
 def main() -> int:
     import torch
 
@@ -465,8 +880,11 @@ def main() -> int:
         phase_build()
         errs = phase_compare()
         times = phase_times()
+        errs.update(phase_lane_compare())
+        times.update(phase_lane_times())
         runs = phase_main_path(smi)
         phase_oracle()
+        serve = phase_serve(smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
@@ -489,6 +907,31 @@ def main() -> int:
             launches=launches, max_abs_err=errs[(name, shape)],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=None))
+    # the lane kernels at the serve main path's buckets: one serving chunk
+    # of 8 lanes (k steps: lanes2d one pass, lanes3d one launch per step),
+    # launches those of phase 5 at that bucket and dtype (every lane tier);
+    # no single PyTorch call computes the fused lane chunk; bound_ms at the
+    # kernels' own operation count, cost_estimate_bound_ms at the
+    # reference's
+    for name, B, dt, replaces in (("lanes2d", 256, f32, K4),
+                                  ("lanes2d", 512, f32, K4),
+                                  ("lanes2d", 1024, f32, K4),
+                                  ("lanes2d", 1024, bf16, K4),
+                                  ("lanes3d", 256, f32, K5)):
+        t = times[(name, B, dt)]
+        nd = 2 if name == "lanes2d" else 3
+        launches = serve["by_bucket"].get(
+            f"{name} {B} {str(dt).replace('torch.', '')}", 0)
+        check(launches > 0, f"phase 5 never launched {name} at {B + 2}^{nd} "
+                            f"{dt_name(dt)}")
+        kernels.append(dict(
+            name=f"{name} 8x{B + 2}^{nd} {dt_name(dt)} k={t['k']}",
+            route="cuda", source=SOURCES[name], replaces=replaces,
+            launches=launches,
+            max_abs_err=max(v for (n_, _), v in errs.items() if n_ == name),
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None,
+            cost_estimate_bound_ms=t["cost_estimate_bound_ms"]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ variant choice becomes ``--backend`` / ``--variant``; ``SINGLE_PRECISION``
 becomes ``--dtype``. Solves run on the card (``--device cuda``, the
 default) unless ``--device cpu`` is given.
 
-Usage: ``python -m heat_tpu_torch run [--backend cuda] [--json]`` and
+Usage: ``python -m heat_tpu_torch run [--backend cuda] [--json]``,
+``python -m heat_tpu_torch serve --requests FILE.jsonl [--json]`` (the
+serving engine: one ``<id>.npz`` per request with ``--out-dir``) and
 ``python -m heat_tpu_torch info``.
 """
 
@@ -80,6 +82,79 @@ def build_parser() -> argparse.ArgumentParser:
                      help="force solution dump even if input.dat flag is 0")
     run.add_argument("--json", action="store_true",
                      help="also print a machine-readable result line")
+
+    serve = sub.add_parser(
+        "serve",
+        help="serving engine: drain a JSONL file of solve requests as "
+             "continuously-batched stacked lanes on the card")
+    serve.add_argument("--requests", metavar="FILE.jsonl", required=True,
+                       help="JSON Lines: one request object per line, keys "
+                            "= HeatConfig physics fields (n, ntime, sigma, "
+                            "nu, dom_len, ndim, dtype, ic, bc, bc_value) + "
+                            "optional id, deadline_ms, tenant, class; '#' "
+                            "lines are comments")
+    serve.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                       help="where the lanes live (default cuda)")
+    serve.add_argument("--lanes", type=int, default=4,
+                       help="max concurrent requests per bucket group "
+                            "(default 4)")
+    serve.add_argument("--chunk", type=int, default=16,
+                       help="steps per chunk — the swap granularity of "
+                            "continuous batching (default 16)")
+    serve.add_argument("--buckets", default="256,512,1024",
+                       help="comma-separated grid-side buckets; a request "
+                            "is padded up to the smallest side that fits "
+                            "(default 256,512,1024)")
+    serve.add_argument("--dispatch-depth", default="on", metavar="on|off|N",
+                       help="chunks kept in flight per bucket group: 'on' "
+                            "(default) = 2; N >= 1 explicitly; 'off' = "
+                            "fully synchronous fallback (fence every "
+                            "boundary)")
+    serve.add_argument("--out-dir", metavar="DIR",
+                       help="write each result as DIR/<id>.npz (atomic "
+                            "publish); default: results stay in memory")
+    serve.add_argument("--serve-lane-kernel", dest="serve_lane_kernel",
+                       choices=["auto", "cuda", "torch"], default="auto",
+                       help="chunk body per bucket: 'auto' (default) = the "
+                            "hand-written lane kernels on the card wherever "
+                            "the bucket has one (f32/bf16), the plain "
+                            "PyTorch lane step elsewhere; 'cuda'/'torch' "
+                            "force it (same bytes). An f64 bucket under "
+                            "'cuda' degrades to torch as a structured "
+                            "lane_kernel_fallback record, never an error")
+    serve.add_argument("--serve-deadline", dest="serve_deadline",
+                       type=float, metavar="MS",
+                       help="engine-default per-request wall budget in ms "
+                            "from submission (a request's own deadline_ms "
+                            "overrides): over-deadline lanes are preempted "
+                            "at their next chunk boundary, queued requests "
+                            "past it are shed (default: no deadline)")
+    serve.add_argument("--max-queue", dest="max_queue", type=int,
+                       metavar="N",
+                       help="admission bound: submits beyond N queued "
+                            "requests are shed with a structured "
+                            "'overloaded' rejection (default: unbounded)")
+    serve.add_argument("--fetch-watchdog", dest="fetch_watchdog",
+                       type=float, metavar="SECONDS", default=600.0,
+                       help="boundary-fetch watchdog: a chunk-boundary wait "
+                            "exceeding this fails that bucket group's "
+                            "requests cleanly (default 600; 0 = off)")
+    serve.add_argument("--policy", choices=["fifo", "edf", "fair"],
+                       default="fifo",
+                       help="admission ordering: fifo (default, submit "
+                            "order), edf (SLO class, then earliest "
+                            "deadline), fair (weighted fair share across "
+                            "tenants)")
+    serve.add_argument("--tenant-weights", dest="tenant_weights",
+                       metavar="NAME=W,...",
+                       help="fair-share weights per tenant (policy=fair); "
+                            "unlisted tenants weigh 1.0")
+    serve.add_argument("--tenant-quota", dest="tenant_quota", type=int,
+                       metavar="N",
+                       help="per-tenant admission sub-quota: one tenant may "
+                            "hold at most N queued requests")
+    serve.add_argument("--json", action="store_true",
+                       help="also print the summary as one JSON line")
 
     sub.add_parser("info", help="show devices / kernel toolchain / native-lib status")
     return p
@@ -178,6 +253,82 @@ def cmd_run(args) -> int:
     return 0
 
 
+def _serve_report(summary: dict, ok: int, args) -> None:
+    """The end-of-serve report: the reference's lines for what the port
+    serves, and the summary as JSON with --json."""
+    failed = summary["requests"] - ok - summary.get("rejected", 0)
+    master_print(f"served {summary['requests']} request(s): {ok} ok, "
+                 f"{summary.get('rejected', 0)} rejected, {failed} failed "
+                 f"(device {summary['device']}, {summary['compile_s']:.3f}s "
+                 f"loading kernels)")
+    passes = summary.get("lane_passes") or {}
+    master_print(f"dispatch: depth {summary['dispatch_depth']}, "
+                 f"policy {summary['policy']}, "
+                 f"lane kernel {summary['lane_kernel']}"
+                 + (f" ({summary['lane_kernel_fallbacks']} bucket tier(s) "
+                    f"fell back to the torch lane step)"
+                    if summary["lane_kernel_fallbacks"] else "")
+                 + f", {summary['chunks_dispatched']} chunk(s) "
+                 f"({summary['tail_chunks']} tail)"
+                 + "".join(f", {v} {k} launch(es)" for k, v in
+                           sorted(passes.items()))
+                 + f", {summary['boundary_waits']} boundary wait(s) totaling "
+                 f"{summary['boundary_wait_s']:.3f}s, est. device idle "
+                 f"{summary['device_idle_s']:.3f}s")
+    if any(summary[k] for k in ("lanes_quarantined", "deadline_misses",
+                                "shed", "watchdog_fired")):
+        master_print(f"fault domains: "
+                     f"{summary['lanes_quarantined']} quarantined, "
+                     f"{summary['deadline_misses']} deadline miss(es), "
+                     f"{summary['shed']} shed, "
+                     f"{summary['watchdog_fired']} watchdog timeout(s)")
+    if args.json:
+        master_print(json.dumps(summary, sort_keys=True))
+
+
+def cmd_serve(args) -> int:
+    """Drain a JSONL request file through the batched serving engine.
+
+    Per-request structured records stream as JSON lines while lanes finish;
+    the exit code is 0 only when every request served cleanly (a rejected
+    or failed request is that request's record AND a nonzero exit)."""
+    from .backends import resolve_device
+    from .config import (parse_dispatch_depth, parse_tenant_weights)
+    from .serve import ServeConfig, serve_requests
+
+    path = Path(args.requests)
+    if not path.exists():
+        print(f"error: {path} not found", file=sys.stderr)
+        return 2
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:  # no card where one was asked for
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    try:
+        buckets = tuple(int(b) for b in str(args.buckets).split(",") if b)
+        scfg = ServeConfig(lanes=args.lanes, chunk=args.chunk,
+                           buckets=buckets, out_dir=args.out_dir,
+                           dispatch_depth=parse_dispatch_depth(
+                               args.dispatch_depth),
+                           lane_kernel=args.serve_lane_kernel,
+                           deadline_ms=args.serve_deadline,
+                           max_queue=args.max_queue,
+                           fetch_timeout_s=(args.fetch_watchdog
+                                            if args.fetch_watchdog else None),
+                           policy=args.policy,
+                           tenant_weights=parse_tenant_weights(
+                               args.tenant_weights or ""),
+                           tenant_quota=args.tenant_quota)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    records, summary = serve_requests(path, scfg, device=device)
+    ok = sum(1 for r in records if r["status"] == "ok")
+    _serve_report(summary, ok, args)
+    return 0 if ok == summary["requests"] else 1
+
+
 def cmd_info(_args) -> int:
     import torch
 
@@ -199,7 +350,8 @@ def cmd_info(_args) -> int:
                   f"opt-in shared memory/block {dm.smem_per_block_optin} B{peak}")
     nvcc = Path(_build.nvcc())
     print(f"nvcc: {nvcc if nvcc.exists() else 'not found'} "
-          f"(kernels build on first CUDA launch into {_build.BUILD_DIR})")
+          f"(kernels {', '.join(_build.KERNELS)} build on first CUDA launch "
+          f"into {_build.BUILD_DIR})")
     print(f"native fastio: "
           f"{'available' if native_available() else 'unavailable (numpy fallback)'}")
     return 0
@@ -207,7 +359,8 @@ def cmd_info(_args) -> int:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    return {"run": cmd_run, "info": cmd_info}[args.command](args)
+    return {"run": cmd_run, "serve": cmd_serve,
+            "info": cmd_info}[args.command](args)
 
 
 if __name__ == "__main__":

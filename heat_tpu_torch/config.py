@@ -19,6 +19,7 @@ so checkpoint fingerprints stay those of the reference.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from pathlib import Path
 from typing import Optional, Tuple
@@ -32,6 +33,14 @@ _ASYNC_IO = ("on", "off", "auto")
 _ON_NAN = ("abort", "rollback")
 _EXCHANGES = ("seq", "indep", "overlap")
 _LOCAL_KERNELS = ("auto", "torch", "cuda")
+
+# --serve-lane-kernel grammar (serve/scheduler.py ServeConfig.lane_kernel):
+# the serving engine's chunk body per bucket. "auto" = the hand-written lane
+# kernels on a CUDA device wherever the bucket has one (f32/bf16), the plain
+# PyTorch lane step elsewhere; "cuda"/"torch" force it (an f64 bucket under
+# "cuda" degrades to torch as a structured lane_kernel_fallback record +
+# counter, never an error). The reference's ("auto", "pallas", "xla").
+LANE_KERNELS = ("auto", "cuda", "torch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,6 +193,161 @@ def parse_input(path: str | Path) -> HeatConfig:
     ntime = int(toks[4])
     soln = bool(int(toks[5])) if len(toks) >= 6 else False
     return HeatConfig(n=n, sigma=sigma, nu=nu, dom_len=dom_len, ntime=ntime, soln=soln)
+
+
+# Request-JSONL surface of the serving engine (serve/api.py): the physics
+# and per-request knobs a tenant may set. Framework-level execution knobs
+# (backend, mesh, checkpointing, async_io) are engine policy, not request
+# payload — a request naming them is a typo or a privilege confusion, and
+# both must reject loudly rather than silently serve different physics.
+_REQUEST_KEYS = ("n", "sigma", "nu", "dom_len", "ntime", "ndim", "dtype",
+                 "ic", "bc", "bc_value", "inject")
+
+# Request keys the SCHEDULER owns (never part of the physics config): "id"
+# names the record, "deadline_ms" bounds the request's wall time from
+# submission (overriding the engine-default --serve-deadline), "tenant"
+# names the submitting tenant (fair-share accounting + per-tenant quotas),
+# "class" picks the SLO class, and "until"/"tol" pick the completion
+# semantics — see serve/scheduler.py + serve/policy.py.
+_SCHEDULER_KEYS = ("id", "deadline_ms", "tenant", "class", "until", "tol")
+
+# SLO classes of the serving front-end, name -> admission priority (lower is
+# more urgent). The class shapes admission order (serve/policy.py edf/fair)
+# and never reaches the physics.
+SLO_CLASSES = {"interactive": 0, "standard": 1, "batch": 2}
+DEFAULT_SLO_CLASS = "standard"
+DEFAULT_TENANT = "default"
+
+_TENANT_RE = re.compile(r"^[A-Za-z0-9._-]{1,64}$")
+
+
+def validate_slo_fields(tenant, slo_class) -> Tuple[str, str]:
+    """Validate (and default) a request's tenant/class pair. Raised errors
+    are per-request rejections at the JSONL front door."""
+    tenant = DEFAULT_TENANT if tenant is None else str(tenant)
+    if not _TENANT_RE.match(tenant):
+        raise ValueError(
+            f"tenant must match {_TENANT_RE.pattern} (1-64 chars of "
+            f"[A-Za-z0-9._-]), got {tenant!r}")
+    slo_class = DEFAULT_SLO_CLASS if slo_class is None else str(slo_class)
+    if slo_class not in SLO_CLASSES:
+        raise ValueError(
+            f"class must be one of {sorted(SLO_CLASSES)} (priority order "
+            f"{sorted(SLO_CLASSES, key=SLO_CLASSES.get)}), got {slo_class!r}")
+    return tenant, slo_class
+
+
+# Completion semantics of a request: "steps" runs exactly ntime steps;
+# "steady" retires the lane once its residual passes a tolerance (the
+# reference's semantic scheduling; its engine support is not ported yet,
+# so the port's engine rejects such a request as a record).
+UNTIL_MODES = ("steps", "steady")
+DEFAULT_UNTIL = "steps"
+
+
+def validate_until_fields(until, tol) -> Tuple[str, Optional[float]]:
+    """Validate (and default) a request's until/tol pair. ``tol`` is only
+    meaningful with ``until=steady``; supplying it on a fixed-step request
+    is rejected loudly."""
+    until = DEFAULT_UNTIL if until is None else str(until)
+    if until not in UNTIL_MODES:
+        raise ValueError(
+            f"until must be one of {list(UNTIL_MODES)}, got {until!r}")
+    if tol is not None:
+        if until != "steady":
+            raise ValueError(
+                f"tol is only valid with until='steady', got until={until!r}")
+        try:
+            tol = float(tol)
+        except (TypeError, ValueError):
+            raise ValueError(f"tol must be a positive number, got {tol!r}")
+        if not (tol > 0.0) or not math.isfinite(tol):
+            raise ValueError(f"tol must be a positive finite number, "
+                             f"got {tol!r}")
+    return until, tol
+
+
+def parse_tenant_weights(s) -> Tuple[Tuple[str, float], ...]:
+    """``--tenant-weights a=4,b=1`` -> (("a", 4.0), ("b", 1.0)). Unlisted
+    tenants weigh 1.0 (serve/policy.py FairShareQueue)."""
+    out = []
+    for tok in str(s).split(","):
+        tok = tok.strip()
+        if not tok:
+            continue
+        name, sep, w = tok.partition("=")
+        if not sep:
+            raise ValueError(
+                f"--tenant-weights entries must be NAME=WEIGHT, got {tok!r}")
+        tenant, _ = validate_slo_fields(name.strip(), None)
+        try:
+            weight = float(w)
+        except ValueError:
+            raise ValueError(
+                f"--tenant-weights weight must be a number, got {w!r}"
+            ) from None
+        if not weight > 0:
+            raise ValueError(
+                f"--tenant-weights weight must be > 0, got {weight}")
+        out.append((tenant, weight))
+    return tuple(out)
+
+
+def parse_on_off(v, flag: str) -> bool:
+    """``on``/``off`` CLI grammar shared by boolean serve knobs."""
+    s = str(v).strip().lower()
+    if s == "on":
+        return True
+    if s == "off":
+        return False
+    raise ValueError(f"{flag} must be 'on' or 'off', got {v!r}")
+
+
+def parse_dispatch_depth(v) -> int:
+    """``--dispatch-depth`` grammar (serve CLI): ``on`` -> 2 (inspect chunk
+    i's boundary while chunk i+1 computes), ``off`` -> 0 (fully synchronous
+    debugging fallback — fence every boundary), an integer N >= 1 -> keep N
+    chunks in flight per bucket group."""
+    s = str(v).strip().lower()
+    if s == "on":
+        return 2
+    if s == "off":
+        return 0
+    try:
+        n = int(s)
+    except ValueError:
+        raise ValueError(
+            f"--dispatch-depth must be 'on', 'off', or an integer >= 1, "
+            f"got {v!r}") from None
+    if n < 1:
+        raise ValueError(
+            f"--dispatch-depth integer form must be >= 1 (use 'off' for "
+            f"the synchronous fallback), got {n}")
+    return n
+
+
+def config_from_request(d) -> HeatConfig:
+    """Build a HeatConfig from one parsed serve-request object.
+
+    The scheduler's keys (``_SCHEDULER_KEYS``) are skipped, everything else
+    must be a known request key; HeatConfig's own __post_init__ then
+    validates values exactly as it does for the CLI, so a request cannot
+    express a config the solo path would reject."""
+    unknown = set(d) - set(_REQUEST_KEYS) - set(_SCHEDULER_KEYS)
+    if unknown:
+        raise ValueError(
+            f"unknown request key(s) {sorted(unknown)}; allowed: "
+            f"{sorted(_REQUEST_KEYS)} (+ optional {sorted(_SCHEDULER_KEYS)})")
+    kw = {k: d[k] for k in _REQUEST_KEYS if k in d}
+    # JSON numbers arrive untyped: pin the integer fields (a float n would
+    # sail through range validation and break shapes much later)
+    for k in ("n", "ntime", "ndim"):
+        if k in kw:
+            kw[k] = int(kw[k])
+    for k in ("sigma", "nu", "dom_len", "bc_value"):
+        if k in kw:
+            kw[k] = float(kw[k])
+    return HeatConfig(**kw)
 
 
 def write_input(cfg: HeatConfig, path: str | Path) -> None:

@@ -4,9 +4,10 @@ The sources under ``ops/csrc`` have a plain C interface; ``nvcc`` compiles
 them straight into a shared library for ``sm_90a``, which ``ctypes`` loads.
 (Including PyTorch's headers, as ``torch.utils.cpp_extension.load`` does,
 makes one file take minutes to compile; this takes seconds.) The library
-lands in ``heat_tpu_torch/_build/``, named by a hash of the source and the
-flags, so a changed source or flag set builds anew and an unchanged one is
-reused by every later process of the same checkout.
+lands in ``heat_tpu_torch/_build/``, named by a hash of the source, the
+headers beside it (``csrc/*.cuh``) and the flags, so a changed source,
+header or flag set builds anew and an unchanged one is reused by every
+later process of the same checkout.
 
 Nothing here runs at import: the first CUDA launch builds, so the package
 imports on hosts without ``nvcc``.
@@ -26,7 +27,7 @@ from typing import Optional
 
 _CSRC = Path(__file__).parent / "csrc"
 # the kernels, by source name: csrc/<name>.cu exports heat_<name>()
-KERNELS = ("ftcs2d", "ftcs3d")
+KERNELS = ("ftcs2d", "ftcs3d", "lanes2d", "lanes3d")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 # -fmad=false: no contraction of a*b+c anywhere the source does not ask for
@@ -53,6 +54,8 @@ def build(name: str) -> Path:
     library's path. Raises with nvcc's output when the build fails."""
     src = _CSRC / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        key.update(header.name.encode() + header.read_bytes())
     so = BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
     if so.exists():
         return so

@@ -21,6 +21,12 @@ This is ``heat_tpu.runtime.async_io``'s contract, unchanged:
 - **Accounting**: ``busy_s`` (writer wall time in fetch+write), ``wait_s``
   (drive-loop wall time blocked on the pipeline), and
   ``hidden_s = max(0, busy_s - wait_s)``, reported as ``Timing.overlap_s``.
+
+The serving engine's half (``serve/``): ``d2h_async`` / ``lane_snapshot``
+start a device-to-host copy into pinned memory behind the work already
+queued and record an event, so a later wait blocks on that copy alone (a
+plain ``tensor.cpu()`` would wait for every chunk queued on the stream);
+``bounded_call`` puts a watchdog on such a wait.
 """
 
 from __future__ import annotations
@@ -48,6 +54,44 @@ _TRANSIENT_ERRNOS = frozenset({
     errno.EIO, errno.ENOSPC, errno.EAGAIN, errno.EBUSY, errno.ETIMEDOUT,
     errno.EINTR,
 })
+
+
+class BoundedFetchTimeout(TimeoutError):
+    """A watchdog-bounded device fetch did not complete in time (wedged
+    device). The abandoned daemon thread may still be blocked on the
+    transfer; the caller must treat the fetched-from state as lost."""
+
+
+def bounded_call(fn: Callable[[], object], timeout_s: float,
+                 what: str = "device fetch"):
+    """Run ``fn`` in a daemon thread and wait at most ``timeout_s``.
+
+    The boundary-fetch watchdog of the serving engine: a wait on a wedged
+    device blocks uninterruptibly, so the only way to bound it is to move
+    the blocking call off the waiting thread and abandon it on timeout.
+    Exceptions raised by ``fn`` re-raise here; a timeout raises
+    ``BoundedFetchTimeout``."""
+    result: list = [None, None]     # [value, exception]
+    done = threading.Event()
+
+    def runner():
+        try:
+            result[0] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised on the caller
+            result[1] = e
+        finally:
+            done.set()
+
+    t = threading.Thread(target=runner, daemon=True,
+                         name="heat-bounded-fetch")
+    t.start()
+    if not done.wait(timeout_s):
+        raise BoundedFetchTimeout(
+            f"{what} did not complete within {timeout_s:g}s (wedged "
+            f"device fetch?) — abandoning the fetch thread")
+    if result[1] is not None:
+        raise result[1]
+    return result[0]
 
 
 def is_transient(e: BaseException) -> bool:
@@ -204,3 +248,43 @@ def device_snapshot(T):
     if isinstance(T, torch.Tensor):
         return T.clone()
     return np.array(T)
+
+
+class PendingCopy:
+    """A device-to-host copy in flight: a pinned host tensor, filled by a
+    non-blocking copy enqueued on the device's stream, and the event
+    recorded right after it. ``wait()`` blocks on that event only — never
+    on the chunks queued behind the copy — and returns the host tensor."""
+
+    def __init__(self, src):
+        import torch
+
+        self.host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        self.host.copy_(src, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(src.device))
+        self._src = src   # alive until the copy is done (stream order)
+
+    def wait(self):
+        self.event.synchronize()
+        self._src = None
+        return self.host
+
+
+def d2h_async(x):
+    """Start the device-to-host copy of ``x``: a ``PendingCopy`` for a CUDA
+    tensor; a CPU tensor is returned as it is (its bytes are already on
+    the host, and nobody writes it afterwards)."""
+    if x.device.type == "cuda":
+        return PendingCopy(x)
+    return x
+
+
+def lane_snapshot(stacked, lane: int):
+    """One-LANE copy out of a stacked ``(L, ...)`` lane array (or a view of
+    one): a device clone enqueued behind the chunks already in flight, then
+    its pinned non-blocking D2H copy and an event — so the scheduler resumes
+    dispatching at once and only the writer thread (``host_fetch``) ever
+    waits, on that event alone. One lane, not the stack: a finished lane
+    must not drag the other L-1 lanes' bytes across the link."""
+    return d2h_async(stacked[lane].clone())

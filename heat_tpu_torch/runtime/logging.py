@@ -24,3 +24,13 @@ def master_print(*args, **kw) -> None:
         print(*args, **kw)
         sys.stdout.flush()
 
+
+def json_record(event: str, **fields) -> None:
+    """One structured, machine-parseable JSON line (master-gated):
+    ``{"event": "<event>", ...}`` with sorted keys, one record per line —
+    the serving engine's per-request records and fallback notices."""
+    import json
+
+    master_print(json.dumps({"event": event, **fields}, sort_keys=True,
+                            default=str))
+

@@ -1,0 +1,143 @@
+"""Pluggable admission policies for the serving engine.
+
+A copy of ``heat_tpu.serve.policy``'s queues (pure Python): the scheduler
+stops caring about ordering, the queue decides who is admitted next.
+
+- ``fifo`` — a deque: pop in submit order. The default.
+- ``edf`` — earliest-deadline-first *within* an SLO class, classes in
+  priority order (``config.SLO_CLASSES``: interactive < standard < batch).
+  Requests without a deadline sort after every dated request of their
+  class; submit order breaks ties, so ``edf`` degrades to ``fifo`` when
+  nobody sets deadlines.
+- ``fair`` — weighted fair share *across tenants* (virtual time: each
+  tenant accumulates served work divided by its weight; the next admission
+  goes to the backlogged tenant with the least normalized service),
+  EDF-within-class *inside* each tenant. A tenant returning from idle is
+  raised to the current virtual time, so it cannot hoard credit.
+
+Thread-safety contract: queue objects are NOT internally locked — every
+push/pop happens under the engine's one lock (scheduler.py).
+"""
+
+from __future__ import annotations
+
+import collections
+import heapq
+import math
+from typing import Dict, List, Optional, Tuple
+
+from ..config import SLO_CLASSES
+
+POLICIES = ("fifo", "edf", "fair")
+
+
+def _edf_key(req) -> Tuple[int, float, int]:
+    """(class priority, deadline, submit seq): classes strictly first,
+    earliest absolute deadline inside a class, FIFO among the rest
+    (deadline +inf). ``req.seq`` is the engine-wide submit counter, so the
+    ordering is total and deterministic. (The reference ranks until=steady
+    requests by their predicted finish between deadline and seq; the port
+    serves fixed-step requests only, whose rank there is +inf.)"""
+    deadline = req.deadline_t if req.deadline_t is not None else math.inf
+    return (SLO_CLASSES.get(req.slo_class, max(SLO_CLASSES.values())),
+            deadline, req.seq)
+
+
+class FifoQueue:
+    """Pop in submit order."""
+
+    def __init__(self):
+        self._q = collections.deque()
+
+    def push(self, req) -> None:
+        self._q.append(req)
+
+    def pop(self):
+        return self._q.popleft() if self._q else None
+
+    def __len__(self) -> int:
+        return len(self._q)
+
+    def __bool__(self) -> bool:
+        return bool(self._q)
+
+
+class EdfQueue:
+    """Class-priority + earliest-deadline-first heap (see module doc)."""
+
+    def __init__(self):
+        self._h: List[Tuple[Tuple[int, float, int], object]] = []
+
+    def push(self, req) -> None:
+        heapq.heappush(self._h, (_edf_key(req), req))
+
+    def pop(self):
+        return heapq.heappop(self._h)[1] if self._h else None
+
+    def __len__(self) -> int:
+        return len(self._h)
+
+    def __bool__(self) -> bool:
+        return bool(self._h)
+
+
+class FairShareQueue:
+    """Weighted fair share across tenants, EDF-within-class per tenant.
+
+    Virtual-time WFQ over request *work* (``points * steps``): popping a
+    tenant's request advances that tenant's virtual time by
+    ``work / weight``; the next pop serves the backlogged tenant with the
+    smallest virtual time (tenant name breaks exact ties). A tenant whose
+    queue just went non-empty is raised to the minimum active virtual time.
+    """
+
+    def __init__(self, weights: Optional[Dict[str, float]] = None):
+        self._weights = dict(weights or {})
+        self._tenants: Dict[str, List] = {}   # tenant -> EDF heap
+        self._vtime: Dict[str, float] = {}
+        self._count = 0
+
+    def _weight(self, tenant: str) -> float:
+        return float(self._weights.get(tenant, 1.0))
+
+    def push(self, req) -> None:
+        h = self._tenants.get(req.tenant)
+        if h is None:
+            h = self._tenants[req.tenant] = []
+        if not h:
+            # idle -> backlogged: catch up to the busiest floor
+            active = [self._vtime[t] for t, q in self._tenants.items()
+                      if q and t != req.tenant]
+            floor = min(active) if active else 0.0
+            self._vtime[req.tenant] = max(
+                self._vtime.get(req.tenant, 0.0), floor)
+        heapq.heappush(h, (_edf_key(req), req))
+        self._count += 1
+
+    def pop(self):
+        live = [(self._vtime[t], t) for t, h in self._tenants.items() if h]
+        if not live:
+            return None
+        _, tenant = min(live)
+        req = heapq.heappop(self._tenants[tenant])[1]
+        self._count -= 1
+        work = float(req.cfg.points * max(req.cfg.ntime, 1))
+        self._vtime[tenant] += work / self._weight(tenant)
+        return req
+
+    def __len__(self) -> int:
+        return self._count
+
+    def __bool__(self) -> bool:
+        return self._count > 0
+
+
+def make_queue(policy: str, tenant_weights=()):
+    """One admission queue for one bucket group under ``policy``."""
+    if policy == "fifo":
+        return FifoQueue()
+    if policy == "edf":
+        return EdfQueue()
+    if policy == "fair":
+        return FairShareQueue(dict(tenant_weights))
+    raise ValueError(f"policy must be one of {POLICIES}, got {policy!r}")
