@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of heat_tpu_torch: builds the CUDA kernels, holds them
 against their plain PyTorch versions byte for byte, drives the ``run`` path
-at the shipped sizes in 2D and 3D, and checks the answer against the serial
-oracle.
+at the shipped sizes in 2D and 3D, the ``serve`` path and the kernel lab,
+and checks the answer against the serial oracle.
 
 Usage, from the repository root on a host with one CUDA card::
 
@@ -73,7 +73,24 @@ a checkout of the repository, it exits non-zero and prints no result):
    launches by bucket, and each bf16 twin's mean gap from its f32 request
    beside the gaps that a wrong sigma or initial condition makes in f32
    (a measurement: bf16 lanes round every step and stagnate, see
-   phase_serve).
+   phase_serve);
+6. the kernel lab's candidates L1-L5 (``lab2d``, ``lab3d``): every
+   (kernel, variant, dtype) against its plain version on the card, bytes,
+   at the JAX lab's check shapes, depths 1 and the deepest its TPU geometry
+   takes, on both compiled Hopper tiles, with bounds narrower than the
+   field, and with a NaN planted in an interior cell (the same NaN cells,
+   the same bytes elsewhere); at the shipped tile, the K1-form instances
+   against ``ftcs2d`` and L1 against ``ftcs3d`` on the same inputs (one
+   kernel body each, ``stencil2d.cuh`` / ``stencil3d.cuh``); then the
+   lab's main path,
+   ``heat_tpu_torch.labs.kernel_lab.main`` (what ``python -m
+   heat_tpu_torch.labs.kernel_lab`` calls) with the lab launch counts
+   zeroed just before and read just after: every ``check*`` experiment,
+   then one bench per kernel and variant at full size (L1/L2 512^3 f32
+   k=8, L3 16384^2 bf16 k=16, L4/L5 32768^2 bf16 k=16), each row's plain
+   version timed once at its shape and held to the kernel's bytes. Prints
+   each row's ms per pass, its bound, the plain version's ms and the
+   shipped kernel's ms at the same shape, dtype and depth.
 
 The last two lines: the ``nvidia-smi`` line is printed before a JSON
 object with one entry per kernel and main-path shape, and the very last
@@ -95,12 +112,33 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "_smoke"          # scratch for input.dat / soln.dat (gitignored)
 SOURCES = {name: f"heat_tpu_torch/ops/csrc/{name}.cu"
-           for name in ("ftcs2d", "ftcs3d", "lanes2d", "lanes3d")}
+           for name in ("ftcs2d", "ftcs3d", "lanes2d", "lanes3d", "lab2d",
+                        "lab3d")}
 K1 = "heat_tpu/ops/pallas_stencil.py:256"   # _pallas_2d
 K2 = "heat_tpu/ops/pallas_stencil.py:633"   # _pallas_2d_coltiled
 K3 = "heat_tpu/ops/pallas_stencil.py:489"   # _pallas_3d_aligned
 K4 = "heat_tpu/ops/pallas_stencil.py:1115"  # _lane_pallas_2d
 K5 = "heat_tpu/ops/pallas_stencil.py:1279"  # _lane_pallas_3d
+# the kernel lab's Pallas kernels L1-L5, by the port's function name
+LAB = "benchmarks/kernel_lab.py"
+L_REPLACES = {"lab_3d_tiled": f"{LAB}:171",            # pallas_3d_tiled
+              "lab_3d_rolled": f"{LAB}:279",           # pallas_3d_rolled
+              "lab_thin2d_variant": f"{LAB}:474",      # pallas_thin2d_variant
+              "lab_2d_coltiled": f"{LAB}:628",         # pallas_2d_coltiled
+              "lab_2d_coltiled_rolled": f"{LAB}:744"}  # ..._coltiled_rolled
+# phase 6: the lab's experiments, driven through its entry point: every
+# check, then one bench per kernel and variant at full size (tune_on_chip's
+# lab3d / thin / lab2d shapes), at the shipped kernels' tile and depth
+LAB_BENCHES = (
+    ["bench3d", "16,16,32,8"],
+    ["bench3d_rolled_var", "f32", "16,16,32,8"],
+    ["bench3d_rolled_var", "fma", "16,16,32,8"],
+    ["benchthin", "16384", "bfloat16", "shrink,64,96,16", "rolled,64,96,16",
+     "rolledfma,64,96,16", "bf16native,64,96,16"],
+    ["bench2d", "64,96,16"],
+    *(["bench2d_rolled_var", v, "64,96,16"]
+      for v in ("f32", "fma", "bf16native", "bf16fma")),
+)
 # the reference's CostEstimate counts of operations per lane cell-step
 # (pallas_stencil.py:1156 and :1310), for a second bound beside the kernels'
 # own count (machine.py: 7 / 9 f32 operations per live cell-step)
@@ -861,6 +899,201 @@ def profiled_serve(reqfile: Path, out_dir: Path, wall: float, ids: list,
                 device=[(key, t / 1e6, count) for t, key, count in device[:6]])
 
 
+
+def nan_bits_equal(a, b) -> bool:
+    """The same NaN cells, and the same bytes everywhere else (the card
+    writes a computed NaN as 0x7fffffff, the host as 0x7fc00000: the NaN's
+    payload is not part of the function)."""
+    import torch
+
+    na, nb = torch.isnan(a.float()), torch.isnan(b.float())
+    return bool(torch.equal(na, nb)
+                and torch.equal(bits(a)[~na], bits(b)[~nb]))
+
+
+def lab_inputs(name, dtype, seed, nan=False):
+    """The JAX lab's check shape for ``name``: (padded field on the card,
+    logical extent, TPU geometry keywords, the deepest ksteps it allows,
+    bounds narrower than the field or None). With ``nan``, one interior
+    cell is NaN and the narrower bounds lie 3 cells from it."""
+    import torch
+
+    if "3d" in name:
+        logical, pad = (40, 24, 300), (40, 24, 384)
+        geo = dict(R=8, M=8, k=4, km=4 if name == "lab_3d_tiled" else 8)
+        kmax, narrow = 4, (2, 36, 3, 20, 5, 290)
+    elif name == "lab_thin2d_variant":
+        logical, pad = (96, 260), (128, 384)
+        geo, kmax, narrow = dict(tile=32, kpad=16), 16, None
+    else:
+        logical, pad = (100, 500), (112, 512)
+        geo = dict(R=16, C=256, kr=16, kc=128)
+        kmax, narrow = 16, (3, 95, 5, 490)
+    T = torch.zeros(pad, dtype=dtype, device="cuda")
+    T[tuple(slice(0, s) for s in logical)] = field(logical, dtype, seed)
+    if nan:
+        at = tuple(s // 2 for s in logical)
+        T[at] = float("nan")
+        narrow = tuple(v for a in at for v in (a - 3, a + 3))
+    return T, logical, geo, kmax, narrow
+
+
+def lab_call(name, variant, T, r, k, logical, geo, bounds, **kw):
+    from heat_tpu_torch.ops import cuda_lab as cl
+
+    fn = getattr(cl, name)
+    if variant is not None:
+        kw["variant"] = variant
+    if bounds is not None:
+        kw["bounds"] = bounds
+    return fn(T, r, k, logical=logical, **geo, **kw)
+
+
+def phase_lab_compare():
+    """Every lab (kernel, variant, dtype) against its plain version on the
+    card, bytes: the JAX lab's check shapes at depths 1 and the maximum on
+    both compiled tiles, bounds narrower than the field, a NaN planted in an
+    interior cell with frozen cells 3 cells away; then the K1-form
+    instances against ftcs2d and L1 against ftcs3d on the same inputs.
+    Returns max |err| (finite cells) per (kernel, variant)."""
+    import torch
+
+    from heat_tpu_torch.ops import cuda_lab as cl
+    from heat_tpu_torch.ops import cuda_stencil as cs
+
+    t0 = time.perf_counter()
+    errs, ncases = {}, 0
+    for (name, variant), form in cl.FORMS.items():
+        blocks = cl.BLOCKS_2D if form.ndim == 2 else cl.BLOCKS_3D
+        r = 0.2 if form.ndim == 2 else 1 / 6
+        for dt in (torch.float32, torch.bfloat16):
+            T, logical, geo, kmax, narrow = lab_inputs(name, dt, ncases)
+            cases = [(k, block, None, T) for k in (1, kmax) for block in blocks]
+            if narrow is not None:
+                cases.append((kmax, blocks[0], narrow, T))
+            Tn, _, _, _, nb = lab_inputs(name, dt, ncases, nan=True)
+            if name == "lab_thin2d_variant":   # it takes no bounds
+                nb = None
+            cases.append((kmax, blocks[0], nb, Tn))
+            for k, block, bounds, X in cases:
+                got = lab_call(name, variant, X, r, k, logical, geo, bounds,
+                               block=block)
+                want = lab_call(name, variant, X, r, k, logical, geo, bounds,
+                                plain=True)
+                torch.cuda.synchronize()
+                what = (f"{cl.key(name, variant)} {dt_name(dt)} k={k} tile "
+                        f"{block} bounds {bounds}")
+                g, w = got.float(), want.float()
+                fin = torch.isfinite(g) & torch.isfinite(w)
+                err = float((g[fin] - w[fin]).abs().max())
+                key = cl.key(name, variant)
+                errs[key] = max(errs.get(key, 0.0), err)
+                if X is Tn:
+                    spread = int(torch.isnan(w).sum())
+                    check(spread > 1 and (bounds is None or bool(torch.isnan(
+                        w[(bounds[0],) + tuple(s // 2 for s in logical[1:])]))),
+                          f"the NaN did not spread into frozen cells: {what}")
+                    ok = nan_bits_equal(got, want)
+                else:
+                    ok = torch.equal(bits(got), bits(want))
+                if not ok:
+                    print(f"  {what}: {int((bits(got) != bits(want)).sum())} "
+                          f"cells differ")
+                check(ok, f"lab kernel != plain: {what}")
+                ncases += 1
+    # at the shipped tile the K1-form instances and L1 are the template
+    # instances that ftcs2d.cu / ftcs3d.cu build (stencil2d.cuh /
+    # stencil3d.cuh), compiled into the lab's libraries: the same input
+    # gives the same bytes
+    nsame = 0
+    for dt in (torch.float32, torch.bfloat16):
+        T2 = field((1000, 4099), dt, seed=3)
+        b2 = full_bounds(T2.shape)
+        T3 = field((67, 45, 129), dt, seed=4)
+        b3 = full_bounds(T3.shape)
+        want2 = cs._launch(T2, 0.2, 16, b2, None)
+        want3 = cs._launch(T3, 1 / 6, 8, b3, None)
+        for name, variant, X, r, k, b, want in (
+                ("lab_thin2d_variant", "shrink", T2, 0.2, 16, b2, want2),
+                ("lab_thin2d_variant", "rolled", T2, 0.2, 16, b2, want2),
+                ("lab_2d_coltiled_rolled", "f32", T2, 0.2, 16, b2, want2),
+                ("lab_3d_tiled", None, T3, 1 / 6, 8, b3, want3)):
+            block = (cl.BLOCKS_2D if X.dim() == 2 else cl.BLOCKS_3D)[0]
+            got = cl._launch(name, variant, X, r, k, b, block, None)
+            check(torch.equal(bits(got), bits(want)),
+                  f"{cl.key(name, variant)} {dt_name(dt)} != the shipped "
+                  f"kernel")
+            nsame += 1
+        torch.cuda.synchronize()
+    print(f"[phase 6] {ncases} lab-kernel-vs-plain cases, 0 differing bytes "
+          f"(NaN cells alike); {nsame} K1/K3-form launches equal to "
+          f"ftcs2d/ftcs3d ({time.perf_counter() - t0:.1f} s)")
+    return errs
+
+
+def phase_lab(smi):
+    """The lab's main path: ``kernel_lab.main`` (what ``python -m
+    heat_tpu_torch.labs.kernel_lab`` calls) for every check and then
+    LAB_BENCHES, the lab launch counts zeroed just before and read just
+    after; then each bench row's plain version timed once at its shape (and
+    its output held to the kernel's, bytes). Returns (rows, launches)."""
+    import torch
+
+    from heat_tpu_torch.labs import kernel_lab
+    from heat_tpu_torch.ops import cuda_lab as cl
+
+    t0 = time.perf_counter()
+    rows = []
+    cl.reset_launches()
+    for exp in sorted(kernel_lab.CHECKS):
+        print(f"[phase 6] kernel_lab {exp}")
+        check(kernel_lab.main([exp]) == 0, f"kernel_lab {exp} failed")
+    for argv in LAB_BENCHES:
+        print(f"[phase 6] kernel_lab {' '.join(argv)}")
+        check(kernel_lab.main(list(argv), results=rows) == 0,
+              f"kernel_lab {' '.join(argv)} failed")
+    launches = dict(cl.launches)
+    print(f"  lab launches: {launches} ({time.perf_counter() - t0:.1f} s)")
+    for key, count in launches.items():
+        check(count > 0, f"the lab's run never launched {key}")
+    for row in rows:
+        dt = getattr(torch, row["dtype"])
+        T = kernel_lab._field(row["shape"], dt, "cuda")
+        k, block, logical = row["k"], row["block"], row["logical"]
+        nd = len(logical)
+        geo = ((k, k, k, k) if row["name"] != "lab_thin2d_variant"
+               else (k, k))
+        fn = getattr(cl, row["name"])
+        args = (T, 0.25 if nd == 2 else 0.15, k, *geo)
+        kw = {} if row["variant"] is None else dict(variant=row["variant"])
+        if row["name"] == "lab_thin2d_variant":
+            args, kw = args + (row["variant"], logical), {}
+        else:
+            args = args + (logical,)
+        got = fn(*args, block=block, **kw)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        want = fn(*args, plain=True, **kw)
+        e1.record()
+        e1.synchronize()
+        row["plain_ms"] = e0.elapsed_time(e1)      # one call, as phase 2's
+        check(torch.equal(bits(got), bits(want)),
+              f"{cl.key(row['name'], row['variant'])} at {row['shape']} != "
+              f"plain")
+        del got, want
+        print(f"  {cl.key(row['name'], row['variant'])} "
+              f"{'x'.join(map(str, row['shape']))} {dt_name(dt)} k={k} tile "
+              f"{'x'.join(map(str, block))}: {row['ms']:.4f} ms/pass, bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+              f"({row['bound_ms'] / row['ms']:.1%} of it), plain "
+              f"{row['plain_ms']:.2f} ms, shipped {row['shipped_ms']:.4f} ms "
+              f"({row['ms'] / row['shipped_ms']:.4f}x) on {smi}")
+        del T
+        torch.cuda.empty_cache()
+    print(f"[phase 6] lab done ({time.perf_counter() - t0:.1f} s)")
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -885,6 +1118,8 @@ def main() -> int:
         runs = phase_main_path(smi)
         phase_oracle()
         serve = phase_serve(smi)
+        lab_errs = phase_lab_compare()
+        lab_rows, lab_launches = phase_lab(smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
@@ -932,6 +1167,23 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=None,
             cost_estimate_bound_ms=t["cost_estimate_bound_ms"]))
+    # the kernel lab's candidates (phase 6): one row per (kernel, variant,
+    # dtype) benched, launches those of the lab's run; shipped_ms is the
+    # shipped kernel (ftcs2d/ftcs3d) at the same shape, dtype and depth
+    from heat_tpu_torch.ops import cuda_lab as cl
+
+    for row in lab_rows:
+        lkey = cl.key(row["name"], row["variant"])
+        nd = cl.FORMS[(row["name"], row["variant"])].ndim
+        kernels.append(dict(
+            name=(f"{lkey} {'x'.join(map(str, row['shape']))} "
+                  f"{dt_name(getattr(torch, row['dtype']))} k={row['k']} tile "
+                  f"{'x'.join(map(str, row['block']))}"),
+            route="cuda", source=SOURCES[f"lab{nd}d"],
+            replaces=L_REPLACES[row["name"]], launches=lab_launches[lkey],
+            max_abs_err=lab_errs[lkey], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=None, shipped_ms=row["shipped_ms"]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -42,8 +42,8 @@ class DeviceModel:
     peaks: Optional[PeakRates]            # None for a part not in PEAKS
 
     def pass_bound_s(self, points: int, itemsize: int, ksteps: int,
-                     ndim: int = 2, op_points: Optional[int] = None
-                     ) -> tuple:
+                     ndim: int = 2, op_points: Optional[int] = None,
+                     ops_per_cell_step: Optional[int] = None) -> tuple:
         """(seconds, "bytes"|"operations"): the least time one fused pass
         could take — the field of ``points`` cells read once and written
         once over the memory rate, against the f32 operations over the f32
@@ -51,13 +51,15 @@ class DeviceModel:
         subtract, the update FMA as 2) and 9 in 3D (5 adds, two FMAs of 2
         each), counted over ``op_points`` cells where only those update
         (the lane kernels: the live cells of the run's lanes), else over
-        every cell."""
+        every cell. ``ops_per_cell_step`` replaces that count for a body
+        of another form (the kernel lab's candidates, ``ops/cuda_lab``)."""
         if self.peaks is None:
             raise ValueError(f"no published peak rates for {self.name!r}")
         updated = points if op_points is None else op_points
         t_bytes = 2 * itemsize * points / self.peaks.hbm_bytes_per_s
-        t_ops = (_OPS_PER_CELL_STEP[ndim] * updated * ksteps
-                 / self.peaks.f32_flops_per_s)
+        ops = (_OPS_PER_CELL_STEP[ndim] if ops_per_cell_step is None
+               else ops_per_cell_step)
+        t_ops = ops * updated * ksteps / self.peaks.f32_flops_per_s
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

@@ -27,7 +27,7 @@ from typing import Optional
 
 _CSRC = Path(__file__).parent / "csrc"
 # the kernels, by source name: csrc/<name>.cu exports heat_<name>()
-KERNELS = ("ftcs2d", "ftcs3d", "lanes2d", "lanes3d")
+KERNELS = ("ftcs2d", "ftcs3d", "lanes2d", "lanes3d", "lab2d", "lab3d")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 # -fmad=false: no contraction of a*b+c anywhere the source does not ask for

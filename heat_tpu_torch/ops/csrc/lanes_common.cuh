@@ -1,8 +1,8 @@
 // Device helpers shared by the multi-lane serving kernels (lanes2d.cu, K4;
-// lanes3d.cu, K5): storage loads/stores and the per-step storage rounding,
-// and the fused per-lane reductions into the (6, L) int32 boundary vector
-// (rows: remaining, finite, then float32 resid/tmin/tmax/heat bitcast; the
-// layout of serve/engine.BOUNDARY_ROWS and cuda_lanes.write_boundary).
+// lanes3d.cu, K5): the per-step storage rounding, and the fused per-lane
+// reductions into the (6, L) int32 boundary vector (rows: remaining,
+// finite, then float32 resid/tmin/tmax/heat bitcast; the layout of
+// serve/engine.BOUNDARY_ROWS and cuda_lanes.write_boundary).
 
 #pragma once
 
@@ -10,17 +10,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "storage.cuh"
+
 namespace {
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // An update rounded to the storage type, as f32: bf16 by round to nearest
 // even (__float2bfloat16_rn, the conversion torch's CUDA code uses); f32 as

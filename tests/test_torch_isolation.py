@@ -39,7 +39,9 @@ def _run(code: str, **env):
 def test_import_loads_no_jax():
     out = _run("import sys, heat_tpu_torch, heat_tpu_torch.cli, "
                "heat_tpu_torch.backends.cuda, heat_tpu_torch.ops.cuda_stencil, "
-               "heat_tpu_torch.ops.cuda_lanes, heat_tpu_torch.serve; "
+               "heat_tpu_torch.ops.cuda_lanes, heat_tpu_torch.serve, "
+               "heat_tpu_torch.ops.cuda_lab, heat_tpu_torch.labs.kernel_lab, "
+               "heat_tpu_torch.labs.tune_on_chip; "
                "print(sorted(m for m in sys.modules "
                "if m.split('.')[0] in ('jax', 'jaxlib', 'heat_tpu')))")
     assert out.returncode == 0, out.stderr
