@@ -21,10 +21,19 @@ a checkout of the repository, it exits non-zero and prints no result):
    f32/bf16, k in {1, 7, 16}, r in {0.25, 0.2}; one 16-step 32768^2 pass in
    f32 and bf16; single passes of k in {17, 32} at 67x130 and 4096^2;
    ``ftcs3d`` — 24x20x130, 67x45x129 and 256^3 under edges/ghost/periodic,
-   f32/bf16, k in {1, 4, 8}, r in {1/6, 0.15}; single 512^3 passes (f32
-   k=8, bf16 k=4) and a 1024^3 f32 k=5 pass;
+   f32/bf16, k in {1, 4, 8}, r in {1/6, 0.15}; segment ends of the
+   streamed design (256-row segments): 300x40x70 (rows not a multiple of
+   256) and 20x33x40 (fewer rows than 256 + 2k) likewise at r 0.15; bounds
+   inside the field on every axis (lo 3, hi size-5) through
+   ``ftcs_multistep_bounded_cuda`` at 67x45x129 and 256^3, k in {1, 5, 8},
+   f32/bf16, r in {1/6, 0.15} (blocks whose halo meets a frozen plane);
+   the inputs of ``tests/test_torch_cuda_stencil3d.py``'s card-only case
+   (a CPU-seeded 67x45x129 field, k in {1, 4, 8}; pytest cannot run on the
+   card's host, whose tests/conftest.py needs JAX); single 512^3 passes
+   (f32 k=8, bf16 k=4) and a 1024^3 f32 k=5 pass;
    then per-pass times of kernel and plain version at the main path's
-   shapes and depths, and of the 4096^2 k=32 and 512^3 f32 k=4 passes;
+   shapes and depths, and of the 4096^2 k=32 and 512^3 f32 k=4 passes, and
+   the kernel's time per pass at 512^3 f32 for every depth k = 1..8;
    the lane kernels ``lanes2d`` (2D buckets 12, 256, 1024) and ``lanes3d``
    (3D buckets 8, 64, 256) through ``cuda_lanes.lane_multistep`` against
    ``plain=True``: f32/bf16, edges/ghost, k in {1, 5, 16, 37}, 4 lanes with
@@ -81,13 +90,15 @@ a checkout of the repository, it exits non-zero and prints no result):
    field, and with a NaN planted in an interior cell (the same NaN cells,
    the same bytes elsewhere); at the shipped tile, the K1-form instances
    against ``ftcs2d`` and L1 against ``ftcs3d`` on the same inputs (one
-   kernel body each, ``stencil2d.cuh`` / ``stencil3d.cuh``); then the
-   lab's main path,
+   kernel body each, ``stencil2d.cuh`` / ``stencil3d_stream.cuh``), and L1
+   at the band design's 16x16x32 tile (``stencil3d.cuh``, ``ftcs3d``'s
+   earlier design) against ``ftcs3d`` too; then the lab's main path,
    ``heat_tpu_torch.labs.kernel_lab.main`` (what ``python -m
    heat_tpu_torch.labs.kernel_lab`` calls) with the lab launch counts
    zeroed just before and read just after: every ``check*`` experiment,
    then one bench per kernel and variant at full size (L1/L2 512^3 f32
-   k=8, L3 16384^2 bf16 k=16, L4/L5 32768^2 bf16 k=16), each row's plain
+   k=8 at the shipped streamed tile, and L1 at the band tile 16x16x32
+   beside it, L3 16384^2 bf16 k=16, L4/L5 32768^2 bf16 k=16), each row's plain
    version timed once at its shape and held to the kernel's bytes. Prints
    each row's ms per pass, its bound, the plain version's ms and the
    shipped kernel's ms at the same shape, dtype and depth.
@@ -103,6 +114,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -130,9 +142,9 @@ L_REPLACES = {"lab_3d_tiled": f"{LAB}:171",            # pallas_3d_tiled
 # check, then one bench per kernel and variant at full size (tune_on_chip's
 # lab3d / thin / lab2d shapes), at the shipped kernels' tile and depth
 LAB_BENCHES = (
-    ["bench3d", "16,16,32,8"],
-    ["bench3d_rolled_var", "f32", "16,16,32,8"],
-    ["bench3d_rolled_var", "fma", "16,16,32,8"],
+    ["bench3d", "256,32,32,8", "16,16,32,8"],
+    ["bench3d_rolled_var", "f32", "256,32,32,8"],
+    ["bench3d_rolled_var", "fma", "256,32,32,8"],
     ["benchthin", "16384", "bfloat16", "shrink,64,96,16", "rolled,64,96,16",
      "rolledfma,64,96,16", "bf16native,64,96,16"],
     ["bench2d", "64,96,16"],
@@ -203,7 +215,30 @@ def full_bounds(shape) -> tuple:
     return tuple(v for s in shape for v in (0, s - 1))
 
 
+def inner_bounds(shape) -> tuple:
+    """Bounds inside the field on every axis: cells 0..3 and size-5..size-1
+    frozen, so blocks near the edges see frozen planes in their halo while
+    no updating cell reads across the array's edge."""
+    return tuple(v for s in shape for v in (3, s - 5))
+
+
 # --------------------------------------------------------------------------
+
+
+def ptxas_report(log: str) -> list:
+    """(function, registers, spill store bytes, spill load bytes) of each
+    kernel instance in an ``nvcc -Xptxas=-v`` log."""
+    out, fn, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            fn, spill = m[1], (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spill = (int(m[1]), int(m[2]))
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+            out.append((fn, int(m[1]), *spill))
+            fn = None
+    return out
 
 
 def phase_build():
@@ -220,9 +255,18 @@ def phase_build():
     print(f"[phase 1] {', '.join(_build.KERNELS)} built for sm_90a in "
           f"{time.perf_counter() - t0:.3f} s (one nvcc each, in parallel)")
     for name in _build.KERNELS:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}:", line.strip())
+        funcs = ptxas_report(_build.build_log(name))
+        regs = [f[1] for f in funcs]
+        spills = sum(f[2] + f[3] for f in funcs)
+        print(f"  ptxas {name}: {len(funcs)} kernel instances, {min(regs)}-"
+              f"{max(regs)} registers, {spills} bytes of spill traffic")
+        for fn, nreg, st, ld in funcs:
+            m = re.search(r"stream_kernelI(f|13__nv_bfloat16)Li0ELi0ELi(\d)E",
+                          fn)
+            if name == "ftcs3d" and m:
+                print(f"    ftcs3d {'f32' if m[1] == 'f' else 'bf16'} "
+                      f"k={m[2]}: {nreg} registers, spill stores {st} B, "
+                      f"loads {ld} B")
 
 
 def phase_compare():
@@ -239,6 +283,9 @@ def phase_compare():
             return cs.ftcs_multistep_ghost_cuda(T, r, 1.0, k, plain=plain)
         if bc == "periodic":
             return cs.ftcs_multistep_periodic_cuda(T, r, k, plain=plain)
+        if bc == "inner":
+            return cs.ftcs_multistep_bounded_cuda(T, r, k, inner_bounds(
+                T.shape), plain=plain)
         # "pass": one kernel pass of exactly k steps, default bounds
         return cs._pass(T, r, k, full_bounds(T.shape), plain=plain)
 
@@ -254,13 +301,30 @@ def phase_compare():
               for shape in ((24, 20, 130), (67, 45, 129), (256, 256, 256))
               for bc in ("edges", "ghost", "periodic")
               for dt in (f32, bf16) for k in (1, 4, 8) for r in (1 / 6, 0.15)]
+    # the streamed ftcs3d's segment ends: rows not a multiple of its
+    # 256-row segment, and fewer rows than a segment and its 2k halo
+    cases += [(shape, bc, dt, k, 0.15)
+              for shape in ((300, 40, 70), (20, 33, 40))
+              for bc in ("edges", "ghost", "periodic")
+              for dt in (f32, bf16) for k in (1, 4, 8)]
+    cases += [(shape, "inner", dt, k, r)
+              for shape in ((67, 45, 129), (256, 256, 256))
+              for dt in (f32, bf16) for k in (1, 5, 8) for r in (1 / 6, 0.15)]
+    # tests/test_torch_cuda_stencil3d.py's card-only case: its CPU-seeded
+    # field ("cpu-seeded"), edges, r = 1/6
+    cases += [((67, 45, 129), "cpu-seeded", dt, k, 1 / 6)
+              for dt in (f32, bf16) for k in (1, 4, 8)]
     cases += [((512,) * 3, "pass", f32, 8, SIGMA_3D),
               ((512,) * 3, "pass", bf16, 4, SIGMA_3D),
               ((1024,) * 3, "pass", f32, 5, SIGMA_3D)]
     errs = {}
     t0 = time.perf_counter()
     for i, (shape, bc, dt, k, r) in enumerate(cases):
-        T = field(shape, dt, seed=i)
+        if bc == "cpu-seeded":
+            T = torch.rand(shape, generator=torch.Generator().manual_seed(0))
+            T, bc = (1 + T).to(dt).cuda(), "edges"
+        else:
+            T = field(shape, dt, seed=i)
         got = wrapper(bc, T, r, k, plain=False)
         want = wrapper(bc, T, r, k, plain=True)
         torch.cuda.synchronize()
@@ -268,7 +332,8 @@ def phase_compare():
         err = float((got.float() - want.float()).abs().max())
         key = (cs._KERNELS[len(shape)], shape)
         errs[key] = max(errs.get(key, 0.0), err)
-        if shape[0] >= 4096 or len(shape) == 3 and shape[0] >= 256 or ndiff:
+        if (shape[0] >= 4096 or len(shape) == 3 and shape[0] >= 256
+                and bc != "inner" or ndiff):
             print(f"  {key[0]} {shape} {bc} {dt_name(dt)} k={k} r={r:.6g}: "
                   f"{ndiff} cells differ, max|err| {err:g}")
         check(ndiff == 0, f"kernel != plain at {shape} {bc} {dt} k={k} r={r}")
@@ -313,6 +378,19 @@ def phase_times():
               f"of it)")
         del A, B
         torch.cuda.empty_cache()
+    # ftcs3d's time per pass at every depth at 512^3 f32 (the data for the
+    # schedule's depth; no plain version)
+    A = field((512,) * 3, f32, seed=1)
+    B = torch.empty_like(A)
+    for k in range(1, cs._KMAX_3D + 1):
+        ms = event_ms(lambda: cs._launch(A, SIGMA_3D, k, full_bounds(A.shape),
+                                         B), 20)
+        bound_s, bound_by = dm.pass_bound_s(A.numel(), 4, k, ndim=3)
+        print(f"  ftcs3d 512x512x512 f32 k={k}: {ms:.4f} ms/pass, "
+              f"{ms / k:.4f} ms/step (bound {bound_s * 1e3:.4f} ms by "
+              f"{bound_by}, {bound_s * 1e3 / ms:.1%} of it)")
+    del A, B
+    torch.cuda.empty_cache()
     print("[phase 2] times taken")
     return times
 
@@ -1003,8 +1081,9 @@ def phase_lab_compare():
                 ncases += 1
     # at the shipped tile the K1-form instances and L1 are the template
     # instances that ftcs2d.cu / ftcs3d.cu build (stencil2d.cuh /
-    # stencil3d.cuh), compiled into the lab's libraries: the same input
-    # gives the same bytes
+    # stencil3d_stream.cuh), compiled into the lab's libraries: the same
+    # input gives the same bytes; and L1 at the band tile (stencil3d.cuh,
+    # ftcs3d's earlier design) gives ftcs3d's bytes too
     nsame = 0
     for dt in (torch.float32, torch.bfloat16):
         T2 = field((1000, 4099), dt, seed=3)
@@ -1013,21 +1092,24 @@ def phase_lab_compare():
         b3 = full_bounds(T3.shape)
         want2 = cs._launch(T2, 0.2, 16, b2, None)
         want3 = cs._launch(T3, 1 / 6, 8, b3, None)
-        for name, variant, X, r, k, b, want in (
-                ("lab_thin2d_variant", "shrink", T2, 0.2, 16, b2, want2),
-                ("lab_thin2d_variant", "rolled", T2, 0.2, 16, b2, want2),
-                ("lab_2d_coltiled_rolled", "f32", T2, 0.2, 16, b2, want2),
-                ("lab_3d_tiled", None, T3, 1 / 6, 8, b3, want3)):
-            block = (cl.BLOCKS_2D if X.dim() == 2 else cl.BLOCKS_3D)[0]
+        tile2, stream, band = cl.BLOCKS_2D[0], cl.BLOCKS_3D[0], (16, 16, 32)
+        for name, variant, X, r, k, b, want, block in (
+                ("lab_thin2d_variant", "shrink", T2, 0.2, 16, b2, want2, tile2),
+                ("lab_thin2d_variant", "rolled", T2, 0.2, 16, b2, want2, tile2),
+                ("lab_2d_coltiled_rolled", "f32", T2, 0.2, 16, b2, want2,
+                 tile2),
+                ("lab_3d_tiled", None, T3, 1 / 6, 8, b3, want3, stream),
+                ("lab_3d_tiled", None, T3, 1 / 6, 8, b3, want3, band)):
             got = cl._launch(name, variant, X, r, k, b, block, None)
             check(torch.equal(bits(got), bits(want)),
-                  f"{cl.key(name, variant)} {dt_name(dt)} != the shipped "
-                  f"kernel")
+                  f"{cl.key(name, variant)} {dt_name(dt)} tile {block} != "
+                  f"the shipped kernel")
             nsame += 1
         torch.cuda.synchronize()
     print(f"[phase 6] {ncases} lab-kernel-vs-plain cases, 0 differing bytes "
           f"(NaN cells alike); {nsame} K1/K3-form launches equal to "
-          f"ftcs2d/ftcs3d ({time.perf_counter() - t0:.1f} s)")
+          f"ftcs2d/ftcs3d, L1 in both 3D designs "
+          f"({time.perf_counter() - t0:.1f} s)")
     return errs
 
 

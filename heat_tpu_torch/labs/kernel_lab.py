@@ -14,7 +14,11 @@ replaced by a Hopper tile and depth:
   stepped k times, at the JAX lab's shapes, seeds and tolerances, with
   every compiled tile on the card;
 - ``bench3d`` / ``bench3d_rolled [TZ,TY,TX,k ...]``,
-  ``bench3d_rolled_var {f32|fma} [...]``: L1 / L2 at 512^3 f32;
+  ``bench3d_rolled_var {f32|fma} [...]``: L1 / L2 at 512^3 f32; the tile
+  ``256,32,32`` is the streamed design ``ftcs3d`` ships (256-row segments of
+  a 32x32 (mid, col) tile), ``16,16,32`` and ``8,16,64`` are output tiles
+  of its earlier band design (``bench3d`` with no config times both at
+  k=8);
 - ``bench2d`` / ``bench2d_f32 [BR,BC,k ...]``: L4 at 32768^2 bf16 / f32;
   ``bench2d_rolled`` / ``bench2d_rolled_f32 [...]``: L5 f32 there;
   ``bench2d_rolled_var {f32|fma|bf16native|bf16fma} [...] [--n2 N]``;
@@ -379,7 +383,7 @@ def bench_framework(cases, device, results: list) -> list:
 CHECKS = {"check3d": check_3d, "check3d_rolled": check_3d_rolled,
           "checkthin": check_thin2d_variants, "check2d": check_2d_coltiled,
           "check2d_rolled": check_2d_coltiled_rolled}
-DEFAULT_3D = [((16, 16, 32), 8)]
+DEFAULT_3D = [((256, 32, 32), 8), ((16, 16, 32), 8)]
 DEFAULT_2D = [((64, 96), 16)]
 
 

@@ -7,7 +7,8 @@ Stages (default ``framework lab3d lab2d thin``):
 
 - ``framework``: the shipped path at the JAX lab's baseline shapes
   (``framework:<case>,<case>`` names cases; several concatenate);
-- ``lab3d``: L1 at 512^3 f32 over Hopper tiles and depths;
+- ``lab3d``: L1 at 512^3 f32 over Hopper tiles and depths (the streamed
+  design's and the band design's);
 - ``lab2d``: L4 at 32768^2 bf16 over tiles and depths;
 - ``thin``: L3 shrink against bf16native at 16384^2 bf16.
 
@@ -30,8 +31,8 @@ from . import kernel_lab as lab
 STAGES = ("framework", "lab3d", "lab2d", "thin")
 # Hopper configs: (tile, steps per pass); the first of each is the shipped
 # kernel's tile at the shipped depth
-LAB3D = [((16, 16, 32), 8), ((16, 16, 32), 4), ((8, 16, 64), 4),
-         ((8, 16, 64), 7)]
+LAB3D = [((256, 32, 32), 8), ((256, 32, 32), 4), ((16, 16, 32), 8),
+         ((16, 16, 32), 4), ((8, 16, 64), 4), ((8, 16, 64), 7)]
 LAB2D = [((64, 96), 16), ((32, 192), 16), ((64, 96), 32), ((32, 192), 32)]
 THIN = [("shrink", (64, 96), 16), ("bf16native", (64, 96), 16),
         ("shrink", (32, 192), 16), ("bf16native", (32, 192), 16)]

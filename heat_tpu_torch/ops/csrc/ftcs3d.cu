@@ -8,26 +8,38 @@
 // f32 column plane does not fit a block's shared memory with its halo, so
 // here all three axes are tiled.
 //
-// The kernel is stencil3d.cuh's (design, bound and arithmetic there), at
+// The kernel is stencil3d_stream.cuh's (design and resources there): rows
+// streamed through the block and the k steps pipelined as a wavefront, at
 // the Pallas body's order and form (pallas_stencil.py:470-479), each line
 // rounded once:
 //   s     = ((((row+1 + row-1) + mid+1) + mid-1) + col-1) + col+1  ORDER_L1
 //   lap   = fma(-6, c, s)          the compiled body contracts s - 6*c
 //   c'    = fma(maskr, lap, c)     and the masked update           UPD_LAP
-// on 16 x 16 x 32 output tiles (196608 bytes of band at k = 8). The kernel
-// lab's candidates (lab3d.cu) are other instances of the same body.
+// on 32 x 32 (mid, col) output tiles and 256-row segments, one thread per
+// 4 cells of the tile and its halo (576 threads at k = 8). The kernel lab
+// (lab3d.cu) compiles the same instances as its first tile, beside
+// stencil3d.cuh's in-place band body (this kernel's earlier design), which
+// computes the same bytes.
+//
+// Bound on the card: a pass reads and writes the field once
+// (2 * itemsize * N bytes) and does 9 f32 operations per cell-step, so it is
+// bounded by bytes up to k = 8. The design spends instead the in-plane
+// halo's redundant steps (up to (32+2k)^2 cells stepped for 32^2 kept),
+// shared-memory traffic (two float4 loads, one float4 store and two
+// shuffles per 4 cells and step) and one barrier per streamed row plane;
+// PERF.md has its times.
 //
 // Plain C interface (loaded with ctypes): heat_ftcs3d() launches on the
 // given stream, allocates nothing, does not synchronise, and returns the
 // launch's cudaError_t.
 
-#include "stencil3d.cuh"
+#include "stencil3d_stream.cuh"
 
 namespace {
 
 template <typename T>
 int launch(const Args& a) {
-  return launch_inst<T, ORDER_L1, UPD_LAP, 16, 16, 32>(a);
+  return launch_stream<T, ORDER_L1, UPD_LAP, STREAM_LZ, STREAM_TY, STREAM_TX>(a);
 }
 
 }  // namespace

@@ -8,32 +8,38 @@
 // storage type once per call, and differ in the neighbour order and the
 // update form; their TPU block shapes ((row, mid) tiles with 3x3 halo
 // blocks, shrinking slices or rolls on every axis) change no byte. Here
-// each (function, variant) is an instance of stencil3d.cuh's kernel,
-// the body that ftcs3d.cu (the shipped kernel) instantiates too: L1 at the
-// 16 x 16 x 32 tile IS the shipped kernel, so an A/B of a candidate against
-// it compares like with like. The forms (cuda_lab.FORMS):
+// each (function, variant) is compiled in two designs of one function:
+// stencil3d_stream.cuh's streamed wavefront, the body that ftcs3d.cu (the
+// shipped kernel) instantiates (L1 at its tile IS the shipped kernel, so an
+// A/B of a candidate against it compares like with like), and
+// stencil3d.cuh's in-place band, the shipped kernel's earlier design. The
+// forms (cuda_lab.FORMS):
 //   L1            ORDER_L1, UPD_LAP (K3's form)
 //   L2 f32        ORDER_L2, UPD_LAP
 //   L2 fma        ORDER_L2, UPD_DECAY
 // the forms the interpret-mode Pallas bodies compute (their compiled bodies
 // contract s - 6c, the update and the hoisted decay into fmas). Each is
-// compiled at two Hopper tiles: 16 x 16 x 32, and 8 x 16 x 64, which fits
-// up to 7 steps (at 8 its band needs 245760 bytes, over the 232448 a block
-// may have).
+// compiled at three Hopper tiles: the streamed design's 256-row segments of
+// 32 x 32 (mid, col) tiles (the shipped configuration, at each depth 1..8),
+// and the band design's 16 x 16 x 32 and 8 x 16 x 64 output tiles; the
+// last fits up to 7 steps (at 8 its band needs 245760 bytes, over the
+// 232448 a block may have).
 //
 // Plain C interface (loaded with ctypes): heat_lab3d() launches on the given
 // stream, allocates nothing, does not synchronise, and returns the launch's
 // cudaError_t.
 
-#include "stencil3d.cuh"
+#include "stencil3d_stream.cuh"
 
 namespace {
 
 // the compiled tiles, in the order of cuda_lab.BLOCKS_3D
 template <typename T, int ORDER, int UPD>
 int launch_tile(int tile, const Args& a) {
-  if (tile == 0) return launch_inst<T, ORDER, UPD, 16, 16, 32>(a);
-  if (tile == 1) return launch_inst<T, ORDER, UPD, 8, 16, 64>(a);
+  if (tile == 0)
+    return launch_stream<T, ORDER, UPD, STREAM_LZ, STREAM_TY, STREAM_TX>(a);
+  if (tile == 1) return launch_inst<T, ORDER, UPD, 16, 16, 32>(a);
+  if (tile == 2) return launch_inst<T, ORDER, UPD, 8, 16, 64>(a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,8 @@
-// The 3D (7-point) FTCS multistep kernel for Hopper (sm_90a): one body for
-// the shipped kernel (ftcs3d.cu, one instance) and the kernel lab's
-// candidates (lab3d.cu), so that an A/B of a candidate against the shipped
-// kernel compares like with like, and a redesign is made once.
+// The 3D (7-point) FTCS multistep kernel for Hopper (sm_90a) in its band
+// design: the shipped kernel's earlier design, kept as the kernel lab's band
+// tiles (lab3d.cu) beside the streamed design that ftcs3d.cu now ships
+// (stencil3d_stream.cuh, which shares the definitions below), so that the
+// lab times both on one field. The two compute the same bytes.
 //
 // It computes k <= KMAX masked 7-point FTCS steps per launch on an f32 band
 // and rounds to the storage type once per launch. Templated on the

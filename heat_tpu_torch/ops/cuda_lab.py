@@ -47,8 +47,8 @@ the interpret-mode Pallas kernels compute (their compiled bodies contract
 ``tests/test_torch_lab_kernels.py`` holds each plain version to them byte
 for byte and shows that each other form differs. The shipped kernels
 (``cuda_stencil``'s ``ftcs2d`` / ``ftcs3d``) are instances of the same
-kernel bodies (``csrc/stencil2d.cuh``, ``csrc/stencil3d.cuh``): L1, L3
-shrink/rolled and L5 f32 at the first tile of ``BLOCKS_2D`` /
+kernel bodies (``csrc/stencil2d.cuh``, ``csrc/stencil3d_stream.cuh``):
+L1, L3 shrink/rolled and L5 f32 at the first tile of ``BLOCKS_2D`` /
 ``BLOCKS_3D`` are the shipped kernels, so an A/B on the card compares like
 with like.
 
@@ -57,7 +57,9 @@ padded arrays: ``Tp`` is the padded field, ``logical`` its true extent,
 and the TPU geometry (row/mid/column tiles and halo depths) is validated as
 the JAX asserts do but changes no byte. The Hopper tile is the kernels' own
 ``block`` argument, one of a few compiled instances (``BLOCKS_2D``,
-``BLOCKS_3D``); a depth or a tile that cannot launch raises a
+``BLOCKS_3D``, whose first 3D tile is the streamed design the shipped
+``ftcs3d`` has, the others the band design it had before, so the lab times
+both on one field); a depth or a tile that cannot launch raises a
 ``ValueError`` naming the limit before anything launches. ``bounds`` must
 freeze every edge of the padded array (``0 <= lo`` and ``hi <= size - 1``
 per axis), so that no cell that updates reads across it: outside the array
@@ -113,9 +115,14 @@ _UPDATE_CODE = {"lap": 0, "decay": 1}
 _SOURCES = {2: "lab2d", 3: "lab3d"}
 
 # the compiled Hopper tiles, (rows, cols) and (rows, mids, cols); the first
-# of each is the shipped kernel's (csrc/ftcs2d.cu, csrc/ftcs3d.cu)
+# of each is the shipped kernel's (csrc/ftcs2d.cu, csrc/ftcs3d.cu). In 3D
+# the first is the streamed design's (csrc/stencil3d_stream.cuh): 256-row
+# segments of a 32 x 32 (mid, col) output tile; the others are output tiles
+# of the in-place band design (csrc/stencil3d.cuh), the shipped kernel's
+# earlier one
 BLOCKS_2D = ((64, 96), (32, 192))
-BLOCKS_3D = ((16, 16, 32), (8, 16, 64))
+STREAM_3D = (256, 32, 32)
+BLOCKS_3D = (STREAM_3D, (16, 16, 32), (8, 16, 64))
 KMAX_2D = 32                    # halo width of the widest 2D instance
 KMAX_3D = 8
 SMEM_LIMIT = 232448             # bytes of shared memory a block may opt into
@@ -149,9 +156,19 @@ def ops_per_cell_step(name: str, variant: Optional[str]) -> int:
 
 def smem_bytes(block: Sequence[int], ksteps: int) -> int:
     """Dynamic shared memory of one launch: two f32 bands of the tile and
-    its ``ksteps`` halo in 2D (ping-pong), one in 3D (updated in place)."""
+    its ``ksteps`` halo in 2D (ping-pong); in 3D one band, updated in place,
+    or for the streamed tile two f32 planes of the (mid, col) tile and its
+    halo for each of the first ``ksteps`` steps (one written, one read),
+    each with a guard."""
+    block = tuple(block)
     if len(block) == 2:
         return 2 * 4 * (block[0] + 2 * ksteps) * (block[1] + 2 * ksteps)
+    if block == STREAM_3D:
+        # csrc/stencil3d_stream.cuh's Stream: rows padded to 4 cells, one
+        # thread per 4 cells in whole warps, a guard of a row + 4 each side
+        rows, row = block[1] + 2 * ksteps, (block[2] + 2 * ksteps + 3) // 4 * 4
+        threads = -(-(rows * row // 4) // 32) * 32
+        return ksteps * 2 * 4 * (4 * threads + 2 * (row + 4))
     return 4 * (block[0] + 2 * ksteps) * (block[1] + 2 * ksteps) * (
         block[2] + 2 * ksteps)
 

@@ -5,8 +5,11 @@ The reference has no mid-run persistence — its only dumps are the initial
 Snapshots are ``.npz`` files carrying the field, the step index and a config
 fingerprint, in exactly ``heat_tpu.runtime.checkpoint``'s layout and
 fingerprint, so each package resumes the other's checkpoints. A bf16 tensor
-is stored as its raw 2-byte values (the ``|V2`` records numpy writes for a
-bf16 array) and read back widened to f32, which is exact.
+is stored as its raw 2-byte values under the ``.npy`` header an
+``ml_dtypes.bfloat16`` array gets (``'descr': '<V2'``, written with numpy
+alone: ``savez_compressed``), so the file is the reference's, byte for
+byte; it is read back (numpy loads either header as ``|V2`` records)
+widened to f32, which is exact.
 
 Discovery (``latest``) trusts nothing: every candidate is verified loadable
 and finite before it is offered for resume; a torn, truncated, or
@@ -19,7 +22,9 @@ quarantining.
 from __future__ import annotations
 
 import hashlib
+import io
 import json
+import zipfile
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -38,6 +43,37 @@ def config_fingerprint(cfg: HeatConfig) -> str:
                 ndim=cfg.ndim, ic=cfg.ic, bc=cfg.bc, bc_value=cfg.bc_value,
                 dtype=cfg.dtype)
     return hashlib.sha256(json.dumps(phys, sort_keys=True).encode()).hexdigest()[:16]
+
+
+# numpy's header for raw 2-byte records, and the one an ml_dtypes.bfloat16
+# array gets (its dtype.str); both are 14 bytes, so the padding is unchanged
+_V2_DESCR = b"'descr': '|V2'"
+_BF16_DESCR = b"'descr': '<V2'"
+# bytes per write of an array's data, as numpy's write_array chunks it
+_CHUNK = 16 * 1024 ** 2
+
+
+def savez_compressed(f, **arrays) -> None:
+    """``np.savez_compressed(f, **arrays)`` (the same zip members, settings
+    and bytes), except that an array of raw 2-byte records (``V2``: bf16
+    bits) gets the ``.npy`` header of an ``ml_dtypes.bfloat16`` array,
+    ``'<V2'``, as the reference's files have it."""
+    with zipfile.ZipFile(f, mode="w", compression=zipfile.ZIP_DEFLATED,
+                         allowZip64=True) as zf:
+        for key, val in arrays.items():
+            val = np.asanyarray(val)
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if not (val.dtype.kind == "V" and val.dtype.itemsize == 2
+                        and val.dtype.names is None):
+                    np.lib.format.write_array(fid, val, allow_pickle=False)
+                    continue
+                head = io.BytesIO()
+                np.lib.format.write_array_header_1_0(
+                    head, np.lib.format.header_data_from_array_1_0(val))
+                fid.write(head.getvalue().replace(_V2_DESCR, _BF16_DESCR, 1))
+                flat = np.ascontiguousarray(val).reshape(-1).view(np.uint8)
+                for lo in range(0, flat.size, _CHUNK):
+                    fid.write(flat[lo:lo + _CHUNK])
 
 
 def _to_storage(T) -> np.ndarray:
@@ -72,8 +108,8 @@ def save(cfg: HeatConfig, T, step: int) -> Path:
     # mid-save would leave a torn file that resume then trips over.
     tmp = d / (path.name + ".tmp")
     with open(tmp, "wb") as f:  # file handle: stops numpy appending ".npz"
-        np.savez_compressed(f, T=_to_storage(T), step=step,
-                            fingerprint=config_fingerprint(cfg))
+        savez_compressed(f, T=_to_storage(T), step=step,
+                         fingerprint=config_fingerprint(cfg))
     tmp.rename(path)  # atomic publish: no torn checkpoint on interrupt
     if plan is not None:
         plan.damage_checkpoint(path, step)  # injected post-publish bitrot

@@ -67,6 +67,7 @@ from ..config import (DEFAULT_SLO_CLASS, DEFAULT_TENANT, LANE_KERNELS,
 from ..grid import initial_condition_device
 from ..ops import cuda_lanes
 from ..runtime import async_io, faults
+from ..runtime.checkpoint import savez_compressed
 from ..runtime.logging import json_record, master_print
 from . import policy as policy_mod
 from .engine import BucketKey, LaneEngine, lane_tier, resolve_lane_kernel, \
@@ -179,8 +180,9 @@ def _bucket_for(cfg: HeatConfig, buckets) -> Optional[int]:
 def _write_result(out_dir, req_id: str, T: np.ndarray, cfg: HeatConfig,
                   steps: Optional[int] = None):
     """Atomic-publish one request's final field (temp name outside any
-    discovery glob, then a rename). The npz has the reference's keys; a
-    bfloat16 ``T`` is stored as numpy stores bfloat16 bits (``V2``)."""
+    discovery glob, then a rename). The npz is the reference's file: its
+    keys, and a bfloat16 ``T`` (``V2`` bits) under the reference's
+    ``'<V2'`` header."""
     from pathlib import Path
 
     d = Path(out_dir)
@@ -188,9 +190,9 @@ def _write_result(out_dir, req_id: str, T: np.ndarray, cfg: HeatConfig,
     path = d / f"{req_id}.npz"
     tmp = d / (path.name + ".tmp")
     with open(tmp, "wb") as f:
-        np.savez_compressed(f, T=np.asarray(T),
-                            step=cfg.ntime if steps is None else int(steps),
-                            n=cfg.n, ndim=cfg.ndim, dtype=cfg.dtype)
+        savez_compressed(f, T=np.asarray(T),
+                         step=cfg.ntime if steps is None else int(steps),
+                         n=cfg.n, ndim=cfg.ndim, dtype=cfg.dtype)
     tmp.rename(path)
     return path
 

@@ -140,7 +140,8 @@ def test_framework_bench_uses_the_reference_passes(monkeypatch, capsys):
 def test_tune_session_exits_nonzero_on_a_failed_stage(monkeypatch, capsys):
     assert tune.main(["lab3d", "--device", "cpu"]) == 1
     out = capsys.readouterr().out
-    assert "stage lab3d FAILED: 4 of 4 configs" in out
+    n = len(tune.LAB3D)  # every config of the stage (both 3D designs)
+    assert f"stage lab3d FAILED: {n} of {n} configs" in out
 
     def boom(*a, **k):
         raise RuntimeError("out of memory")

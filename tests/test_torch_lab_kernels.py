@@ -443,6 +443,23 @@ def test_launch_limits_name_the_limit():
     assert cl.smem_bytes(cl.BLOCKS_3D[0], cl.KMAX_3D) <= cl.SMEM_LIMIT
 
 
+def test_streamed_tile_is_the_first_and_sizes_its_own_shared_memory():
+    """The streamed design's tile (LZ rows, TY x TX): two f32 planes of the
+    (mid, col) tile and its halo per step, not a band."""
+    assert cl.BLOCKS_3D[0] == cl.STREAM_3D == (256, 32, 32)
+    assert cl.check_launch(3, (256, 32, 32), 8) == (256, 32, 32)
+    # 576 threads of 4 cells, a 52-cell guard each side of a plane
+    assert cl.smem_bytes((256, 32, 32), 8) == 8 * 2 * 4 * (2304 + 2 * 52)
+    # 34 cells a row padded to 36: 306 groups, 320 threads
+    assert cl.smem_bytes((256, 32, 32), 1) == 2 * 4 * (4 * 320 + 2 * 40)
+    for k in range(1, cl.KMAX_3D + 1):
+        assert cl.check_launch(3, cl.STREAM_3D, k) == cl.STREAM_3D
+    with pytest.raises(ValueError, match="halo width"):
+        cl.check_launch(3, (256, 32, 32), 9)
+    with pytest.raises(ValueError, match="no compiled tile"):
+        cl.check_launch(3, (32, 32, 64), 4)
+
+
 def test_k1_and_k3_forms_are_the_shipped_kernels_function():
     """L3 shrink/rolled and L5 f32 compute ftcs2d's function, L1 ftcs3d's:
     the plain versions agree byte for byte on one input."""
