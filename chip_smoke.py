@@ -13,13 +13,23 @@ a checkout of the repository, it exits non-zero and prints no result):
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions, the
    kernel builds (``nvcc`` for sm_90a, one process per source, started
-   together) and their ptxas register reports;
+   together, each source's time) and their ptxas register reports, with
+   registers and spills of every ``ftcs2d`` and ``ftcs3d`` instance;
 2. each kernel against its plain version on the card, bytes compared, all
    through the public wrappers (so in the reference's pass schedule) unless
    a single pass is named:
    ``ftcs2d`` — 67x130, 1000x4099 and 4096^2 under edges/ghost/periodic,
    f32/bf16, k in {1, 7, 16}, r in {0.25, 0.2}; one 16-step 32768^2 pass in
    f32 and bf16; single passes of k in {17, 32} at 67x130 and 4096^2;
+   segment and region ends of the streamed design (segments of 16 to 256
+   rows, sized per field to fill whole waves; a 128-wide region): 300x4099
+   (rows not a multiple of the segment, width not a multiple of 4 or of the
+   output strip) and 20x70 (fewer rows than a segment and its 2k halo)
+   likewise at r 0.2; bounds inside the field (lo 3, hi size-5)
+   through ``ftcs_multistep_bounded_cuda`` at 67x130 and 4096^2, k in {1,
+   16, 32}, f32/bf16; NaNs planted in an interior cell and 4 rows from a
+   frozen ring 41 cells wide at 1000x4099, k in {7, 16, 32} (the same NaN
+   cells, the same bytes elsewhere, the NaN in the frozen ring);
    ``ftcs3d`` — 24x20x130, 67x45x129 and 256^3 under edges/ghost/periodic,
    f32/bf16, k in {1, 4, 8}, r in {1/6, 0.15}; segment ends of the
    streamed design (256-row segments): 300x40x70 (rows not a multiple of
@@ -32,8 +42,10 @@ a checkout of the repository, it exits non-zero and prints no result):
    card's host, whose tests/conftest.py needs JAX); single 512^3 passes
    (f32 k=8, bf16 k=4) and a 1024^3 f32 k=5 pass;
    then per-pass times of kernel and plain version at the main path's
-   shapes and depths, and of the 4096^2 k=32 and 512^3 f32 k=4 passes, and
-   the kernel's time per pass at 512^3 f32 for every depth k = 1..8;
+   shapes and depths, and of the 4096^2 k=32 and 512^3 f32 k=4 passes (in
+   2D beside the band design, the lab's 64x96 K1-form tile, on the same
+   field), the kernel's time per pass at 4096^2 f32 for k in {1, 2, 4, 8,
+   16, 24, 32} and at 512^3 f32 for every depth k = 1..8;
    the lane kernels ``lanes2d`` (2D buckets 12, 256, 1024) and ``lanes3d``
    (3D buckets 8, 64, 256) through ``cuda_lanes.lane_multistep`` against
    ``plain=True``: f32/bf16, edges/ghost, k in {1, 5, 16, 37}, 4 lanes with
@@ -45,7 +57,8 @@ a checkout of the repository, it exits non-zero and prints no result):
    "--json", ...])`` (what ``python -m heat_tpu_torch run`` calls) with the
    launch counts zeroed just before and read just after:
    2D — 4096^2 f32 for 8192 steps (the python/cuda benchmark shape),
-   32768^2 in f32 and bf16 (the hip.dat size, ntime cut to 256), each run's
+   32768^2 in f32 and bf16 (the hip.dat size, ntime cut to 128: its plain
+   version, run to compare, takes about 2.7 s a pass), each run's
    global sum equal to that of the plain version run in the same passes;
    3D (``--ndim 3``) — 512^3 f32 for 3200 steps at sigma 1/6 (the
    reference's config 4, benchmarks/run_all.py:190-192, at full size),
@@ -86,19 +99,26 @@ a checkout of the repository, it exits non-zero and prints no result):
 6. the kernel lab's candidates L1-L5 (``lab2d``, ``lab3d``): every
    (kernel, variant, dtype) against its plain version on the card, bytes,
    at the JAX lab's check shapes, depths 1 and the deepest its TPU geometry
-   takes, on both compiled Hopper tiles, with bounds narrower than the
-   field, and with a NaN planted in an interior cell (the same NaN cells,
-   the same bytes elsewhere); at the shipped tile, the K1-form instances
-   against ``ftcs2d`` and L1 against ``ftcs3d`` on the same inputs (one
-   kernel body each, ``stencil2d.cuh`` / ``stencil3d_stream.cuh``), and L1
-   at the band design's 16x16x32 tile (``stencil3d.cuh``, ``ftcs3d``'s
-   earlier design) against ``ftcs3d`` too; then the lab's main path,
+   takes, on every compiled Hopper tile, and with bounds narrower than the
+   field and with a NaN planted in an interior cell (the same NaN cells,
+   the same bytes elsewhere) on the streamed tile and the first band tile;
+   each compiled 2D tile's rows, columns and shared memory at every depth
+   (``heat_lab2d_geometry``: the streamed instances' static shared memory
+   as compiled) equal to ``cuda_lab``'s ``STREAM_2D`` and ``smem_bytes``,
+   and compiled at the depths ``check_launch`` takes; the K1-form instances against ``ftcs2d``
+   (k 16 and 32) and L1 against ``ftcs3d`` on the same inputs, each at the
+   shipped streamed tile (the same template instances,
+   ``stencil2d_stream.cuh`` / ``stencil3d_stream.cuh``) and at a tile of
+   the earlier band design (64x96, ``stencil2d.cuh``; 16x16x32,
+   ``stencil3d.cuh``); then the lab's main path,
    ``heat_tpu_torch.labs.kernel_lab.main`` (what ``python -m
    heat_tpu_torch.labs.kernel_lab`` calls) with the lab launch counts
    zeroed just before and read just after: every ``check*`` experiment,
    then one bench per kernel and variant at full size (L1/L2 512^3 f32
    k=8 at the shipped streamed tile, and L1 at the band tile 16x16x32
-   beside it, L3 16384^2 bf16 k=16, L4/L5 32768^2 bf16 k=16), each row's plain
+   beside it, L3 16384^2 bf16 k=16, L4/L5 32768^2 bf16 k=16 at the
+   shipped streamed tile 256x128, and L4 at the band tile 64x96 beside
+   it), each row's plain
    version timed once at its shape and held to the kernel's bytes. Prints
    each row's ms per pass, its bound, the plain version's ms and the
    shipped kernel's ms at the same shape, dtype and depth.
@@ -145,10 +165,10 @@ LAB_BENCHES = (
     ["bench3d", "256,32,32,8", "16,16,32,8"],
     ["bench3d_rolled_var", "f32", "256,32,32,8"],
     ["bench3d_rolled_var", "fma", "256,32,32,8"],
-    ["benchthin", "16384", "bfloat16", "shrink,64,96,16", "rolled,64,96,16",
-     "rolledfma,64,96,16", "bf16native,64,96,16"],
-    ["bench2d", "64,96,16"],
-    *(["bench2d_rolled_var", v, "64,96,16"]
+    ["benchthin", "16384", "bfloat16", "shrink,256,128,16",
+     "rolled,256,128,16", "rolledfma,256,128,16", "bf16native,256,128,16"],
+    ["bench2d", "256,128,16", "64,96,16"],
+    *(["bench2d_rolled_var", v, "256,128,16"]
       for v in ("f32", "fma", "bf16native", "bf16fma")),
 )
 # the reference's CostEstimate counts of operations per lane cell-step
@@ -215,6 +235,12 @@ def full_bounds(shape) -> tuple:
     return tuple(v for s in shape for v in (0, s - 1))
 
 
+def nan_bounds(shape) -> tuple:
+    """A frozen ring 41 cells wide: cells 0..40 and size-41..size-1 of each
+    axis frozen."""
+    return tuple(v for s in shape for v in (40, s - 41))
+
+
 def inner_bounds(shape) -> tuple:
     """Bounds inside the field on every axis: cells 0..3 and size-5..size-1
     frozen, so blocks near the edges see frozen planes in their halo while
@@ -249,11 +275,12 @@ def phase_build():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.build_all()
+    each = _build.build_all()
     for name in _build.KERNELS:
         _build.load(name)
     print(f"[phase 1] {', '.join(_build.KERNELS)} built for sm_90a in "
-          f"{time.perf_counter() - t0:.3f} s (one nvcc each, in parallel)")
+          f"{time.perf_counter() - t0:.3f} s (one nvcc each, in parallel: "
+          f"{', '.join(f'{n} {t:.1f} s' for n, t in each.items())})")
     for name in _build.KERNELS:
         funcs = ptxas_report(_build.build_log(name))
         regs = [f[1] for f in funcs]
@@ -265,6 +292,13 @@ def phase_build():
                           fn)
             if name == "ftcs3d" and m:
                 print(f"    ftcs3d {'f32' if m[1] == 'f' else 'bf16'} "
+                      f"k={m[2]}: {nreg} registers, spill stores {st} B, "
+                      f"loads {ld} B")
+            # stencil2d_stream.cuh's <T, ORDER, UPD, EVERY, K>
+            m = re.search(r"stream_kernelI(f|13__nv_bfloat16)Li0ELi0ELb0E"
+                          r"Li(\d+)EE", fn)
+            if name == "ftcs2d" and m:
+                print(f"    ftcs2d {'f32' if m[1] == 'f' else 'bf16'} "
                       f"k={m[2]}: {nreg} registers, spill stores {st} B, "
                       f"loads {ld} B")
 
@@ -286,6 +320,9 @@ def phase_compare():
         if bc == "inner":
             return cs.ftcs_multistep_bounded_cuda(T, r, k, inner_bounds(
                 T.shape), plain=plain)
+        if bc == "nan":
+            return cs.ftcs_multistep_bounded_cuda(T, r, k, nan_bounds(
+                T.shape), plain=plain)
         # "pass": one kernel pass of exactly k steps, default bounds
         return cs._pass(T, r, k, full_bounds(T.shape), plain=plain)
 
@@ -297,6 +334,24 @@ def phase_compare():
     cases += [((32768, 32768), "edges", dt, 16, 0.2) for dt in (f32, bf16)]
     cases += [(shape, "pass", dt, k, 0.2) for shape in ((67, 130), (4096, 4096))
               for dt in (f32, bf16) for k in (17, 32)]
+    # the streamed ftcs2d's segment and region ends: rows not a multiple of
+    # its segment (16 rows at these sizes), fewer rows than a segment and
+    # its 2k halo, widths not a multiple of 4 or of an output strip
+    cases += [(shape, bc, dt, k, 0.2)
+              for shape in ((300, 4099), (20, 70))
+              for bc in ("edges", "ghost", "periodic")
+              for dt in (f32, bf16) for k in (1, 7, 16)]
+    # bounds inside the field (lo 3, hi size-5) through the bounded wrapper,
+    # at both streamed shapes (k <= 16 and 17..32); and NaNs planted in an
+    # interior cell and 4 rows from a frozen ring 41 cells wide (which the
+    # NaN must reach, and spread into, but not cross in 32 steps: across
+    # the array's edge the plain version's rolls wrap where the kernel
+    # reads zeros, and a frozen cell keeps c + 0*lap, NaN for a NaN lap)
+    cases += [(shape, "inner", dt, k, 0.2)
+              for shape in ((67, 130), (4096, 4096))
+              for dt in (f32, bf16) for k in (1, 16, 32)]
+    cases += [((1000, 4099), "nan", dt, k, 0.2)
+              for dt in (f32, bf16) for k in (7, 16, 32)]
     cases += [(shape, bc, dt, k, r)
               for shape in ((24, 20, 130), (67, 45, 129), (256, 256, 256))
               for bc in ("edges", "ghost", "periodic")
@@ -325,15 +380,26 @@ def phase_compare():
             T, bc = (1 + T).to(dt).cuda(), "edges"
         else:
             T = field(shape, dt, seed=i)
+        if bc == "nan":
+            T[44, shape[1] // 2] = T[shape[0] // 2, shape[1] // 3] = float("nan")
         got = wrapper(bc, T, r, k, plain=False)
         want = wrapper(bc, T, r, k, plain=True)
         torch.cuda.synchronize()
-        ndiff = int((bits(got) != bits(want)).sum())
-        err = float((got.float() - want.float()).abs().max())
+        if bc == "nan":
+            check(bool(torch.isnan(want[40, shape[1] // 2])),
+                  "the NaN did not reach the frozen ring")
+            ndiff = 0 if nan_bits_equal(got, want) else int(
+                (bits(got) != bits(want)).sum())
+            fin = torch.isfinite(want.float())
+            err = float((got.float()[fin] - want.float()[fin]).abs().max())
+        else:
+            ndiff = int((bits(got) != bits(want)).sum())
+            err = float((got.float() - want.float()).abs().max())
         key = (cs._KERNELS[len(shape)], shape)
         errs[key] = max(errs.get(key, 0.0), err)
-        if (shape[0] >= 4096 or len(shape) == 3 and shape[0] >= 256
-                and bc != "inner" or ndiff):
+        if (shape[0] >= 4096 and bc != "inner" or bc == "nan"
+                or len(shape) == 3 and shape[0] >= 256 and bc != "inner"
+                or ndiff):
             print(f"  {key[0]} {shape} {bc} {dt_name(dt)} k={k} r={r:.6g}: "
                   f"{ndiff} cells differ, max|err| {err:g}")
         check(ndiff == 0, f"kernel != plain at {shape} {bc} {dt} k={k} r={r}")
@@ -346,10 +412,13 @@ def phase_compare():
 
 def phase_times():
     """ms per pass at the main path's shapes and depths: kernel (mean of
-    many launches) and plain version; the bound from machine.py."""
+    many launches) and plain version; the bound from machine.py; in 2D also
+    the band design (the kernel lab's K1-form instance at its 64x96 tile,
+    ftcs2d's earlier design) on the same field."""
     import torch
 
     from heat_tpu_torch.machine import device_model
+    from heat_tpu_torch.ops import cuda_lab as cl
     from heat_tpu_torch.ops import cuda_stencil as cs
 
     dm = device_model(0)
@@ -372,14 +441,31 @@ def phase_times():
         name = cs._KERNELS[len(shape)]
         times[(name, shape, dt, k)] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3, bound_by=bound_by)
+        band = ""
+        if len(shape) == 2:
+            band_ms = event_ms(lambda: cl._launch(
+                "lab_thin2d_variant", "shrink", A, r, k, bounds, (64, 96), B),
+                reps)
+            times[(name, shape, dt, k)]["band_ms"] = band_ms
+            band = f", band design 64x96 {band_ms:.4f} ms"
         print(f"  {name} {'x'.join(map(str, shape))} {dt_name(dt)} k={k}: "
               f"{ms:.4f} ms/pass (plain {plain_ms:.2f} ms, bound "
               f"{bound_s * 1e3:.4f} ms by {bound_by}, {bound_s * 1e3 / ms:.1%} "
-              f"of it)")
+              f"of it{band})")
         del A, B
         torch.cuda.empty_cache()
-    # ftcs3d's time per pass at every depth at 512^3 f32 (the data for the
+    # ftcs2d's time per pass over its depths at 4096^2 f32 (both streamed
+    # shapes), and ftcs3d's at every depth at 512^3 f32 (the data for the
     # schedule's depth; no plain version)
+    A = field((4096, 4096), f32, seed=1)
+    B = torch.empty_like(A)
+    for k in (1, 2, 4, 8, 16, 24, 32):
+        ms = event_ms(lambda: cs._launch(A, 0.25, k, full_bounds(A.shape), B),
+                      100)
+        bound_s, bound_by = dm.pass_bound_s(A.numel(), 4, k, ndim=2)
+        print(f"  ftcs2d 4096x4096 f32 k={k}: {ms:.4f} ms/pass, "
+              f"{ms / k:.4f} ms/step (bound {bound_s * 1e3:.4f} ms by "
+              f"{bound_by}, {bound_s * 1e3 / ms:.1%} of it)")
     A = field((512,) * 3, f32, seed=1)
     B = torch.empty_like(A)
     for k in range(1, cs._KMAX_3D + 1):
@@ -491,8 +577,8 @@ def phase_main_path(smi):
     # each run's field against the plain version run in the same passes
     # from the same initial field: the global sums must be equal
     specs2 = {"4096 f32": (4096, 0.25, 0.05, 2.0, 8192, "float32"),
-              "32768 f32": (32768, 0.25, 0.05, 1.0, 256, "float32"),
-              "32768 bf16": (32768, 0.25, 0.05, 1.0, 256, "bfloat16")}
+              "32768 f32": (32768, 0.25, 0.05, 1.0, 128, "float32"),
+              "32768 bf16": (32768, 0.25, 0.05, 1.0, 128, "bfloat16")}
     for key, spec in specs2.items():
         runs[key] = main_path_run(key, spec[0], 2, *spec[1:], smi)
     for key, (n, sigma, nu, dom_len, ntime, dtype) in specs2.items():
@@ -1047,12 +1133,15 @@ def phase_lab_compare():
         for dt in (torch.float32, torch.bfloat16):
             T, logical, geo, kmax, narrow = lab_inputs(name, dt, ncases)
             cases = [(k, block, None, T) for k in (1, kmax) for block in blocks]
-            if narrow is not None:
-                cases.append((kmax, blocks[0], narrow, T))
             Tn, _, _, _, nb = lab_inputs(name, dt, ncases, nan=True)
             if name == "lab_thin2d_variant":   # it takes no bounds
                 nb = None
-            cases.append((kmax, blocks[0], nb, Tn))
+            # narrower bounds and the NaN in both designs: the streamed tile
+            # and the first band tile
+            for block in blocks[:2]:
+                if narrow is not None:
+                    cases.append((kmax, block, narrow, T))
+                cases.append((kmax, block, nb, Tn))
             for k, block, bounds, X in cases:
                 got = lab_call(name, variant, X, r, k, logical, geo, bounds,
                                block=block)
@@ -1079,36 +1168,55 @@ def phase_lab_compare():
                           f"cells differ")
                 check(ok, f"lab kernel != plain: {what}")
                 ncases += 1
+    # cuda_lab's 2D tile figures against what lab2d.cu compiled
+    for block in cl.BLOCKS_2D:
+        for k in range(1, cl.KMAX_2D + 1):
+            geo = cl.compiled_geometry(block, k)
+            try:
+                cl.check_launch(2, block, k)
+            except ValueError:
+                check(geo is None, f"lab2d compiled tile {block} at k={k}, "
+                      f"which check_launch refuses")
+                continue
+            rw = block[1] if block != cl.STREAM_2D or k <= 16 else 2 * block[1]
+            check(geo == (block[0], rw, cl.smem_bytes(block, k)),
+                  f"lab2d tile {block} at k={k} compiled as {geo}, cuda_lab "
+                  f"says {(block[0], rw, cl.smem_bytes(block, k))}")
     # at the shipped tile the K1-form instances and L1 are the template
-    # instances that ftcs2d.cu / ftcs3d.cu build (stencil2d.cuh /
+    # instances that ftcs2d.cu / ftcs3d.cu build (stencil2d_stream.cuh /
     # stencil3d_stream.cuh), compiled into the lab's libraries: the same
-    # input gives the same bytes; and L1 at the band tile (stencil3d.cuh,
-    # ftcs3d's earlier design) gives ftcs3d's bytes too
+    # input gives the same bytes; and at the band tiles (stencil2d.cuh /
+    # stencil3d.cuh, the earlier designs) they give ftcs2d's / ftcs3d's
+    # bytes too, in 2D at both streamed shapes (k 16 and 32)
     nsame = 0
+    stream2, band2 = cl.STREAM_2D, (64, 96)
+    stream3, band3 = cl.STREAM_3D, (16, 16, 32)
     for dt in (torch.float32, torch.bfloat16):
         T2 = field((1000, 4099), dt, seed=3)
         b2 = full_bounds(T2.shape)
         T3 = field((67, 45, 129), dt, seed=4)
         b3 = full_bounds(T3.shape)
-        want2 = cs._launch(T2, 0.2, 16, b2, None)
         want3 = cs._launch(T3, 1 / 6, 8, b3, None)
-        tile2, stream, band = cl.BLOCKS_2D[0], cl.BLOCKS_3D[0], (16, 16, 32)
-        for name, variant, X, r, k, b, want, block in (
-                ("lab_thin2d_variant", "shrink", T2, 0.2, 16, b2, want2, tile2),
-                ("lab_thin2d_variant", "rolled", T2, 0.2, 16, b2, want2, tile2),
-                ("lab_2d_coltiled_rolled", "f32", T2, 0.2, 16, b2, want2,
-                 tile2),
-                ("lab_3d_tiled", None, T3, 1 / 6, 8, b3, want3, stream),
-                ("lab_3d_tiled", None, T3, 1 / 6, 8, b3, want3, band)):
+        same = [("lab_3d_tiled", None, T3, 1 / 6, 8, b3, want3, stream3),
+                ("lab_3d_tiled", None, T3, 1 / 6, 8, b3, want3, band3)]
+        for k in (16, 32):
+            want2 = cs._launch(T2, 0.2, k, b2, None)
+            same += [(name, variant, T2, 0.2, k, b2, want2, block)
+                     for name, variant in (
+                         ("lab_thin2d_variant", "shrink"),
+                         ("lab_thin2d_variant", "rolled"),
+                         ("lab_2d_coltiled_rolled", "f32"))
+                     for block in (stream2, band2)]
+        for name, variant, X, r, k, b, want, block in same:
             got = cl._launch(name, variant, X, r, k, b, block, None)
             check(torch.equal(bits(got), bits(want)),
-                  f"{cl.key(name, variant)} {dt_name(dt)} tile {block} != "
-                  f"the shipped kernel")
+                  f"{cl.key(name, variant)} {dt_name(dt)} k={k} tile {block} "
+                  f"!= the shipped kernel")
             nsame += 1
         torch.cuda.synchronize()
     print(f"[phase 6] {ncases} lab-kernel-vs-plain cases, 0 differing bytes "
           f"(NaN cells alike); {nsame} K1/K3-form launches equal to "
-          f"ftcs2d/ftcs3d, L1 in both 3D designs "
+          f"ftcs2d/ftcs3d, in both designs of each "
           f"({time.perf_counter() - t0:.1f} s)")
     return errs
 

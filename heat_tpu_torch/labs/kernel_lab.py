@@ -20,6 +20,10 @@ replaced by a Hopper tile and depth:
   of its earlier band design (``bench3d`` with no config times both at
   k=8);
 - ``bench2d`` / ``bench2d_f32 [BR,BC,k ...]``: L4 at 32768^2 bf16 / f32;
+  the tile ``256,128`` is the streamed design ``ftcs2d`` ships (segments
+  of up to 256 rows of a 128-wide region), ``64,96`` and ``32,192`` are output
+  tiles of its earlier band design (``bench2d`` with no config times the
+  streamed tile and ``64,96`` at k=16);
   ``bench2d_rolled`` / ``bench2d_rolled_f32 [...]``: L5 f32 there;
   ``bench2d_rolled_var {f32|fma|bf16native|bf16fma} [...] [--n2 N]``;
 - ``benchthin N {float32|bfloat16} [variant,BR,BC,k ...] [--steps S]``: L3;
@@ -383,8 +387,8 @@ def bench_framework(cases, device, results: list) -> list:
 CHECKS = {"check3d": check_3d, "check3d_rolled": check_3d_rolled,
           "checkthin": check_thin2d_variants, "check2d": check_2d_coltiled,
           "check2d_rolled": check_2d_coltiled_rolled}
-DEFAULT_3D = [((256, 32, 32), 8), ((16, 16, 32), 8)]
-DEFAULT_2D = [((64, 96), 16)]
+DEFAULT_3D = [(cl.STREAM_3D, 8), ((16, 16, 32), 8)]
+DEFAULT_2D = [(cl.STREAM_2D, 16), ((64, 96), 16)]
 
 
 def _configs(args, ndim: int, default):

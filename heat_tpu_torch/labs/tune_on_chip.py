@@ -9,8 +9,10 @@ Stages (default ``framework lab3d lab2d thin``):
   (``framework:<case>,<case>`` names cases; several concatenate);
 - ``lab3d``: L1 at 512^3 f32 over Hopper tiles and depths (the streamed
   design's and the band design's);
-- ``lab2d``: L4 at 32768^2 bf16 over tiles and depths;
-- ``thin``: L3 shrink against bf16native at 16384^2 bf16.
+- ``lab2d``: L4 at 32768^2 bf16 over tiles and depths (the streamed
+  design's and the band design's);
+- ``thin``: L3 shrink against bf16native at 16384^2 bf16, in both
+  designs.
 
 A stage that fails (an error, or a config that cannot launch) is printed
 and the next stage runs; the process then exits 1, so a session with a
@@ -33,8 +35,10 @@ STAGES = ("framework", "lab3d", "lab2d", "thin")
 # kernel's tile at the shipped depth
 LAB3D = [((256, 32, 32), 8), ((256, 32, 32), 4), ((16, 16, 32), 8),
          ((16, 16, 32), 4), ((8, 16, 64), 4), ((8, 16, 64), 7)]
-LAB2D = [((64, 96), 16), ((32, 192), 16), ((64, 96), 32), ((32, 192), 32)]
-THIN = [("shrink", (64, 96), 16), ("bf16native", (64, 96), 16),
+LAB2D = [((256, 128), 16), ((64, 96), 16), ((32, 192), 16),
+         ((256, 128), 32), ((64, 96), 32), ((32, 192), 32)]
+THIN = [("shrink", (256, 128), 16), ("bf16native", (256, 128), 16),
+        ("shrink", (64, 96), 16), ("bf16native", (64, 96), 16),
         ("shrink", (32, 192), 16), ("bf16native", (32, 192), 16)]
 FRAMEWORK = ["2d4096", "3d512", "2d32k_bf16", "2d32k_f32"]
 

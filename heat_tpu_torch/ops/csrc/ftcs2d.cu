@@ -8,26 +8,32 @@
 // they fit the TPU's VMEM. Here one tiled kernel stands for both: a full
 // 32768-wide f32 row (128 KiB) would not fit one block's shared memory anyway.
 //
-// The kernel is stencil2d.cuh's (design, bound and arithmetic there), at
-// the Pallas body's order and form (pallas_stencil.py:239-249):
+// The kernel is stencil2d_stream.cuh's (design, resources and bound
+// there): rows streamed through the block in segments of up to 256 rows
+// (sized per field to fill whole waves of the card) and the k
+// steps pipelined in registers, at the Pallas body's order and form
+// (pallas_stencil.py:239-249):
 //   lap = ((up + dn) + lf) + rt - 4*c      ORDER_K1
 //   c'  = fma(maskr, lap, c)               UPD_LAP, one rounding, as the
 //                                          Pallas kernel's compiled update
 //                                          contracts it
-// rounded to the storage type once per pass, on 64 x 96 output tiles. The
-// kernel lab's candidates (lab2d.cu) are other instances of the same body.
+// rounded to the storage type once per pass; one instance per depth
+// k = 1..32, picked at run time. The kernel lab (lab2d.cu) compiles the
+// same instances as its first tile, beside stencil2d.cuh's band body (this
+// kernel's earlier design, 64 x 96 output tiles), which computes the same
+// bytes.
 //
 // Plain C interface (loaded with ctypes): heat_ftcs2d() launches on the
 // given stream, allocates nothing, does not synchronise, and returns the
 // launch's cudaError_t.
 
-#include "stencil2d.cuh"
+#include "stencil2d_stream.cuh"
 
 namespace {
 
 template <typename T>
 int launch(const Args& a) {
-  return launch_kh<T, ORDER_K1, UPD_LAP, false, 64, 96>(a);
+  return launch_stream2<T, ORDER_K1, UPD_LAP, false>(a);
 }
 
 }  // namespace

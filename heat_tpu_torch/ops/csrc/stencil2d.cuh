@@ -166,6 +166,12 @@ inline int check_args(const Args& a) {
   return 0;
 }
 
+// dynamic shared memory of a launch at depth k: two f32 bands of the
+// BR x BC output tile and its k-cell halo
+inline size_t band2_smem(int br, int bc, int k) {
+  return 2 * (size_t)(br + 2 * k) * (bc + 2 * k) * sizeof(float);
+}
+
 template <typename T, int ORDER, int UPD, bool EVERY, int KH, int BR, int BC>
 int launch_inst(const Args& a) {
   auto kernel = ftcs2d_kernel<T, ORDER, UPD, EVERY, KH, BR, BC>;
@@ -175,7 +181,7 @@ int launch_inst(const Args& a) {
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        Geometry<KH, BR, BC>::SMEM_MAX);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = 2 * (size_t)(BR + 2 * a.k) * (BC + 2 * a.k) * sizeof(float);
+  const size_t smem = band2_smem(BR, BC, a.k);
   if ((a.m + BR - 1) / BR > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)((a.n + BC - 1) / BC), (unsigned)((a.m + BR - 1) / BR));
   dim3 block(Geometry<KH, BR, BC>::TX, TY);

@@ -47,7 +47,8 @@ the interpret-mode Pallas kernels compute (their compiled bodies contract
 ``tests/test_torch_lab_kernels.py`` holds each plain version to them byte
 for byte and shows that each other form differs. The shipped kernels
 (``cuda_stencil``'s ``ftcs2d`` / ``ftcs3d``) are instances of the same
-kernel bodies (``csrc/stencil2d.cuh``, ``csrc/stencil3d_stream.cuh``):
+kernel bodies (``csrc/stencil2d_stream.cuh``,
+``csrc/stencil3d_stream.cuh``):
 L1, L3 shrink/rolled and L5 f32 at the first tile of ``BLOCKS_2D`` /
 ``BLOCKS_3D`` are the shipped kernels, so an A/B on the card compares like
 with like.
@@ -115,12 +116,23 @@ _UPDATE_CODE = {"lap": 0, "decay": 1}
 _SOURCES = {2: "lab2d", 3: "lab3d"}
 
 # the compiled Hopper tiles, (rows, cols) and (rows, mids, cols); the first
-# of each is the shipped kernel's (csrc/ftcs2d.cu, csrc/ftcs3d.cu). In 3D
-# the first is the streamed design's (csrc/stencil3d_stream.cuh): 256-row
-# segments of a 32 x 32 (mid, col) output tile; the others are output tiles
-# of the in-place band design (csrc/stencil3d.cuh), the shipped kernel's
-# earlier one
-BLOCKS_2D = ((64, 96), (32, 192))
+# of each is the shipped kernel's (csrc/ftcs2d.cu, csrc/ftcs3d.cu), the
+# streamed design's, the others output tiles of the band design, the
+# shipped kernel's earlier one. In 2D the streamed tile
+# (csrc/stencil2d_stream.cuh) is segments of up to 256 rows (as many as
+# fill whole waves of the card: stream2_lz) of a region
+# 128 cells wide (one warp of 4-cell threads, 128 - 2k output columns) up
+# to 16 steps, and 256 wide (four warps of 2-cell threads) at 17..32; the
+# band tiles
+# (csrc/stencil2d.cuh) ping-pong two f32 bands. In 3D the streamed tile
+# (csrc/stencil3d_stream.cuh) is 256-row segments of a 32 x 32 (mid, col)
+# output tile; the band (csrc/stencil3d.cuh) is updated in place
+STREAM_2D = (256, 128)
+# the depths csrc/lab2d.cu compiles the streamed tile at (an instance per
+# depth, form and dtype): those the lab's checks, benches and chip_smoke.py
+# run; the band tiles take every depth 1..KMAX_2D
+STREAM_2D_DEPTHS = (1, 5, 6, 16, 32)
+BLOCKS_2D = (STREAM_2D, (64, 96), (32, 192))
 STREAM_3D = (256, 32, 32)
 BLOCKS_3D = (STREAM_3D, (16, 16, 32), (8, 16, 64))
 KMAX_2D = 32                    # halo width of the widest 2D instance
@@ -155,12 +167,19 @@ def ops_per_cell_step(name: str, variant: Optional[str]) -> int:
 
 
 def smem_bytes(block: Sequence[int], ksteps: int) -> int:
-    """Dynamic shared memory of one launch: two f32 bands of the tile and
-    its ``ksteps`` halo in 2D (ping-pong); in 3D one band, updated in place,
-    or for the streamed tile two f32 planes of the (mid, col) tile and its
-    halo for each of the first ``ksteps`` steps (one written, one read),
-    each with a guard."""
+    """Shared memory of one launch: two f32 bands of the tile and its
+    ``ksteps`` halo in 2D (ping-pong), or for the streamed tile none up to
+    16 steps (one warp spans its region) and the edge values its four warps
+    hand each other beyond (three rotation phases, each of the first
+    ``ksteps`` steps, two sides, four warps); in 3D one band, updated in place, or for
+    the streamed tile two f32 planes of the (mid, col) tile and its halo
+    for each of the first ``ksteps`` steps (one written, one read), each
+    with a guard."""
     block = tuple(block)
+    if block == STREAM_2D:
+        # csrc/stencil2d_stream.cuh's Stream2::EDGES f32 at Stream2Shape's
+        # NW: [three phases][step][two sides][four warps] edge values
+        return 0 if ksteps <= 16 else 4 * 3 * ksteps * 2 * 4
     if len(block) == 2:
         return 2 * 4 * (block[0] + 2 * ksteps) * (block[1] + 2 * ksteps)
     if block == STREAM_3D:
@@ -186,6 +205,9 @@ def check_launch(ndim: int, block: Sequence[int], ksteps: int) -> tuple:
     if not 1 <= ksteps <= kmax:
         raise ValueError(f"lab{ndim}d runs 1..{kmax} steps per launch (its "
                          f"halo width), got {ksteps}")
+    if block == STREAM_2D and ksteps not in STREAM_2D_DEPTHS:
+        raise ValueError(f"lab2d compiles its streamed tile {block} at the "
+                         f"depths {STREAM_2D_DEPTHS}, got {ksteps}")
     smem = smem_bytes(block, ksteps)
     if smem > SMEM_LIMIT:
         raise ValueError(f"lab{ndim}d tile {block} at {ksteps} steps needs "
@@ -285,6 +307,27 @@ def _kernel_fn(ndim: int):
         lib.heat_cuda_error_string.argtypes = [ctypes.c_int]
         lib._heat_typed = True
     return lib, getattr(lib, f"heat_{name}")
+
+
+def compiled_geometry(block: Sequence[int], ksteps: int) -> Optional[tuple]:
+    """What ``csrc/lab2d.cu`` compiled for the 2D tile ``block`` at
+    ``ksteps`` steps: (rows, cols, shared memory bytes of a launch), the
+    streamed tile's rows and region width and its instance's static shared
+    memory as compiled; None where it compiled no instance. Needs the
+    card's build; ``chip_smoke.py`` holds ``smem_bytes`` and ``STREAM_2D``
+    to it."""
+    lib, _ = _kernel_fn(2)
+    fn = lib.heat_lab2d_geometry
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    geo = (ctypes.c_int * 3)()
+    rc = fn(BLOCKS_2D.index(tuple(block)), ksteps, geo)
+    if rc == 1:                     # cudaErrorInvalidValue: not compiled
+        return None
+    if rc:
+        raise RuntimeError(f"heat_lab2d_geometry: "
+                           f"{lib.heat_cuda_error_string(rc).decode()}")
+    return tuple(geo)
 
 
 def _launch(name: str, variant: Optional[str], T: torch.Tensor, r: float,

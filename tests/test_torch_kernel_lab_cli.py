@@ -56,7 +56,10 @@ def test_bench_on_the_cpu_fails(capsys):
     rows = []
     assert lab.main(["bench2d", "--device", "cpu"], results=rows) == 1
     assert "a bench times the card" in rows[0]["failed"]
-    assert "1 of 1 configs FAILED" in capsys.readouterr().out
+    n = len(lab.DEFAULT_2D)  # both 2D designs, each refused on the CPU
+    assert n == 2 and all("a bench times the card" in r["failed"]
+                          for r in rows)
+    assert f"{n} of {n} configs FAILED" in capsys.readouterr().out
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

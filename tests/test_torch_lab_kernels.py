@@ -460,6 +460,39 @@ def test_streamed_tile_is_the_first_and_sizes_its_own_shared_memory():
         cl.check_launch(3, (32, 32, 64), 4)
 
 
+def test_streamed_2d_tile_is_the_first_and_sizes_its_own_shared_memory():
+    """The streamed 2D design's tile (LZ rows, region width) is the first
+    of BLOCKS_2D, the band tiles follow. It needs no shared memory while
+    one warp spans its region (k <= 16), else the edge values its four
+    warps hand each other, under the limit at every depth (ftcs2d launches
+    every depth); the lab's streamed tile takes the depths lab2d.cu
+    compiles and refuses the others with a ValueError naming them. (On the
+    card chip_smoke.py holds these figures to the compiled kernels:
+    ``heat_lab2d_geometry``.)"""
+    assert cl.BLOCKS_2D[0] == cl.STREAM_2D == (256, 128)
+    assert cl.BLOCKS_2D[1:] == ((64, 96), (32, 192))
+    assert {1, 5, 6, 16, 32} <= set(cl.STREAM_2D_DEPTHS)  # the lab's depths
+    for k in range(1, cl.KMAX_2D + 1):
+        smem = cl.smem_bytes(cl.STREAM_2D, k)
+        assert (smem == 0) == (k <= 16) and smem <= cl.SMEM_LIMIT, k
+        if k in cl.STREAM_2D_DEPTHS:
+            assert cl.check_launch(2, cl.STREAM_2D, k) == cl.STREAM_2D
+        else:
+            with pytest.raises(ValueError, match="compiles its streamed tile"):
+                cl.check_launch(2, cl.STREAM_2D, k)
+        # the band tiles: two f32 bands, every depth
+        assert cl.smem_bytes((64, 96), k) == 2 * 4 * (64 + 2 * k) * (96 + 2 * k)
+        assert cl.check_launch(2, (64, 96), k) == (64, 96)
+
+
+def test_streamed_2d_tile_refuses_depths_beyond_its_halo():
+    for k in (0, cl.KMAX_2D + 1):
+        with pytest.raises(ValueError, match="halo width"):
+            cl.check_launch(2, cl.STREAM_2D, k)
+    with pytest.raises(ValueError, match="no compiled tile"):
+        cl.check_launch(2, (128, 96), 4)
+
+
 def test_k1_and_k3_forms_are_the_shipped_kernels_function():
     """L3 shrink/rolled and L5 f32 compute ftcs2d's function, L1 ftcs3d's:
     the plain versions agree byte for byte on one input."""
