@@ -14,7 +14,8 @@ a checkout of the repository, it exits non-zero and prints no result):
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions, the
    kernel builds (``nvcc`` for sm_90a, one process per source, started
    together, each source's time) and their ptxas register reports, with
-   registers and spills of every ``ftcs2d`` and ``ftcs3d`` instance;
+   registers and spills of every ``ftcs2d``, ``ftcs3d`` and ``lanes2d``
+   instance;
 2. each kernel against its plain version on the card, bytes compared, all
    through the public wrappers (so in the reference's pass schedule) unless
    a single pass is named:
@@ -52,7 +53,23 @@ a checkout of the repository, it exits non-zero and prints no result):
    their own r (one with n < B, one whose countdown ends inside the chunk,
    one with none left, one with a NaN in its centre): fields and finite bits
    byte-equal, resid/tmin/tmax equal on finite lanes, heat within a relative
-   1e-5; then one serving chunk of 8 lanes timed at the main path's buckets;
+   1e-5; then the streamed ``lanes2d``'s own 100 cases: L in {1, 3, 8}, B in
+   {12, 128, 129, 256, 1024} (one region, 2.7 regions, rows at odd offsets,
+   the main path's buckets), k in {1, 4, 15, 16, 37}, f32/bf16, both BCs,
+   lanes in four roles (steps past the chunk; n < B with NaNs of a payload
+   no kernel computes next to the live region's edge and two rows past it;
+   a countdown that ends inside a pass; none left); every 2D case also
+   through the band design ``heat_lanes2d_band`` (the same bytes, NaN
+   cells as NaN; finite bits and resid/tmin/tmax equal), and the kernel's
+   launch geometry (``heat_lanes2d_geometry``) equal to
+   ``cuda_lanes.lanes2d_geometry`` at k = 1..16; every 2D case runs in the
+   shipped passes of up to 8 steps and again in passes of up to 16; then
+   one serving chunk of 8 lanes timed at the main path's buckets
+   (``lanes2d``: two 8-step passes) beside its band design (one 16-step
+   pass) in turns (kernel, band, band, kernel), the streamed kernel in one
+   16-step pass, and both designs' device time per chunk from
+   ``torch.profiler`` (back-to-back chunks of a small bucket are bound by
+   the host's launches, not the card);
 3. the main path, ``heat_tpu_torch.cli.main(["run", "--backend", "cuda",
    "--json", ...])`` (what ``python -m heat_tpu_torch run`` calls) with the
    launch counts zeroed just before and read just after:
@@ -85,9 +102,10 @@ a checkout of the repository, it exits non-zero and prints no result):
    in turn, four initial conditions. Every record ok; the lane launches
    equal the passes of the dispatched chunks; no lane-kernel fallback;
    served a second time under ``torch.profiler``, every record ok and the
-   npz files byte-equal to the first run's (the card's busy time by kernel
-   is a measurement: "not measured" where the profiler fails or sees no
-   device time); served a third time with ``--serve-lane-kernel torch``
+   npz files byte-equal to the first run's (the card's busy time by kernel,
+   and the device seconds and launches of ``lanes2d``, ``lanes3d`` and
+   ``lanes_init`` by name, are a measurement: "not measured" where the
+   profiler fails or sees no device time); served a third time with ``--serve-lane-kernel torch``
    (the plain versions, on the card), byte-equal npz files; six small f32
    requests against the serial oracle (5e-6 per 30 steps); every field in
    the maximum principle's [1, 2] envelope. Prints the served cell-steps
@@ -178,6 +196,10 @@ LANE_COST_ESTIMATE_OPS = {2: 11, 3: 13}
 LANE_R = {2: (0.25, 0.2, 0.1), 3: (1 / 6, 0.15, 0.1)}
 # phase 5: the serve main path's engine knobs
 SERVE_ARGS = ("--lanes", "8", "--chunk", "16", "--buckets", "256,512,1024")
+# phase 5's profile: each serve kernel's device time, by a pattern of its
+# name (lanes2d: the streamed kernel, or an earlier commit's band kernel)
+SERVE_KERNELS = {"lanes2d": r"lanes2d_(stream_)?kernel\b",
+                 "lanes3d": r"lanes3d_kernel\b", "lanes_init": r"lanes_init\b"}
 F32_ATOL = 5e-6                 # tests/test_backends.py:33
 SIGMA_3D = 1 / 6                # benchmarks/run_all.py:192
 ENVELOPE_TOL = 1e-5             # phase 5: rounding past the [1, 2] envelope
@@ -224,6 +246,33 @@ def event_ms(fn, reps: int) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def device_ms(fn, reps: int):
+    """Mean device time of ``fn()``'s kernels per call over ``reps`` calls,
+    from ``torch.profiler`` (the kernels' own time, without the host's
+    time between launches, which bounds back-to-back calls of a chunk
+    that takes less time on the card than its launches take on the host);
+    None where the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps if us > 0 else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def dt_name(dtype) -> str:
@@ -301,6 +350,13 @@ def phase_build():
                 print(f"    ftcs2d {'f32' if m[1] == 'f' else 'bf16'} "
                       f"k={m[2]}: {nreg} registers, spill stores {st} B, "
                       f"loads {ld} B")
+            # lanes2d.cu's streamed <T, K> and the band design's <T>
+            m = re.search(r"lanes2d_(stream|band)_kernelI(f|13__nv_bfloat16)"
+                          r"(?:Li(\d+)E)?E", fn)
+            if name == "lanes2d" and m:
+                print(f"    lanes2d {m[1]} {'f32' if m[2] == 'f' else 'bf16'}"
+                      f"{f' k={m[3]}' if m[3] else ''}: {nreg} registers, "
+                      f"spill stores {st} B, loads {ld} B")
 
 
 def phase_compare():
@@ -704,9 +760,110 @@ def lane_case(nd, B, dtype, k, seed):
     return f, r, n, rem
 
 
+# phase 2: the streamed lanes2d's cases: lanes, sides m = B + 2 (one
+# region, 2.7 regions, rows at odd offsets, the main path's buckets) and
+# chunk depths (one pass, the tail chunk, the main path's depth, a depth
+# other than a pass's, several passes)
+LANES2D_L = (1, 3, 8)
+LANES2D_B = (12, 128, 129, 256, 1024)
+LANES2D_K = (1, 4, 15, 16, 37)
+# NaNs whose payload no kernel computes, by dtype (f32 bits, bf16 bits)
+QNAN_PAYLOAD = {"float32": 0x7FC00001, "bfloat16": 0x7FC1}
+
+
+def lane_case_2d(L, B, dtype, k, idx):
+    """One streamed-lanes2d case on the card: (fields, r, n, rem). Lane l
+    takes role (l + idx) % 4: 0 n = B with steps past the chunk; 1 n = B - 3
+    with a NaN of a payload no kernel computes next to its live region's
+    edge (row n + 1, read by the live cells under ghost BC, never under
+    edges) and one two rows past it (never read: its bytes must survive);
+    2 a countdown that ends inside a pass; 3 no step left (a finished
+    lane, copied)."""
+    import torch
+
+    m = B + 2
+    f = field((L, m, m), dtype, seed=1000 + idx)
+    n, rem = [], []
+    for lane in range(L):
+        role = (lane + idx) % 4
+        nl = B - 3 if role == 1 else B
+        n.append(nl)
+        rem.append((k + 3, k + 1, max(1, k // 2 + 1), 0)[role])
+        if role == 1:
+            for row in (nl + 1, nl + 3):
+                if row < m:
+                    bits(f)[lane, row, max(1, nl // 2)] = QNAN_PAYLOAD[
+                        str(dtype).replace("torch.", "")]
+    dev = f.device
+    r = torch.tensor([LANE_R[2][lane % 3] for lane in range(L)],
+                     dtype=torch.float32, device=dev)
+    return (f, r, torch.tensor(n, dtype=torch.int32, device=dev),
+            torch.tensor(rem, dtype=torch.int32, device=dev))
+
+
+def lanes2d_multistep(fields, r, n, rem, ksteps, bc_lo, export, depth):
+    """``cuda_lanes.lane_multistep`` through a ``lanes2d.cu`` export
+    (``heat_lanes2d``, or the band design ``heat_lanes2d_band``) in passes
+    of up to ``depth`` steps; its launches are not counted."""
+    import torch
+
+    from heat_tpu_torch.ops import cuda_lanes as cl
+
+    L = fields.shape[0]
+    lib, fn = cl._kernel_fn("lanes2d", export)
+    boundary = torch.empty((cl.K_BOUNDARY, L), dtype=torch.int32,
+                           device=fields.device)
+    out = cl._launch_passes(lib, fn, export, fields.clone(),
+                            torch.empty_like(fields), r, n, rem,
+                            torch.empty_like(rem), boundary, ksteps, bc_lo,
+                            count=False, depth=depth)
+    return out, boundary[1] != 0, boundary[2:cl.K_BOUNDARY].view(torch.float32)
+
+
+def band_multistep(fields, r, n, rem, ksteps, bc_lo):
+    """The band design in its own passes of up to 16 steps."""
+    return lanes2d_multistep(fields, r, n, rem, ksteps, bc_lo,
+                             "heat_lanes2d_band", 16)
+
+
+def lane_results_agree(what, got, want, band=None):
+    """Bytes, finite bits, resid/tmin/tmax (finite lanes) equal, heat
+    within a relative 1e-5; and, where given, the band design's bytes
+    (NaN cells as NaN: its bf16 store converts every value again, which
+    may rewrite a NaN's payload), finite bits and resid/tmin/tmax equal to
+    the kernel's. Returns the max |err| over cells finite in both."""
+    import torch
+
+    ndiff = int((bits(got[0]) != bits(want[0])).sum())
+    fin_ok = torch.equal(got[1], want[1])
+    ok = want[1]
+    st_ok = torch.equal(got[2][:3, ok], want[2][:3, ok])
+    heat = float(((got[2][3, ok] - want[2][3, ok]).abs()
+                  / want[2][3, ok].abs()).max()) if bool(ok.any()) else 0.0
+    nband = 0
+    if band is not None:
+        nband = int((~nan_bits_equal_cells(got[0], band[0])).sum())
+        fin_ok = fin_ok and torch.equal(got[1], band[1])
+        st_ok = st_ok and torch.equal(got[2][:3, ok], band[2][:3, ok])
+    if ndiff or nband or not (fin_ok and st_ok) or heat > 1e-5:
+        print(f"  {what}: {ndiff} cells differ ({nband} from the band "
+              f"design), finite {got[1].tolist()} vs {want[1].tolist()}, "
+              f"stats equal {st_ok}, heat rel {heat:g}")
+    check(ndiff == 0, f"lane kernel != plain: {what}")
+    check(nband == 0, f"lanes2d != its band design: {what}")
+    check(fin_ok, f"finite bits differ: {what}")
+    check(st_ok, f"resid/tmin/tmax differ: {what}")
+    check(heat <= 1e-5, f"heat off by {heat:g}: {what}")
+    g, w = got[0].float(), want[0].float()
+    both = torch.isfinite(g) & torch.isfinite(w)
+    return float((g[both] - w[both]).abs().max()) if bool(both.any()) else 0.0
+
+
 def phase_lane_compare():
-    """lanes2d/lanes3d against their plain versions, bytes. Returns max
-    |err| per (kernel, bucket)."""
+    """lanes2d/lanes3d against their plain versions, bytes; lanes2d also
+    against its band design, and its launch geometry against
+    ``cuda_lanes.lanes2d_geometry``. Returns max |err| per (kernel,
+    bucket)."""
     import torch
 
     from heat_tpu_torch.ops import cuda_lanes as cl
@@ -723,39 +880,71 @@ def phase_lane_compare():
                         got = cl.lane_multistep(f, r, n, rem, k, bc_lo)
                         want = cl.lane_multistep(f, r, n, rem, k, bc_lo,
                                                  plain=True)
+                        band = (band_multistep(f, r, n, rem, k, bc_lo)
+                                if nd == 2 else None)
                         torch.cuda.synchronize()
-                        ndiff = int((bits(got[0]) != bits(want[0])).sum())
-                        fin_ok = torch.equal(got[1], want[1])
-                        ok = want[1]
-                        st_ok = torch.equal(got[2][:3, ok], want[2][:3, ok])
-                        heat = float(((got[2][3, ok] - want[2][3, ok]).abs()
-                                      / want[2][3, ok].abs()).max())
-                        g, w = got[0].float(), want[0].float()
-                        both = torch.isfinite(g) & torch.isfinite(w)
-                        err = float((g[both] - w[both]).abs().max())
                         key = (cl._KERNELS[nd], B)
-                        errs[key] = max(errs.get(key, 0.0), err)
                         what = (f"{key[0]} B={B} {dt_name(dt)} "
                                 f"{('ghost', 'edges')[bc_lo]} k={k}")
-                        if ndiff or not (fin_ok and st_ok) or heat > 1e-5:
-                            print(f"  {what}: {ndiff} cells differ, finite "
-                                  f"{got[1].tolist()} vs {want[1].tolist()}, "
-                                  f"stats equal {st_ok}, heat rel {heat:g}")
-                        check(ndiff == 0, f"lane kernel != plain: {what}")
-                        check(fin_ok, f"finite bits differ: {what}")
-                        check(st_ok, f"resid/tmin/tmax differ: {what}")
-                        check(heat <= 1e-5, f"heat off by {heat:g}: {what}")
+                        err = lane_results_agree(what, got, want, band)
+                        if nd == 2:
+                            lane_results_agree(
+                                what + " (16-step passes)", lanes2d_multistep(
+                                    f, r, n, rem, k, bc_lo, "heat_lanes2d",
+                                    16), want, band)
+                        errs[key] = max(errs.get(key, 0.0), err)
                         ncases += 1
-                        del f, got, want, g, w
+                        del f, got, want, band
             torch.cuda.empty_cache()
-    print(f"[phase 2] {ncases} lane-kernel-vs-plain cases, 0 differing bytes, "
+    nbase = ncases
+    # the streamed lanes2d's own cases, each also against the band design
+    for i, (B, k, dt, bc_lo) in enumerate(
+            (B, k, dt, bc_lo) for B in LANES2D_B for k in LANES2D_K
+            for dt in (torch.float32, torch.bfloat16) for bc_lo in (0, 1)):
+        L = LANES2D_L[i % len(LANES2D_L)]
+        f, r, n, rem = lane_case_2d(L, B, dt, k, i)
+        got = cl.lane_multistep(f, r, n, rem, k, bc_lo)
+        want = cl.lane_multistep(f, r, n, rem, k, bc_lo, plain=True)
+        band = band_multistep(f, r, n, rem, k, bc_lo)
+        torch.cuda.synchronize()
+        what = (f"lanes2d L={L} B={B} {dt_name(dt)} "
+                f"{('ghost', 'edges')[bc_lo]} k={k} rem={rem.tolist()}")
+        err = lane_results_agree(what, got, want, band)
+        lane_results_agree(what + " (16-step passes)", lanes2d_multistep(
+            f, r, n, rem, k, bc_lo, "heat_lanes2d", 16), want, band)
+        key = ("lanes2d", B)
+        errs[key] = max(errs.get(key, 0.0), err)
+        ncases += 1
+        del f, got, want, band
+    torch.cuda.empty_cache()
+    print(f"[phase 2] {ncases} lane-kernel-vs-plain cases ({ncases - nbase} "
+          f"of the streamed lanes2d: L {LANES2D_L}, B {LANES2D_B}, k "
+          f"{LANES2D_K}; every 2D case in passes of up to {cl.PASS_2D} steps "
+          f"and of 16, and against heat_lanes2d_band), 0 differing bytes, "
           f"stats equal, heat within 1e-5 ({time.perf_counter() - t0:.1f} s)")
+    # the launch geometry the kernel computes against the Python mirror
+    ngeo = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for k in range(1, cl.KMAX_2D + 1):
+            for L, m in ((1, 14), (3, 131), (8, 258), (8, 514), (8, 1026),
+                         (1, 4098)):
+                got, slots = cl.compiled_lanes2d_geometry(dt, L, m, k)
+                want = cl.lanes2d_geometry(L, m, k, slots)
+                check(got == want, f"lanes2d geometry {dt_name(dt)} L={L} "
+                                   f"m={m} k={k}: kernel {got} != mirror "
+                                   f"{want} at {slots} slots")
+                ngeo += 1
+    main, slots = cl.compiled_lanes2d_geometry(torch.float32, 8, 1026, 16)
+    print(f"  lanes2d launch geometry equal to cuda_lanes.lanes2d_geometry "
+          f"in {ngeo} cases (k = 1..16, f32/bf16); 8x1026^2 f32 k=16 on "
+          f"{slots} resident blocks: {main}")
     return errs
 
 
 def phase_lane_times():
     """One serving chunk (``lane_chunk``: the stats init and the kernel
-    passes) of 8 lanes at the main path's buckets: kernel and plain version,
+    passes, in 2D two 8-step passes) of 8 lanes at the main path's buckets:
+    kernel and plain version,
     and the bound: the stack read and written once per pass against 7 (2D)
     or 9 (3D) f32 operations per live cell-step (every lane n = B under
     edges BC: (B-2)^nd live cells, each stepped k times); beside it the
@@ -786,7 +975,27 @@ def phase_lane_times():
             return cl.lane_chunk(A, S, r, n, rem, rem_out, bnd, k, 1,
                                  plain=plain)
 
-        ms = event_ms(lambda: chunk(False), reps)
+        band_ms = one_pass_ms = dev_ms = band_dev_ms = None
+        if nd == 2:
+            # the chunk (passes of up to PASS_2D steps) and the band design
+            # (its own passes of up to 16) in turns: kernel, band, band,
+            # kernel; then the streamed kernel in one 16-step pass
+            def via(export, depth):
+                lib, fn = cl._kernel_fn("lanes2d", export)
+                return lambda: cl._launch_passes(
+                    lib, fn, export, A, S, r, n, rem, rem_out, bnd, k, 1,
+                    count=False, depth=depth)
+
+            band = via("heat_lanes2d_band", 16)
+            ms_a = event_ms(lambda: chunk(False), reps)
+            band_a, band_b = event_ms(band, reps), event_ms(band, reps)
+            ms = (ms_a + event_ms(lambda: chunk(False), reps)) / 2
+            band_ms = (band_a + band_b) / 2
+            one_pass_ms = event_ms(via("heat_lanes2d", 16), reps)
+            dev_ms = device_ms(lambda: chunk(False), reps)
+            band_dev_ms = device_ms(band, reps)
+        else:
+            ms = event_ms(lambda: chunk(False), reps)
         plain_ms = event_ms(lambda: chunk(True), 1)
         bound_s, bound_by = dm.pass_bound_s(
             A.numel(), A.element_size(), k, ndim=nd,
@@ -798,11 +1007,22 @@ def phase_lane_times():
         name = cl._KERNELS[nd]
         times[(name, B, dt)] = dict(k=k, ms=ms, plain_ms=plain_ms,
                                     bound_ms=bound_s * 1e3, bound_by=bound_by,
-                                    cost_estimate_bound_ms=ce_s * 1e3)
+                                    cost_estimate_bound_ms=ce_s * 1e3,
+                                    band_ms=band_ms, one_pass_ms=one_pass_ms,
+                                    device_ms=dev_ms,
+                                    band_device_ms=band_dev_ms)
+        band_txt = ("" if band_ms is None else
+                    f", band design {band_ms:.4f} ms ({bound_s * 1e3 / band_ms:.1%}"
+                    f" of the bound; kernel {ms_a:.4f} / band {band_a:.4f} / "
+                    f"{band_b:.4f} in turns), {band_ms / ms:.2f}x; the kernel "
+                    f"in one {k}-step pass {one_pass_ms:.4f} ms; device time "
+                    f"per chunk (torch.profiler) {fmt_ms(dev_ms)}, band design "
+                    f"{fmt_ms(band_dev_ms)}")
         print(f"  {name} {L}x{m}^{nd} {dt_name(dt)} k={k}: {ms:.4f} ms/chunk "
               f"(plain {plain_ms:.2f} ms, bound {bound_s * 1e3:.4f} ms by "
               f"{bound_by}, {bound_s * 1e3 / ms:.1%} of it; at the "
-              f"reference's CostEstimate count {ce_s * 1e3:.4f} ms)")
+              f"reference's CostEstimate count {ce_s * 1e3:.4f} ms"
+              f"{band_txt})")
         del A, S
         torch.cuda.empty_cache()
     print("[phase 2] lane times taken")
@@ -1054,14 +1274,27 @@ def profiled_serve(reqfile: Path, out_dir: Path, wall: float, ids: list,
           f"the profiled {pwall:.3f} s)")
     for t, key, count in device[:6]:
         print(f"    device {t / 1e6:.6f} s in {count} x {key[:60]}")
+    # the serve kernels by name, every instance summed
+    by_kernel = {}
+    for name, pattern in SERVE_KERNELS.items():
+        hits = [(t, c) for t, key, c in device if re.search(pattern, key)]
+        by_kernel[name] = (sum(t for t, _ in hits) / 1e6,
+                           sum(c for _, c in hits))
+        print(f"    {name}: device {by_kernel[name][0]:.6f} s in "
+              f"{by_kernel[name][1]} launches ({len(hits)} instances)")
     host = sorted(((e.self_cpu_time_total, e.key, e.count) for e in rows
                    if e.device_type == DeviceType.CPU), reverse=True)
     for t, key, count in host[:8]:
         print(f"    host {t / 1e6:.6f} s in {count} x {key[:60]}")
     return dict(busy_s=busy_s, busy_share=busy_s / wall,
-                profiled_wall_s=pwall,
+                profiled_wall_s=pwall, by_kernel=by_kernel,
                 device=[(key, t / 1e6, count) for t, key, count in device[:6]])
 
+
+
+def nan_bits_equal_cells(a, b):
+    """Per cell: both NaN, or the same bytes."""
+    return (a.isnan() & b.isnan()) | (bits(a) == bits(b))
 
 
 def nan_bits_equal(a, b) -> bool:
@@ -1333,7 +1566,10 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=None))
     # the lane kernels at the serve main path's buckets: one serving chunk
-    # of 8 lanes (k steps: lanes2d one pass, lanes3d one launch per step),
+    # of 8 lanes (k steps: lanes2d two 8-step passes, lanes3d one launch
+    # per step; band_ms: lanes2d's earlier band design, one 16-step pass,
+    # one_pass_ms: the streamed kernel in one 16-step pass; device_ms and
+    # band_device_ms: the kernels' device time per chunk, torch.profiler),
     # launches those of phase 5 at that bucket and dtype (every lane tier);
     # no single PyTorch call computes the fused lane chunk; bound_ms at the
     # kernels' own operation count, cost_estimate_bound_ms at the
@@ -1356,7 +1592,9 @@ def main() -> int:
             max_abs_err=max(v for (n_, _), v in errs.items() if n_ == name),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=None,
-            cost_estimate_bound_ms=t["cost_estimate_bound_ms"]))
+            cost_estimate_bound_ms=t["cost_estimate_bound_ms"],
+            band_ms=t["band_ms"], one_pass_ms=t["one_pass_ms"],
+            device_ms=t["device_ms"], band_device_ms=t["band_device_ms"]))
     # the kernel lab's candidates (phase 6): one row per (kernel, variant,
     # dtype) benched, launches those of the lab's run; shipped_ms is the
     # shipped kernel (ftcs2d/ftcs3d) at the same shape, dtype and depth

@@ -351,7 +351,7 @@ def cmd_info(_args) -> int:
     nvcc = Path(_build.nvcc())
     print(f"nvcc: {nvcc if nvcc.exists() else 'not found'} "
           f"(kernels {', '.join(_build.KERNELS)} build on first CUDA launch "
-          f"into {_build.BUILD_DIR})")
+          f"into {_build.build_dir()})")
     print(f"native fastio: "
           f"{'available' if native_available() else 'unavailable (numpy fallback)'}")
     return 0

@@ -4,10 +4,13 @@ The sources under ``ops/csrc`` have a plain C interface; ``nvcc`` compiles
 them straight into a shared library for ``sm_90a``, which ``ctypes`` loads.
 (Including PyTorch's headers, as ``torch.utils.cpp_extension.load`` does,
 makes one file take minutes to compile; this takes seconds.) The library
-lands in ``heat_tpu_torch/_build/``, named by a hash of the source, the
-headers beside it (``csrc/*.cuh``) and the flags, so a changed source,
-header or flag set builds anew and an unchanged one is reused by every
-later process of the same checkout.
+lands in ``heat_tpu_torch/_build/`` (in a checkout; where the package's
+directory cannot be written, as in an installed, read-only package, in the
+per-user cache ``$XDG_CACHE_HOME/heat_tpu_torch``, by default
+``~/.cache/heat_tpu_torch``), named by a hash of the source, the headers
+beside it (``csrc/*.cuh``) and the flags, so a changed source, header or
+flag set builds anew and an unchanged one is reused by every later process
+of the same checkout.
 
 Nothing here runs at import: the first CUDA launch builds, so the package
 imports on hosts without ``nvcc``.
@@ -29,7 +32,8 @@ from typing import Optional
 _CSRC = Path(__file__).parent / "csrc"
 # the kernels, by source name: csrc/<name>.cu exports heat_<name>()
 KERNELS = ("ftcs2d", "ftcs3d", "lanes2d", "lanes3d", "lab2d", "lab3d")
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+# the build directory in a checkout (.gitignore lists it)
+PACKAGE_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 # -fmad=false: no contraction of a*b+c anywhere the source does not ask for
 # one with __fmaf_rn (the kernel's bytes depend on it); no --use_fast_math
@@ -39,6 +43,29 @@ NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false",
 
 _lock = threading.Lock()
 _libs: dict = {}
+
+
+def _writable(d: Path) -> bool:
+    """Whether ``d`` exists or can be made, and takes a new file."""
+    try:
+        d.mkdir(parents=True, exist_ok=True)
+        probe = d / f".probe.{os.getpid()}.{threading.get_ident()}"
+        probe.touch()
+        probe.unlink()
+    except OSError:
+        return False
+    return True
+
+
+def build_dir() -> Path:
+    """Where the libraries go: ``heat_tpu_torch/_build/`` where the package's
+    directory can be written, else the per-user cache
+    (``$XDG_CACHE_HOME/heat_tpu_torch``, by default
+    ``~/.cache/heat_tpu_torch``)."""
+    if _writable(PACKAGE_BUILD_DIR):
+        return PACKAGE_BUILD_DIR
+    cache = os.environ.get("XDG_CACHE_HOME") or str(Path.home() / ".cache")
+    return Path(cache) / "heat_tpu_torch"
 
 
 def nvcc() -> str:
@@ -57,14 +84,15 @@ def build(name: str) -> Path:
     key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     for header in sorted(_CSRC.glob("*.cuh")):
         key.update(header.name.encode() + header.read_bytes())
-    so = BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
+    out = build_dir()
+    so = out / f"lib{name}-{key.hexdigest()[:16]}.so"
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / f"{name}.log").write_text(
+    (out / f"{name}.log").write_text(
         " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed to build {src.name} "
@@ -98,5 +126,5 @@ def load(name: str) -> ctypes.CDLL:
 def build_log(name: str) -> str:
     """nvcc's command line and output (ptxas register/spill report) from the
     last build of ``name`` in this checkout, or "" if none."""
-    p = BUILD_DIR / f"{name}.log"
+    p = build_dir() / f"{name}.log"
     return p.read_text() if p.exists() else ""

@@ -2,7 +2,11 @@
 // axis with the k steps pipelined in registers: the shipped kernel
 // (ftcs2d.cu) and the first tile of the kernel lab (lab2d.cu). It computes
 // the function of stencil2d.cuh's band kernel, byte for byte, in another
-// order.
+// order. The body (stream2_body) takes its cells' arithmetic from a
+// policy: SoloCells below for those kernels, lanes2d.cu's LaneCells for
+// the serving engine's lane kernel (per-lane r, side and countdown,
+// select-kept updates rounded every step, fused partials), one body for
+// both.
 //
 // Design. A region is RW = 32 * G * NW cells wide: NW warps of 32 threads,
 // each thread owning G neighbouring cells of a region row. Its output strip
@@ -136,10 +140,23 @@ template <int G> struct Raw<float, G> {
     const float4 q = __ldg(reinterpret_cast<const float4*>(p));
     v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
   }
+  // G = 4 cells at an 8-byte aligned p, in two halves
+  __device__ __forceinline__ void pair(const float* p) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(p));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(p + 2));
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  }
   // cell c where bit c of in is set, else 0
   __device__ __forceinline__ void cells(const float* p, unsigned in) {
 #pragma unroll
     for (int c = 0; c < G; ++c) v[c] = in >> c & 1u ? __ldg(p + c) : 0.0f;
+  }
+  // G = 4 cells at p, in the widest loads p's alignment allows
+  __device__ __forceinline__ void aligned(const float* p) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+    if (a % 16 == 0) vec(p);
+    else if (a % 8 == 0) pair(p);
+    else cells(p, 0xfu);
   }
   __device__ __forceinline__ void widen(float (&f)[G]) const {
 #pragma unroll
@@ -166,6 +183,18 @@ template <int G> struct Raw<__nv_bfloat16, G> {
       v[j] = lo | hi << 16;
     }
   }
+  // G = 4 cells at a 4-byte aligned p, in two halves
+  __device__ __forceinline__ void pair(const __nv_bfloat16* p) {
+    v[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+    v[1] = __ldg(reinterpret_cast<const unsigned*>(p + 2));
+  }
+  // G = 4 cells at p, in the widest loads p's alignment allows
+  __device__ __forceinline__ void aligned(const __nv_bfloat16* p) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+    if (a % 8 == 0) vec(p);
+    else if (a % 4 == 0) pair(p);
+    else cells(p, 0xfu);
+  }
   // a bf16 widens exactly: its bits are the f32's upper half
   __device__ __forceinline__ void widen(float (&f)[G]) const {
 #pragma unroll
@@ -187,14 +216,126 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   *reinterpret_cast<uint2*>(p) = make_uint2(h[0] | h[1] << 16, h[2] | h[3] << 16);
 }
 
-template <typename T, int ORDER, int UPD, bool EVERY, int K>
-__global__ void __launch_bounds__(Stream2<K>::THREADS, Stream2<K>::MINB)
-ftcs2d_stream_kernel(const T* __restrict__ in, T* __restrict__ out,
-                     int64_t m, int64_t n, float r, int lz, int rlo, int rhi,
-                     int clo, int chi) {
+// The cells of a row whose values the storage type holds exactly (the lane
+// kernel rounds to it every step), written with their bits as they are: a
+// bf16 value is the upper half of its f32, so a kept cell, NaN payload and
+// all, keeps its bytes. 4 cells at p where bit c of keep is set, in the
+// widest stores p's alignment allows.
+__device__ __forceinline__ void store_exact(float* p, const float (&v)[4],
+                                            unsigned keep) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (keep == 0xfu && a % 16 == 0) {
+    store4(p, v);
+  } else if (keep == 0xfu && a % 8 == 0) {
+    reinterpret_cast<float2*>(p)[0] = make_float2(v[0], v[1]);
+    reinterpret_cast<float2*>(p)[1] = make_float2(v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (keep >> c & 1u) p[c] = v[c];
+  }
+}
+__device__ __forceinline__ void store_exact(__nv_bfloat16* p,
+                                            const float (&v)[4],
+                                            unsigned keep) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  unsigned h[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) h[c] = __float_as_uint(v[c]) >> 16;
+  if (keep == 0xfu && a % 8 == 0) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(h[0] | h[1] << 16, h[2] | h[3] << 16);
+  } else if (keep == 0xfu && a % 4 == 0) {
+    reinterpret_cast<unsigned*>(p)[0] = h[0] | h[1] << 16;
+    reinterpret_cast<unsigned*>(p)[1] = h[2] | h[3] << 16;
+  } else {
+    unsigned short* q = reinterpret_cast<unsigned short*>(p);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (keep >> c & 1u) q[c] = (unsigned short)h[c];
+  }
+}
+
+// The cells' side of the body (the rest is the same for every kernel that
+// streams a 2D field). A policy supplies:
+//   LANE              false for the solo kernels, true for the lane kernel
+//                     (lanes2d.cu): there vector loads and stores are
+//                     chosen per row by address (a lane's rows start at
+//                     any offset) and write the bits as they are, and a
+//                     lane that has no step left in the pass is copied
+//                     instead of stepped
+//   fast, rlo, rhi    whether the body without tests may run, and on
+//                     which rows: rlo < row < rhi
+//   columns(gx, keep) the thread's column setup (cells gx .. gx+G-1;
+//                     bit c of keep: cell c is stored)
+//   row<FAST>(t, gz)  step t's per-row state on global row gz
+//   cell<FAST>(z, c, up, cc, dn, lf, rt)  step's new value of cell c
+//   keep<FAST>(z, v, cc)  (LANE) the step's new values of the thread's
+//                     cells, once all are computed (cc: the old ones)
+//   output(gz, v, pre, keep)  step K's row gz (pre: its values before
+//                     step K), or a copied row (pre = v), before its store
+//   finish(row, zs, nout, keep)  (LANE) once the pipeline is done, with
+//                     row(gz) the thread's cells of stored row gz
+// The solo kernels' cells: the multiply-mask on the field's bounds, in
+// ORDER / UPD / EVERY's form (above).
+template <typename T, int ORDER, int UPD, bool EVERY, int G>
+struct SoloCells {
+  static constexpr bool LANE = false;
+  static constexpr bool fast = true;
+  const float r;
+  const int rlo, rhi, clo, chi;
+  float rc[G];     // r, or 0 where the col index freezes
+  float dec[G];    // UPD_DECAY's 1 - 4*maskr on free rows
+
+  __device__ SoloCells(float r_, int rlo_, int rhi_, int clo_, int chi_)
+      : r(r_), rlo(rlo_), rhi(rhi_), clo(clo_), chi(chi_) {}
+
+  __device__ __forceinline__ void columns(int64_t gx, unsigned) {
+#pragma unroll
+    for (int c = 0; c < G; ++c) {
+      const int64_t g = gx + c;
+      rc[c] = (g <= clo || g >= chi) ? 0.0f : r;
+      dec[c] = 1.0f - 4.0f * rc[c];
+    }
+  }
+  // whether step t's row gz is frozen
+  template <bool FAST>
+  __device__ __forceinline__ bool row(int, int gz) const {
+    return !FAST && (gz <= rlo || gz >= rhi);
+  }
+  template <bool FAST>
+  __device__ __forceinline__ float cell(bool z_frozen, int c, float up,
+                                        float cc, float dn, float lf,
+                                        float rt) const {
+    const float sum = ORDER == ORDER_K1 ? ((up + dn) + lf) + rt
+                                        : ((dn + up) + rt) + lf;
+    const float maskr = z_frozen ? 0.0f : rc[c];
+    float v;
+    if (UPD == UPD_LAP) {
+      v = __fmaf_rn(maskr, sum - 4.0f * cc, cc);
+    } else {
+      const float decay = z_frozen ? 1.0f : dec[c];
+      v = __fmaf_rn(decay, cc, maskr * sum);
+    }
+    if (EVERY) v = round_to<T>(v);
+    return v;
+  }
+  __device__ __forceinline__ void output(int, float (&)[G], const float (&)[G],
+                                         unsigned) {}
+};
+
+// The streamed body at depth K over an m x n field, segments of lz rows,
+// with the cells' arithmetic from `cells` (see above). Every thread of the
+// block calls it; a warp whose region lies past the field returns at once.
+template <typename T, int K, class Cells>
+__device__ __forceinline__ void stream2_body(Cells& cells,
+                                             const T* __restrict__ in,
+                                             T* __restrict__ out, int64_t m,
+                                             int64_t n, int lz) {
   using S = Stream2<K>;
   constexpr int G = S::G, NW = S::NW, BW = S::BW, AHEAD = STREAM2_AHEAD;
   static_assert(3 % AHEAD == 0, "the ring of rows ahead follows the phase");
+  static_assert(!Cells::LANE || NW == 1, "lanes stream one warp a region");
   __shared__ float edge[S::EDGES];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -210,7 +351,6 @@ ftcs2d_stream_kernel(const T* __restrict__ in, T* __restrict__ out,
   const int x = G * (32 * wr + lane);
   const int64_t gx = c0 - K + x;
   unsigned in_x = 0, keep = 0;   // bit c: inside the array / kept
-  float rc[G];                   // r, or 0 where the col index freezes
 #pragma unroll
   for (int c = 0; c < G; ++c) {
     const int64_t g = gx + c;
@@ -218,15 +358,14 @@ ftcs2d_stream_kernel(const T* __restrict__ in, T* __restrict__ out,
       in_x |= 1u << c;
       if (x + c >= K && x + c < K + S::BC) keep |= 1u << c;
     }
-    rc[c] = (g <= clo || g >= chi) ? 0.0f : r;
   }
-  float dec[G];                  // UPD_DECAY's 1 - 4*maskr on free rows
-#pragma unroll
-  for (int c = 0; c < G; ++c) dec[c] = 1.0f - 4.0f * rc[c];
+  cells.columns(gx, keep);
   // a whole group of 4 inside the array on an aligned address moves as
-  // one vector
+  // one vector: for the solo kernels decided once per field, for lanes per
+  // row by the row's address (16 bytes: one vector; 8 bytes in f32 or 4 in
+  // bf16: two)
   constexpr unsigned ALL = (1u << G) - 1;
-  const bool vec = G == 4 && n % 4 == 0 && gx % 4 == 0 &&
+  const bool vec = !Cells::LANE && G == 4 && n % 4 == 0 && gx % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const bool vec_in = vec && in_x == ALL;
@@ -257,6 +396,8 @@ ftcs2d_stream_kernel(const T* __restrict__ in, T* __restrict__ out,
     } else if constexpr (G == 4) {
       if (vec_in) {
         dst.vec(row);
+      } else if (Cells::LANE && in_x == ALL) {
+        dst.aligned(row);
       } else {
         dst.cells(row, in_x);
       }
@@ -264,6 +405,46 @@ ftcs2d_stream_kernel(const T* __restrict__ in, T* __restrict__ out,
       dst.cells(row, in_x);
     }
   };
+  auto store = [&](int gz, const float (&v)[G]) {
+    T* row = out + (int64_t)gz * n + gx;
+    if constexpr (Cells::LANE) {
+      store_exact(row, v, keep);
+      return;
+    }
+    if constexpr (G == 4) {
+      if (vec_out) {
+        store4(row, v);
+        return;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < G; ++c)
+      if (keep >> c & 1u) store_f(row + c, v[c]);
+  };
+
+  if constexpr (Cells::LANE) {
+    // a lane with no step left: its output rows copied, COPY rows loaded
+    // at a time
+    if (cells.done) {
+      constexpr int COPY = 8;
+      for (int q0 = 0; q0 < nout; q0 += COPY) {
+        Raw<T, G> raw[COPY];
+#pragma unroll
+        for (int u = 0; u < COPY; ++u)
+          if (q0 + u < nout) load(K + q0 + u, raw[u]);
+#pragma unroll
+        for (int u = 0; u < COPY; ++u) {
+          if (q0 + u < nout) {
+            float v[G];
+            raw[u].widen(v);
+            cells.output(zs + q0 + u, v, v, keep);
+            store(zs + q0 + u, v);
+          }
+        }
+      }
+      return;
+    }
+  }
 
   // The pipeline's state: three arrays that rotate roles every iteration
   // (so nothing is copied): for each step t < K and cell, step t's values
@@ -281,7 +462,7 @@ ftcs2d_stream_kernel(const T* __restrict__ in, T* __restrict__ out,
   // cone (p >= 2t; before that its inputs are not yet there). Rows past
   // the last are streamed only to keep the rotation whole; none is stored.
   // FAST: an iteration past the warm-up (p >= 2K), before the end (p <
-  // np), whose K rows are all free, needs none of these tests.
+  // np), whose K rows lie in (rlo, rhi), needs none of these tests.
   auto iteration = [&](auto ph, auto fast, int p, float (&old)[K][G],
                        float (&cur)[K][G], float (&nw)[K][G], Raw<T, G>& nx) {
     constexpr int PH = decltype(ph)::value;
@@ -294,7 +475,7 @@ ftcs2d_stream_kernel(const T* __restrict__ in, T* __restrict__ out,
     for (int t = 1; t <= K; ++t) {
       if (!FAST && p < 2 * t) continue;  // (no break: it stops the unroll)
       const int gz = gp - t;        // global row this step computes
-      const bool z_frozen = !FAST && (gz <= rlo || gz >= rhi);
+      const auto z = cells.template row<FAST>(t, gz);
       // the centres are cur[t - 1], row q = p - t
       float cl = __shfl_up_sync(0xffffffffu, cur[t - 1][G - 1], 1);
       float cr = __shfl_down_sync(0xffffffffu, cur[t - 1][0], 1);
@@ -312,33 +493,17 @@ ftcs2d_stream_kernel(const T* __restrict__ in, T* __restrict__ out,
         const float dn = nw[t - 1][c];     // row+1
         const float lf = c == 0 ? cl : cur[t - 1][c == 0 ? 0 : c - 1];
         const float rt = c == G - 1 ? cr : cur[t - 1][c == G - 1 ? 0 : c + 1];
-        const float sum = ORDER == ORDER_K1 ? ((up + dn) + lf) + rt
-                                            : ((dn + up) + rt) + lf;
-        const float maskr = z_frozen ? 0.0f : rc[c];
-        if (UPD == UPD_LAP) {
-          v[c] = __fmaf_rn(maskr, sum - 4.0f * cc, cc);
-        } else {
-          const float decay = z_frozen ? 1.0f : dec[c];
-          v[c] = __fmaf_rn(decay, cc, maskr * sum);
-        }
-        if (EVERY) v[c] = round_to<T>(v[c]);
+        v[c] = cells.template cell<FAST>(z, c, up, cc, dn, lf, rt);
       }
+      if constexpr (Cells::LANE) cells.template keep<FAST>(z, v, cur[t - 1]);
       if (t < K) {
 #pragma unroll
         for (int c = 0; c < G; ++c) nw[t][c] = v[c];
         put_edges(PH, t, v);
       } else if (FAST || p < np) {
         // step K's row p-K is output row p-2K of the segment
-        T* row = out + (int64_t)gz * n + gx;
-        if constexpr (G == 4) {
-          if (vec_out) {
-            store4(row, v);
-            continue;
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < G; ++c)
-          if (keep >> c & 1u) store_f(row + c, v[c]);
+        cells.output(gz, v, cur[K - 1], keep);
+        store(gz, v);
       }
     }
     if (NW > 1) __syncthreads();  // this iteration's edges written and read
@@ -351,10 +516,11 @@ ftcs2d_stream_kernel(const T* __restrict__ in, T* __restrict__ out,
   using Fast = std::integral_constant<bool, true>;
   using Test = std::integral_constant<bool, false>;
   // whether iteration p may take the body without tests: p >= 2K, p < np,
-  // and region rows p-K .. p-1 (global gp-K .. gp-1) all free
+  // and region rows p-K .. p-1 (global gp-K .. gp-1) all in (rlo, rhi)
   auto fast_at = [&](int p) {
     const int gp = zs - K + p;
-    return S::FAST && p >= 2 * K && p < np && gp - K > rlo && gp - 1 < rhi;
+    return S::FAST && cells.fast && p >= 2 * K && p < np &&
+           gp - K > cells.rlo && gp - 1 < cells.rhi;
   };
   auto phase = [&](auto ph, int p, float (&old)[K][G], float (&cur)[K][G],
                    float (&nw)[K][G]) {
@@ -372,20 +538,37 @@ ftcs2d_stream_kernel(const T* __restrict__ in, T* __restrict__ out,
     phase(std::integral_constant<int, 1>{}, p + 1, s1, s2, s0);
     phase(std::integral_constant<int, 2>{}, p + 2, s2, s0, s1);
   }
+  if constexpr (Cells::LANE)
+    cells.finish([&](int gz) { return out + (int64_t)gz * n + gx; }, zs, nout,
+                 keep);
 }
 
-// Rows per block segment for an m x n field, cols output columns a block,
-// slots blocks resident on the card at once: a block holds its SM's place
-// for all its LZ + 2K rows, so a grid of W waves takes about W * (LZ + 2K)
-// row-times; the LZ of 16..256 that makes that least (the longest of
-// equals) fills the last wave instead of leaving SMs idle. On an H100 at
-// 4096^2 and k = 16 that is 171 (264 blocks, one wave), at 32768^2 249.
+// The solo kernel: k masked steps of one field (ftcs2d.cu, lab2d.cu).
+template <typename T, int ORDER, int UPD, bool EVERY, int K>
+__global__ void __launch_bounds__(Stream2<K>::THREADS, Stream2<K>::MINB)
+ftcs2d_stream_kernel(const T* __restrict__ in, T* __restrict__ out,
+                     int64_t m, int64_t n, float r, int lz, int rlo, int rhi,
+                     int clo, int chi) {
+  SoloCells<T, ORDER, UPD, EVERY, Stream2<K>::G> cells(r, rlo, rhi, clo, chi);
+  stream2_body<T, K>(cells, in, out, m, n, lz);
+}
+
+// Rows per block segment for `fields` m x n fields (the lane kernel's
+// lanes; 1 for the solo kernels), cols output columns a block, slots blocks
+// resident on the card at once: a block holds its SM's place for all its
+// LZ + 2K rows, so a grid of W waves takes about W * (LZ + 2K) row-times;
+// the LZ of lzmin..256 that makes that least (the longest of equals) fills
+// the last wave instead of leaving SMs idle. On an H100 at 4096^2 and
+// k = 16 that is 171 (264 blocks, one wave), at 32768^2 249. The lane
+// kernel goes down to 8 rows: its small buckets (8 x 258^2) have too few
+// rows to fill the card with 16 (cuda_lanes.lanes2d_geometry mirrors it).
 template <int K>
-int stream2_lz(int64_t m, int64_t n, int64_t cols, int64_t slots) {
-  const int64_t cb = (n + cols - 1) / cols;
+int stream2_lz(int64_t m, int64_t n, int64_t cols, int64_t slots,
+               int64_t fields = 1, int lzmin = 16) {
+  const int64_t cb = (n + cols - 1) / cols * fields;
   int64_t best = -1;
   int lz = 0;
-  for (int l = 16; l <= STREAM2_LZMAX; ++l) {
+  for (int l = lzmin; l <= STREAM2_LZMAX; ++l) {
     const int64_t segs = (m + l - 1) / l;
     if (segs > 65535) continue;
     const int64_t cost = (cb * segs + slots - 1) / slots * (l + 2 * K);

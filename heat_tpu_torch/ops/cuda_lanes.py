@@ -30,8 +30,10 @@ its interpret-mode Pallas lane kernels agree with this form byte for byte
 and with no other (``tests/test_torch_lane_kernels.py`` pins the forms);
 the select keeps a NaN in its own lane and frozen cells' bytes unchanged.
 Because every step rounds, a pass boundary is not a rounding point: the
-kernels pick their own depth per pass (``lanes2d`` up to 16 steps, with the
-band in shared memory; ``lanes3d`` one step per launch).
+kernels pick their own depth per pass (``lanes2d`` up to 8 steps, of the
+16 its kernel takes, with rows streamed through a warp and the steps
+pipelined in registers, its launch geometry mirrored by
+``lanes2d_geometry``; ``lanes3d`` one step per launch).
 
 Fused into the chunk's last pass, per lane: the finite bit (AND over the
 whole slab, margin included) and four float32 stats over the request
@@ -63,7 +65,7 @@ it runs the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -72,8 +74,12 @@ from .cuda_stencil import _fma_f32
 # rows of the per-chunk boundary vector (serve/engine.BOUNDARY_ROWS)
 K_BOUNDARY = 6
 
-# steps per lanes2d launch, at most (csrc/lanes2d.cu KMAX)
+# steps per lanes2d launch: at most 16 (csrc/lanes2d.cu LANE_KMAX); a
+# chunk launches at most 8 at a time (PERF.md: two 8-step launches beat
+# one 16-step launch at every bucket on the H100, most at the small ones,
+# whose 16-row halo would dwarf their segments)
 KMAX_2D = 16
+PASS_2D = 8
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNELS = {2: "lanes2d", 3: "lanes3d"}
@@ -95,6 +101,54 @@ def _as_torch_dtype(dtype) -> torch.dtype:
             "float64": torch.float64}[str(dtype)]
 
 
+class Lanes2dGeometry(NamedTuple):
+    """A ``lanes2d`` launch: each warp streams a region ``region`` cells
+    wide whose middle ``out_cols`` columns it writes; a block's warps write
+    ``block_cols`` adjacent columns of one segment of ``seg_rows`` rows; the
+    grid is (column blocks, segments, lanes)."""
+
+    region: int
+    out_cols: int
+    block_cols: int
+    seg_rows: int
+    grid: Tuple[int, int, int]
+
+
+# csrc/stencil2d_stream.cuh at k <= 16: 4 cells a thread, a warp a region,
+# four warps a block; segments of 8 (lanes2d.cu LANE_LZMIN) to 256 rows, at
+# most 65535 of them
+_REGION_2D = 128
+_WARPS_2D = 4
+_SEG_ROWS_2D = (8, 256)
+_MAX_GRID_Y = 65535
+
+
+def lanes2d_geometry(L: int, m: int, k: int, slots: int) -> Lanes2dGeometry:
+    """``lanes2d``'s launch geometry for ``L`` lanes of ``m x m`` at depth
+    ``k`` on a card that holds ``slots`` of its blocks at once (the mirror of
+    ``stream2_lz`` and ``lanes2d_geo`` in ``csrc/``): the segment length of
+    8..256 rows whose grid, counted in waves of ``slots`` blocks, costs the
+    fewest row-times (waves x (rows + 2k)), the longest of equals."""
+    if not (1 <= k <= KMAX_2D and m >= 3 and 1 <= L <= 65535 and slots >= 1):
+        raise ValueError(f"no lanes2d launch for L={L}, m={m}, k={k}, "
+                         f"slots={slots}")
+    out_cols = _REGION_2D - 2 * k
+    block_cols = _WARPS_2D * out_cols
+    gx = -(-m // block_cols)
+    best, lz = None, 0
+    for rows in range(_SEG_ROWS_2D[0], _SEG_ROWS_2D[1] + 1):
+        segs = -(-m // rows)
+        if segs > _MAX_GRID_Y:
+            continue
+        cost = -(-(gx * L * segs) // slots) * (rows + 2 * k)
+        if best is None or cost <= best:
+            best, lz = cost, rows
+    if best is None:
+        raise ValueError(f"m={m} needs over {_MAX_GRID_Y} segments")
+    return Lanes2dGeometry(_REGION_2D, out_cols, block_cols, lz,
+                           (gx, -(-m // lz), L))
+
+
 def lane_kernel_available(ndim: int, dtype) -> bool:
     """True where a lane kernel serves the bucket: f32 and bf16, 2D and 3D
     (the counterpart of the reference's ``lane_kernel_available``; every
@@ -102,10 +156,10 @@ def lane_kernel_available(ndim: int, dtype) -> bool:
     return ndim in _KERNELS and _as_torch_dtype(dtype) in _KERNEL_DTYPES
 
 
-def passes(ndim: int, ksteps: int) -> list:
+def passes(ndim: int, ksteps: int, depth: int = 0) -> list:
     """Steps of each kernel launch in a ``ksteps``-step chunk: lanes2d runs
-    up to 16 per launch, lanes3d one."""
-    cap = KMAX_2D if ndim == 2 else 1
+    up to ``depth`` (by default ``PASS_2D``, 8) per launch, lanes3d one."""
+    cap = (depth or PASS_2D) if ndim == 2 else 1
     return [min(cap, ksteps - d) for d in range(0, ksteps, cap)]
 
 
@@ -242,22 +296,80 @@ def write_boundary(boundary: torch.Tensor, remaining: torch.Tensor,
 # --------------------------------------------------------------------------
 
 
-def _kernel_fn(name: str):
-    """``heat_<name>`` from the built library, with its C signature."""
+def _kernel_fn(name: str, export: str = ""):
+    """``heat_<name>`` (or ``export``, an export of the same signature: the
+    band design ``heat_lanes2d_band``) from the built library, with its C
+    signature."""
     from . import _build
 
     lib = _build.load(name)
     if not getattr(lib, "_heat_typed", False):
-        fn = getattr(lib, f"heat_{name}")
-        fn.restype = ctypes.c_int
         p, i = ctypes.c_void_p, ctypes.c_int
         # dtype, in, out, L, m, r, n, rem, k, offset, bc_lo, rem_out,
         # boundary, ktotal, stream
-        fn.argtypes = [i, p, p, i, i, p, p, p, i, i, i, p, p, i, p]
+        for fn_name in (f"heat_{name}", "heat_lanes2d_band"):
+            if hasattr(lib, fn_name):
+                fn = getattr(lib, fn_name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [i, p, p, i, i, p, p, p, i, i, i, p, p, i, p]
+        if hasattr(lib, "heat_lanes2d_geometry"):
+            lib.heat_lanes2d_geometry.restype = ctypes.c_int
+            lib.heat_lanes2d_geometry.argtypes = [
+                i, i, i, i, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
         lib.heat_cuda_error_string.restype = ctypes.c_char_p
         lib.heat_cuda_error_string.argtypes = [i]
         lib._heat_typed = True
-    return lib, getattr(lib, f"heat_{name}")
+    return lib, getattr(lib, export or f"heat_{name}")
+
+
+def compiled_lanes2d_geometry(dtype, L: int, m: int,
+                              k: int) -> Tuple[Lanes2dGeometry, int]:
+    """The geometry ``heat_lanes2d`` launches with (its C export
+    ``heat_lanes2d_geometry``) and the card's resident blocks of the
+    instance it was sized for. Needs the card's build; ``chip_smoke.py``
+    holds ``lanes2d_geometry`` to it."""
+    lib, _ = _kernel_fn("lanes2d")
+    geo = (ctypes.c_int64 * 8)()
+    err = lib.heat_lanes2d_geometry(_KERNEL_DTYPES[_as_torch_dtype(dtype)], L,
+                                    m, k, 0, geo)
+    if err:
+        raise RuntimeError(f"heat_lanes2d_geometry: "
+                           f"{lib.heat_cuda_error_string(err).decode()}")
+    v = list(geo)
+    return Lanes2dGeometry(v[0], v[1], v[2], v[3], (v[4], v[5], v[6])), v[7]
+
+
+def _launch_passes(lib, fn, label: str, fields, spare, r, n, rem, rem_out,
+                   boundary, ksteps: int, bc_lo: int, count: bool,
+                   depth: int = 0):
+    """The chunk's kernel passes through ``fn`` (``passes()``' depths, up to
+    ``depth`` steps a launch in 2D), ping-ponging ``fields`` and ``spare``;
+    returns the post-chunk stack. Adds one to ``launches[label]`` per
+    launch where ``count``."""
+    nd = fields.dim() - 1
+    L, m = fields.shape[0], fields.shape[1]
+    src, dst = fields, spare
+    offset = 0
+    schedule = passes(nd, ksteps, depth)
+    with torch.cuda.device(fields.device):
+        stream = torch.cuda.current_stream(fields.device).cuda_stream
+        for i, k in enumerate(schedule):
+            last = i == len(schedule) - 1
+            err = fn(_KERNEL_DTYPES[fields.dtype], src.data_ptr(),
+                     dst.data_ptr(), L, m, r.data_ptr(), n.data_ptr(),
+                     rem.data_ptr(), k, offset, bc_lo,
+                     rem_out.data_ptr() if last else None,
+                     boundary.data_ptr() if last else None, ksteps, stream)
+            if err:
+                raise RuntimeError(
+                    f"{label} launch failed: "
+                    f"{lib.heat_cuda_error_string(err).decode()} (stack "
+                    f"{tuple(fields.shape)}, {fields.dtype}, k={k})")
+            if count:
+                launches[label] += 1
+            offset += k
+            src, dst = dst, src
+    return src
 
 
 def _check_lane_vectors(fields, r, n, rem, rem_out, boundary) -> None:
@@ -318,30 +430,10 @@ def lane_chunk(fields: torch.Tensor, spare: torch.Tensor, r: torch.Tensor,
                          f"{fields.dtype} (gate on lane_kernel_available)")
     if not (fields.is_contiguous() and spare.is_contiguous()):
         raise ValueError("lane stacks must be contiguous")
-    L, m = fields.shape[0], fields.shape[1]
     name = _KERNELS[nd]
     lib, fn = _kernel_fn(name)
-    schedule = passes(nd, ksteps)
-    src, dst = fields, spare
-    offset = 0
-    with torch.cuda.device(fields.device):
-        stream = torch.cuda.current_stream(fields.device).cuda_stream
-        for i, k in enumerate(schedule):
-            last = i == len(schedule) - 1
-            err = fn(_KERNEL_DTYPES[fields.dtype], src.data_ptr(),
-                     dst.data_ptr(), L, m, r.data_ptr(), n.data_ptr(),
-                     rem.data_ptr(), k, offset, bc_lo,
-                     rem_out.data_ptr() if last else None,
-                     boundary.data_ptr() if last else None, ksteps, stream)
-            if err:
-                raise RuntimeError(
-                    f"{name} launch failed: "
-                    f"{lib.heat_cuda_error_string(err).decode()} (stack "
-                    f"{tuple(fields.shape)}, {fields.dtype}, k={k})")
-            launches[name] += 1
-            offset += k
-            src, dst = dst, src
-    return src
+    return _launch_passes(lib, fn, name, fields, spare, r, n, rem, rem_out,
+                          boundary, ksteps, bc_lo, count=True)
 
 
 def lane_multistep(fields: torch.Tensor, r: torch.Tensor, n: torch.Tensor,

@@ -232,8 +232,9 @@ def test_availability_and_pass_schedule():
         assert cl.lane_kernel_available(nd, torch.bfloat16)
         assert not cl.lane_kernel_available(nd, "float64")
     assert not cl.lane_kernel_available(4, "float32")
-    assert cl.passes(2, 37) == [16, 16, 5]
-    assert cl.passes(2, 16) == [16]
+    assert cl.passes(2, 37) == [8, 8, 8, 8, 5]
+    assert cl.passes(2, 16) == [8, 8]
+    assert cl.passes(2, 4) == [4]
     assert cl.passes(3, 4) == [1, 1, 1, 1]
 
 
