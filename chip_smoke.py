@@ -14,8 +14,8 @@ a checkout of the repository, it exits non-zero and prints no result):
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions, the
    kernel builds (``nvcc`` for sm_90a, one process per source, started
    together, each source's time) and their ptxas register reports, with
-   registers and spills of every ``ftcs2d``, ``ftcs3d`` and ``lanes2d``
-   instance;
+   registers and spills of every ``ftcs2d``, ``ftcs3d``, ``lanes2d`` and
+   ``lanes3d`` instance;
 2. each kernel against its plain version on the card, bytes compared, all
    through the public wrappers (so in the reference's pass schedule) unless
    a single pass is named:
@@ -55,21 +55,28 @@ a checkout of the repository, it exits non-zero and prints no result):
    byte-equal, resid/tmin/tmax equal on finite lanes, heat within a relative
    1e-5; then the streamed ``lanes2d``'s own 100 cases: L in {1, 3, 8}, B in
    {12, 128, 129, 256, 1024} (one region, 2.7 regions, rows at odd offsets,
-   the main path's buckets), k in {1, 4, 15, 16, 37}, f32/bf16, both BCs,
-   lanes in four roles (steps past the chunk; n < B with NaNs of a payload
-   no kernel computes next to the live region's edge and two rows past it;
-   a countdown that ends inside a pass; none left); every 2D case also
-   through the band design ``heat_lanes2d_band`` (the same bytes, NaN
-   cells as NaN; finite bits and resid/tmin/tmax equal), and the kernel's
-   launch geometry (``heat_lanes2d_geometry``) equal to
-   ``cuda_lanes.lanes2d_geometry`` at k = 1..16; every 2D case runs in the
-   shipped passes of up to 8 steps and again in passes of up to 16; then
-   one serving chunk of 8 lanes timed at the main path's buckets
-   (``lanes2d``: two 8-step passes) beside its band design (one 16-step
-   pass) in turns (kernel, band, band, kernel), the streamed kernel in one
-   16-step pass, and both designs' device time per chunk from
-   ``torch.profiler`` (back-to-back chunks of a small bucket are bound by
-   the host's launches, not the card);
+   the main path's buckets), k in {1, 4, 15, 16, 37}, and the streamed
+   ``lanes3d``'s own 140: L in {1, 3, 8}, B in {8, 32, 33, 64, 256} (a tile
+   edge, a tile edge and an odd side, the main path's bucket), k in {1, 4,
+   5, 8, 15, 16, 37}; both f32/bf16, both BCs, lanes in four roles (steps
+   past the chunk; n < B with NaNs of a payload no kernel computes next to
+   the live region's edge, on every axis in 3D, and two cells past it; a
+   countdown that ends inside a pass; none left); every case also through
+   the earlier design, ``heat_lanes2d_band`` / ``heat_lanes3d_step`` (the
+   same bytes, NaN cells as NaN; finite bits and resid/tmin/tmax equal);
+   every case in the shipped passes (of up to 8 steps in 2D, 4 in 3D) and
+   again in the kernel's deepest (16 / 8); the kernels' launch geometry
+   (``heat_lanes2d_geometry`` / ``heat_lanes3d_geometry``) equal to
+   ``cuda_lanes.lanes2d_geometry`` / ``lanes3d_geometry`` at every depth;
+   then one serving chunk of 8 lanes timed at the main path's buckets
+   (``lanes2d``: two 8-step passes; ``lanes3d`` at 8x258^3 f32 and bf16,
+   16 steps: four 4-step passes) beside its earlier design (the band, one
+   16-step pass; one step a launch) in turns (kernel, earlier, earlier,
+   kernel), the kernel in its deepest passes, both designs' device time per
+   chunk from ``torch.profiler`` (back-to-back chunks of a small bucket are
+   bound by the host's launches, not the card), and the ``lanes3d`` chunk
+   in passes of every depth 1..8 (the sweep behind ``cuda_lanes.PASS_3D``),
+   each held to the plain version's bytes;
 3. the main path, ``heat_tpu_torch.cli.main(["run", "--backend", "cuda",
    "--json", ...])`` (what ``python -m heat_tpu_torch run`` calls) with the
    launch counts zeroed just before and read just after:
@@ -100,7 +107,9 @@ a checkout of the repository, it exits non-zero and prints no result):
    1000-8000 and not a multiple of 16), 8 bf16 twins of f32 requests, 8 3D
    f32 (sides 64-256, ntime 100-800); sigma per request, edges and ghost BC
    in turn, four initial conditions. Every record ok; the lane launches
-   equal the passes of the dispatched chunks; no lane-kernel fallback;
+   equal the passes of the dispatched chunks, and a chunk is at most
+   ``len(cuda_lanes.passes(nd, 16))`` launches of its kernel (printed per
+   kernel); no lane-kernel fallback;
    served a second time under ``torch.profiler``, every record ok and the
    npz files byte-equal to the first run's (the card's busy time by kernel,
    and the device seconds and launches of ``lanes2d``, ``lanes3d`` and
@@ -197,9 +206,10 @@ LANE_R = {2: (0.25, 0.2, 0.1), 3: (1 / 6, 0.15, 0.1)}
 # phase 5: the serve main path's engine knobs
 SERVE_ARGS = ("--lanes", "8", "--chunk", "16", "--buckets", "256,512,1024")
 # phase 5's profile: each serve kernel's device time, by a pattern of its
-# name (lanes2d: the streamed kernel, or an earlier commit's band kernel)
+# name (the streamed kernels, or an earlier commit's band / one-step ones)
 SERVE_KERNELS = {"lanes2d": r"lanes2d_(stream_)?kernel\b",
-                 "lanes3d": r"lanes3d_kernel\b", "lanes_init": r"lanes_init\b"}
+                 "lanes3d": r"lanes3d_(stream_)?kernel\b",
+                 "lanes_init": r"lanes_init\b"}
 F32_ATOL = 5e-6                 # tests/test_backends.py:33
 SIGMA_3D = 1 / 6                # benchmarks/run_all.py:192
 ENVELOPE_TOL = 1e-5             # phase 5: rounding past the [1, 2] envelope
@@ -350,12 +360,16 @@ def phase_build():
                 print(f"    ftcs2d {'f32' if m[1] == 'f' else 'bf16'} "
                       f"k={m[2]}: {nreg} registers, spill stores {st} B, "
                       f"loads {ld} B")
-            # lanes2d.cu's streamed <T, K> and the band design's <T>
-            m = re.search(r"lanes2d_(stream|band)_kernelI(f|13__nv_bfloat16)"
-                          r"(?:Li(\d+)E)?E", fn)
-            if name == "lanes2d" and m:
-                print(f"    lanes2d {m[1]} {'f32' if m[2] == 'f' else 'bf16'}"
-                      f"{f' k={m[3]}' if m[3] else ''}: {nreg} registers, "
+            # lanes2d.cu's streamed <T, K> and the band design's <T>;
+            # lanes3d.cu's streamed <T, K> and the one-step design's <T>
+            m = re.search(r"(lanes[23]d)_(stream_|band_|)kernelI"
+                          r"(f|13__nv_bfloat16)(?:Li(\d+)E)?E", fn)
+            if name in ("lanes2d", "lanes3d") and m and m[1] == name:
+                design = {"stream_": "stream", "band_": "band",
+                          "": "step"}[m[2]]
+                print(f"    {name} {design} "
+                      f"{'f32' if m[3] == 'f' else 'bf16'}"
+                      f"{f' k={m[4]}' if m[4] else ''}: {nreg} registers, "
                       f"spill stores {st} B, loads {ld} B")
 
 
@@ -801,16 +815,60 @@ def lane_case_2d(L, B, dtype, k, idx):
             torch.tensor(rem, dtype=torch.int32, device=dev))
 
 
-def lanes2d_multistep(fields, r, n, rem, ksteps, bc_lo, export, depth):
-    """``cuda_lanes.lane_multistep`` through a ``lanes2d.cu`` export
-    (``heat_lanes2d``, or the band design ``heat_lanes2d_band``) in passes
-    of up to ``depth`` steps; its launches are not counted."""
+# phase 2: the streamed lanes3d's cases: lanes, sides m = B + 2 (B 8, a
+# tile edge, a tile edge plus an odd side, two tiles, the main path's
+# bucket) and chunk depths (one step, one pass, a pass and a step, the
+# deepest pass, several passes ending inside one, the main path's depth,
+# many passes)
+LANES3D_L = (1, 3, 8)
+LANES3D_B = (8, 32, 33, 64, 256)
+LANES3D_K = (1, 4, 5, 8, 15, 16, 37)
+
+
+def lane_case_3d(L, B, dtype, k, idx):
+    """One streamed-lanes3d case on the card: (fields, r, n, rem). Lane l
+    takes role (l + idx) % 4: 0 n = B with steps past the chunk; 1 n = B - 3
+    with NaNs of a payload no kernel computes next to its live region's
+    edge on each axis (index n + 1: the row from the streamed planes, the
+    mid from the plane buffer, the col from a shuffle; read by the live
+    cells under ghost BC, never under edges) and two past it (never read:
+    their bytes must survive); 2 a countdown that ends inside a pass; 3 no
+    step left (a finished lane, copied)."""
+    import torch
+
+    m = B + 2
+    f = field((L, m, m, m), dtype, seed=2000 + idx)
+    n, rem = [], []
+    for lane in range(L):
+        role = (lane + idx) % 4
+        nl = B - 3 if role == 1 else B
+        n.append(nl)
+        rem.append((k + 3, k + 1, max(1, k // 2 + 1), 0)[role])
+        if role == 1:
+            c = max(1, nl // 2)
+            for e in (nl + 1, nl + 3):
+                if e < m:
+                    for cell in ((e, c, c), (c, e, c), (c, c, e)):
+                        bits(f)[(lane,) + cell] = QNAN_PAYLOAD[
+                            str(dtype).replace("torch.", "")]
+    dev = f.device
+    r = torch.tensor([LANE_R[3][lane % 3] for lane in range(L)],
+                     dtype=torch.float32, device=dev)
+    return (f, r, torch.tensor(n, dtype=torch.int32, device=dev),
+            torch.tensor(rem, dtype=torch.int32, device=dev))
+
+
+def export_multistep(kernel, fields, r, n, rem, ksteps, bc_lo, export, depth):
+    """``cuda_lanes.lane_multistep`` through an export of ``kernel``'s
+    library (``heat_lanes2d`` or its band design ``heat_lanes2d_band``;
+    ``heat_lanes3d`` or its one-step design ``heat_lanes3d_step``) in
+    passes of up to ``depth`` steps; its launches are not counted."""
     import torch
 
     from heat_tpu_torch.ops import cuda_lanes as cl
 
     L = fields.shape[0]
-    lib, fn = cl._kernel_fn("lanes2d", export)
+    lib, fn = cl._kernel_fn(kernel, export)
     boundary = torch.empty((cl.K_BOUNDARY, L), dtype=torch.int32,
                            device=fields.device)
     out = cl._launch_passes(lib, fn, export, fields.clone(),
@@ -820,18 +878,26 @@ def lanes2d_multistep(fields, r, n, rem, ksteps, bc_lo, export, depth):
     return out, boundary[1] != 0, boundary[2:cl.K_BOUNDARY].view(torch.float32)
 
 
-def band_multistep(fields, r, n, rem, ksteps, bc_lo):
-    """The band design in its own passes of up to 16 steps."""
-    return lanes2d_multistep(fields, r, n, rem, ksteps, bc_lo,
-                             "heat_lanes2d_band", 16)
+def earlier_multistep(nd, fields, r, n, rem, ksteps, bc_lo):
+    """The earlier design of the lane kernel: ``lanes2d``'s band design in
+    its own passes of up to 16 steps, ``lanes3d``'s one step a launch."""
+    if nd == 2:
+        return export_multistep("lanes2d", fields, r, n, rem, ksteps, bc_lo,
+                                "heat_lanes2d_band", 16)
+    return export_multistep("lanes3d", fields, r, n, rem, ksteps, bc_lo,
+                            "heat_lanes3d_step", 1)
 
 
-def lane_results_agree(what, got, want, band=None):
+EARLIER = {2: "band design", 3: "one-step design"}
+
+
+def lane_results_agree(what, got, want, other=None, other_name=""):
     """Bytes, finite bits, resid/tmin/tmax (finite lanes) equal, heat
-    within a relative 1e-5; and, where given, the band design's bytes
-    (NaN cells as NaN: its bf16 store converts every value again, which
-    may rewrite a NaN's payload), finite bits and resid/tmin/tmax equal to
-    the kernel's. Returns the max |err| over cells finite in both."""
+    within a relative 1e-5; and, where given, the earlier design's bytes
+    (NaN cells as NaN: lanes2d's band design converts every value again at
+    its store, which may rewrite a NaN's payload), finite bits and
+    resid/tmin/tmax equal to the kernel's. Returns the max |err| over cells
+    finite in both."""
     import torch
 
     ndiff = int((bits(got[0]) != bits(want[0])).sum())
@@ -840,17 +906,17 @@ def lane_results_agree(what, got, want, band=None):
     st_ok = torch.equal(got[2][:3, ok], want[2][:3, ok])
     heat = float(((got[2][3, ok] - want[2][3, ok]).abs()
                   / want[2][3, ok].abs()).max()) if bool(ok.any()) else 0.0
-    nband = 0
-    if band is not None:
-        nband = int((~nan_bits_equal_cells(got[0], band[0])).sum())
-        fin_ok = fin_ok and torch.equal(got[1], band[1])
-        st_ok = st_ok and torch.equal(got[2][:3, ok], band[2][:3, ok])
-    if ndiff or nband or not (fin_ok and st_ok) or heat > 1e-5:
-        print(f"  {what}: {ndiff} cells differ ({nband} from the band "
-              f"design), finite {got[1].tolist()} vs {want[1].tolist()}, "
-              f"stats equal {st_ok}, heat rel {heat:g}")
+    nother = 0
+    if other is not None:
+        nother = int((~nan_bits_equal_cells(got[0], other[0])).sum())
+        fin_ok = fin_ok and torch.equal(got[1], other[1])
+        st_ok = st_ok and torch.equal(got[2][:3, ok], other[2][:3, ok])
+    if ndiff or nother or not (fin_ok and st_ok) or heat > 1e-5:
+        print(f"  {what}: {ndiff} cells differ ({nother} from the "
+              f"{other_name}), finite {got[1].tolist()} vs "
+              f"{want[1].tolist()}, stats equal {st_ok}, heat rel {heat:g}")
     check(ndiff == 0, f"lane kernel != plain: {what}")
-    check(nband == 0, f"lanes2d != its band design: {what}")
+    check(nother == 0, f"lane kernel != its {other_name}: {what}")
     check(fin_ok, f"finite bits differ: {what}")
     check(st_ok, f"resid/tmin/tmax differ: {what}")
     check(heat <= 1e-5, f"heat off by {heat:g}: {what}")
@@ -860,13 +926,30 @@ def lane_results_agree(what, got, want, band=None):
 
 
 def phase_lane_compare():
-    """lanes2d/lanes3d against their plain versions, bytes; lanes2d also
-    against its band design, and its launch geometry against
-    ``cuda_lanes.lanes2d_geometry``. Returns max |err| per (kernel,
-    bucket)."""
+    """lanes2d/lanes3d against their plain versions and their earlier
+    designs, bytes, in the shipped passes and in the kernel's deeper ones;
+    their launch geometry against ``cuda_lanes.lanes2d_geometry`` /
+    ``lanes3d_geometry``. Returns max |err| per (kernel, bucket)."""
     import torch
 
     from heat_tpu_torch.ops import cuda_lanes as cl
+
+    # the kernel's own deeper passes beside the shipped ones
+    deep = {2: ("lanes2d", "heat_lanes2d", 16),
+            3: ("lanes3d", "heat_lanes3d", cl.KMAX_3D)}
+
+    def agree(nd, what, f, r, n, rem, k, bc_lo):
+        got = cl.lane_multistep(f, r, n, rem, k, bc_lo)
+        want = cl.lane_multistep(f, r, n, rem, k, bc_lo, plain=True)
+        other = earlier_multistep(nd, f, r, n, rem, k, bc_lo)
+        torch.cuda.synchronize()
+        err = lane_results_agree(what, got, want, other, EARLIER[nd])
+        kernel, export, depth = deep[nd]
+        lane_results_agree(
+            f"{what} ({depth}-step passes)", export_multistep(
+                kernel, f, r, n, rem, k, bc_lo, export, depth), want, other,
+            EARLIER[nd])
+        return err
 
     errs = {}
     t0 = time.perf_counter()
@@ -877,78 +960,89 @@ def phase_lane_compare():
                 for bc_lo in (0, 1):
                     for k in (1, 5, 16, 37):
                         f, r, n, rem = lane_case(nd, B, dt, k, seed=ncases)
-                        got = cl.lane_multistep(f, r, n, rem, k, bc_lo)
-                        want = cl.lane_multistep(f, r, n, rem, k, bc_lo,
-                                                 plain=True)
-                        band = (band_multistep(f, r, n, rem, k, bc_lo)
-                                if nd == 2 else None)
-                        torch.cuda.synchronize()
                         key = (cl._KERNELS[nd], B)
                         what = (f"{key[0]} B={B} {dt_name(dt)} "
                                 f"{('ghost', 'edges')[bc_lo]} k={k}")
-                        err = lane_results_agree(what, got, want, band)
-                        if nd == 2:
-                            lane_results_agree(
-                                what + " (16-step passes)", lanes2d_multistep(
-                                    f, r, n, rem, k, bc_lo, "heat_lanes2d",
-                                    16), want, band)
+                        err = agree(nd, what, f, r, n, rem, k, bc_lo)
                         errs[key] = max(errs.get(key, 0.0), err)
                         ncases += 1
-                        del f, got, want, band
+                        del f
             torch.cuda.empty_cache()
     nbase = ncases
-    # the streamed lanes2d's own cases, each also against the band design
-    for i, (B, k, dt, bc_lo) in enumerate(
-            (B, k, dt, bc_lo) for B in LANES2D_B for k in LANES2D_K
-            for dt in (torch.float32, torch.bfloat16) for bc_lo in (0, 1)):
-        L = LANES2D_L[i % len(LANES2D_L)]
-        f, r, n, rem = lane_case_2d(L, B, dt, k, i)
-        got = cl.lane_multistep(f, r, n, rem, k, bc_lo)
-        want = cl.lane_multistep(f, r, n, rem, k, bc_lo, plain=True)
-        band = band_multistep(f, r, n, rem, k, bc_lo)
-        torch.cuda.synchronize()
-        what = (f"lanes2d L={L} B={B} {dt_name(dt)} "
-                f"{('ghost', 'edges')[bc_lo]} k={k} rem={rem.tolist()}")
-        err = lane_results_agree(what, got, want, band)
-        lane_results_agree(what + " (16-step passes)", lanes2d_multistep(
-            f, r, n, rem, k, bc_lo, "heat_lanes2d", 16), want, band)
-        key = ("lanes2d", B)
-        errs[key] = max(errs.get(key, 0.0), err)
-        ncases += 1
-        del f, got, want, band
-    torch.cuda.empty_cache()
-    print(f"[phase 2] {ncases} lane-kernel-vs-plain cases ({ncases - nbase} "
-          f"of the streamed lanes2d: L {LANES2D_L}, B {LANES2D_B}, k "
-          f"{LANES2D_K}; every 2D case in passes of up to {cl.PASS_2D} steps "
-          f"and of 16, and against heat_lanes2d_band), 0 differing bytes, "
-          f"stats equal, heat within 1e-5 ({time.perf_counter() - t0:.1f} s)")
-    # the launch geometry the kernel computes against the Python mirror
+    # the streamed kernels' own cases, each also against the earlier design
+    own = {2: (LANES2D_L, LANES2D_B, LANES2D_K, lane_case_2d),
+           3: (LANES3D_L, LANES3D_B, LANES3D_K, lane_case_3d)}
+    nown = {}
+    for nd, (Ls, Bs, Ks, make) in own.items():
+        for i, (B, k, dt, bc_lo) in enumerate(
+                (B, k, dt, bc_lo) for B in Bs for k in Ks
+                for dt in (torch.float32, torch.bfloat16) for bc_lo in (0, 1)):
+            L = Ls[i % len(Ls)]
+            f, r, n, rem = make(L, B, dt, k, i)
+            name = cl._KERNELS[nd]
+            what = (f"{name} L={L} B={B} {dt_name(dt)} "
+                    f"{('ghost', 'edges')[bc_lo]} k={k} rem={rem.tolist()}")
+            err = agree(nd, what, f, r, n, rem, k, bc_lo)
+            key = (name, B)
+            errs[key] = max(errs.get(key, 0.0), err)
+            nown[name] = nown.get(name, 0) + 1
+            ncases += 1
+            del f
+        torch.cuda.empty_cache()
+    print(f"[phase 2] {ncases} lane-kernel-vs-plain cases ({nbase} base; "
+          f"{nown['lanes2d']} of the streamed lanes2d: L {LANES2D_L}, B "
+          f"{LANES2D_B}, k {LANES2D_K}; {nown['lanes3d']} of the streamed "
+          f"lanes3d: L {LANES3D_L}, B {LANES3D_B}, k {LANES3D_K}; every case "
+          f"in the shipped passes of up to {cl.PASS_2D} (2D) / {cl.PASS_3D} "
+          f"(3D) steps and in the kernel's deepest, 16 / {cl.KMAX_3D}, and "
+          f"against heat_lanes2d_band / heat_lanes3d_step), 0 differing "
+          f"bytes, stats equal, heat within 1e-5 "
+          f"({time.perf_counter() - t0:.1f} s)")
+    # the launch geometry the kernels compute against the Python mirrors
     ngeo = 0
-    for dt in (torch.float32, torch.bfloat16):
-        for k in range(1, cl.KMAX_2D + 1):
-            for L, m in ((1, 14), (3, 131), (8, 258), (8, 514), (8, 1026),
-                         (1, 4098)):
-                got, slots = cl.compiled_lanes2d_geometry(dt, L, m, k)
-                want = cl.lanes2d_geometry(L, m, k, slots)
-                check(got == want, f"lanes2d geometry {dt_name(dt)} L={L} "
-                                   f"m={m} k={k}: kernel {got} != mirror "
-                                   f"{want} at {slots} slots")
-                ngeo += 1
-    main, slots = cl.compiled_lanes2d_geometry(torch.float32, 8, 1026, 16)
-    print(f"  lanes2d launch geometry equal to cuda_lanes.lanes2d_geometry "
-          f"in {ngeo} cases (k = 1..16, f32/bf16); 8x1026^2 f32 k=16 on "
-          f"{slots} resident blocks: {main}")
+    for nd, kmax, sizes, compiled, mirror in (
+            (2, cl.KMAX_2D, ((1, 14), (3, 131), (8, 258), (8, 514),
+                             (8, 1026), (1, 4098)),
+             cl.compiled_lanes2d_geometry, cl.lanes2d_geometry),
+            (3, cl.KMAX_3D, ((1, 10), (3, 35), (8, 66), (8, 258), (1, 1026),
+                             (65535, 10)),
+             cl.compiled_lanes3d_geometry, cl.lanes3d_geometry)):
+        for dt in (torch.float32, torch.bfloat16):
+            for k in range(1, kmax + 1):
+                for L, m in sizes:
+                    got, slots = compiled(dt, L, m, k)
+                    want = mirror(L, m, k, slots)
+                    check(got == want, f"{cl._KERNELS[nd]} geometry "
+                                       f"{dt_name(dt)} L={L} m={m} k={k}: "
+                                       f"kernel {got} != mirror {want} at "
+                                       f"{slots} slots")
+                    ngeo += 1
+    main2, slots2 = cl.compiled_lanes2d_geometry(torch.float32, 8, 1026, 16)
+    main3 = {dt: cl.compiled_lanes3d_geometry(dt, 8, 258, cl.PASS_3D)
+             for dt in (torch.float32, torch.bfloat16)}
+    print(f"  launch geometry equal to cuda_lanes.lanes2d_geometry / "
+          f"lanes3d_geometry in {ngeo} cases (k = 1..16 / 1..8, f32/bf16); "
+          f"lanes2d 8x1026^2 f32 k=16 on {slots2} resident blocks: {main2}; "
+          + "; ".join(f"lanes3d 8x258^3 {dt_name(dt)} k={cl.PASS_3D} on "
+                      f"{sl} resident blocks: {g}"
+                      for dt, (g, sl) in main3.items()))
     return errs
 
 
 def phase_lane_times():
     """One serving chunk (``lane_chunk``: the stats init and the kernel
-    passes, in 2D two 8-step passes) of 8 lanes at the main path's buckets:
-    kernel and plain version,
-    and the bound: the stack read and written once per pass against 7 (2D)
-    or 9 (3D) f32 operations per live cell-step (every lane n = B under
-    edges BC: (B-2)^nd live cells, each stepped k times); beside it the
-    bound at the reference's CostEstimate count over every cell."""
+    passes: two 8-step passes in 2D, four 4-step passes in 3D) of 8 lanes
+    at the main path's buckets: kernel and plain version, and the bound: the
+    stack read and written once against 7 (2D) or 9 (3D) f32 operations per
+    live cell-step (every lane n = B under edges BC: (B-2)^nd live cells,
+    each stepped k times); beside it the bound at the reference's
+    CostEstimate count over every cell. Beside the chunk, in turns (kernel,
+    earlier, earlier, kernel): the earlier design (2D the band, one 16-step
+    pass; 3D one step a launch); then the kernel in its deepest passes (2D
+    one of 16 steps, 3D two of 8) and the device time per chunk of kernel
+    and earlier design from ``torch.profiler``; in 3D the chunk in passes
+    of every depth 1..8 (the sweep that sets ``cuda_lanes.PASS_3D``), each
+    held to the plain version's bytes."""
     import torch
 
     from heat_tpu_torch.machine import device_model
@@ -960,7 +1054,7 @@ def phase_lane_times():
     L = 8
     for nd, B, dt, k, reps in ((2, 256, f32, 16, 200), (2, 512, f32, 16, 100),
                                (2, 1024, f32, 16, 50), (2, 1024, bf16, 16, 50),
-                               (3, 256, f32, 1, 50), (3, 256, bf16, 1, 50)):
+                               (3, 256, f32, 16, 20), (3, 256, bf16, 16, 20)):
         m = B + 2
         A = field((L,) + (m,) * nd, dt, seed=B)
         S = torch.empty_like(A)
@@ -970,33 +1064,18 @@ def phase_lane_times():
         rem_out = torch.empty_like(rem)
         r = torch.tensor((LANE_R[nd] * 3)[:L], dtype=torch.float32, device=dev)
         bnd = torch.empty((cl.K_BOUNDARY, L), dtype=torch.int32, device=dev)
+        name = cl._KERNELS[nd]
 
         def chunk(plain):
             return cl.lane_chunk(A, S, r, n, rem, rem_out, bnd, k, 1,
                                  plain=plain)
 
-        band_ms = one_pass_ms = dev_ms = band_dev_ms = None
-        if nd == 2:
-            # the chunk (passes of up to PASS_2D steps) and the band design
-            # (its own passes of up to 16) in turns: kernel, band, band,
-            # kernel; then the streamed kernel in one 16-step pass
-            def via(export, depth):
-                lib, fn = cl._kernel_fn("lanes2d", export)
-                return lambda: cl._launch_passes(
-                    lib, fn, export, A, S, r, n, rem, rem_out, bnd, k, 1,
-                    count=False, depth=depth)
+        def via(export, depth):
+            lib, fn = cl._kernel_fn(name, export)
+            return lambda: cl._launch_passes(
+                lib, fn, export, A, S, r, n, rem, rem_out, bnd, k, 1,
+                count=False, depth=depth)
 
-            band = via("heat_lanes2d_band", 16)
-            ms_a = event_ms(lambda: chunk(False), reps)
-            band_a, band_b = event_ms(band, reps), event_ms(band, reps)
-            ms = (ms_a + event_ms(lambda: chunk(False), reps)) / 2
-            band_ms = (band_a + band_b) / 2
-            one_pass_ms = event_ms(via("heat_lanes2d", 16), reps)
-            dev_ms = device_ms(lambda: chunk(False), reps)
-            band_dev_ms = device_ms(band, reps)
-        else:
-            ms = event_ms(lambda: chunk(False), reps)
-        plain_ms = event_ms(lambda: chunk(True), 1)
         bound_s, bound_by = dm.pass_bound_s(
             A.numel(), A.element_size(), k, ndim=nd,
             op_points=L * (B - 2) ** nd)
@@ -1004,25 +1083,65 @@ def phase_lane_times():
                                      ndim=nd, op_points=0)
         ce_s = max(bytes_s, LANE_COST_ESTIMATE_OPS[nd] * A.numel() * k
                    / dm.peaks.f32_flops_per_s)
-        name = cl._KERNELS[nd]
-        times[(name, B, dt)] = dict(k=k, ms=ms, plain_ms=plain_ms,
-                                    bound_ms=bound_s * 1e3, bound_by=bound_by,
-                                    cost_estimate_bound_ms=ce_s * 1e3,
-                                    band_ms=band_ms, one_pass_ms=one_pass_ms,
-                                    device_ms=dev_ms,
-                                    band_device_ms=band_dev_ms)
-        band_txt = ("" if band_ms is None else
-                    f", band design {band_ms:.4f} ms ({bound_s * 1e3 / band_ms:.1%}"
-                    f" of the bound; kernel {ms_a:.4f} / band {band_a:.4f} / "
-                    f"{band_b:.4f} in turns), {band_ms / ms:.2f}x; the kernel "
-                    f"in one {k}-step pass {one_pass_ms:.4f} ms; device time "
-                    f"per chunk (torch.profiler) {fmt_ms(dev_ms)}, band design "
-                    f"{fmt_ms(band_dev_ms)}")
+        depth = cl.PASS_2D if nd == 2 else cl.PASS_3D
+        pass_s, pass_by = dm.pass_bound_s(
+            A.numel(), A.element_size(), depth, ndim=nd,
+            op_points=L * (B - 2) ** nd)
+        # the sweep's inputs and the plain version's chunk, before the
+        # timed chunks overwrite A
+        A0 = A.clone() if nd == 3 else None
+        want = (cl.lane_multistep(A0, r, n, rem, k, 1, plain=True)
+                if nd == 3 else None)
+        earlier = (via("heat_lanes2d_band", 16) if nd == 2
+                   else via("heat_lanes3d_step", 1))
+        ms_a = event_ms(lambda: chunk(False), reps)
+        old_a, old_b = event_ms(earlier, reps), event_ms(earlier, reps)
+        ms = (ms_a + event_ms(lambda: chunk(False), reps)) / 2
+        old_ms = (old_a + old_b) / 2
+        deep_ms = event_ms(via(f"heat_{name}",
+                               16 if nd == 2 else cl.KMAX_3D), reps)
+        dev_ms = device_ms(lambda: chunk(False), reps)
+        old_dev_ms = device_ms(earlier, reps)
+        plain_ms = event_ms(lambda: chunk(True), 1)
+        sweep = {}
+        if nd == 3:
+            for d in range(1, cl.KMAX_3D + 1):
+                sweep[d] = event_ms(via("heat_lanes3d", d), reps)
+                got = export_multistep("lanes3d", A0, r, n, rem, k, 1,
+                                       "heat_lanes3d", d)
+                lane_results_agree(f"lanes3d {L}x{m}^3 {dt_name(dt)} k={k} "
+                                   f"in {d}-step passes", got, want)
+                del got
+            del A0, want
+        times[(name, B, dt)] = dict(
+            k=k, ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
+            bound_by=bound_by, cost_estimate_bound_ms=ce_s * 1e3,
+            pass_depth=depth, pass_bound_ms=pass_s * 1e3, pass_bound_by=pass_by,
+            device_ms=dev_ms, **{
+                2: dict(band_ms=old_ms, one_pass_ms=deep_ms,
+                        band_device_ms=old_dev_ms),
+                3: dict(step_ms=old_ms, pass8_ms=deep_ms,
+                        step_device_ms=old_dev_ms,
+                        sweep_ms={d: t for d, t in sweep.items()})}[nd])
         print(f"  {name} {L}x{m}^{nd} {dt_name(dt)} k={k}: {ms:.4f} ms/chunk "
-              f"(plain {plain_ms:.2f} ms, bound {bound_s * 1e3:.4f} ms by "
-              f"{bound_by}, {bound_s * 1e3 / ms:.1%} of it; at the "
-              f"reference's CostEstimate count {ce_s * 1e3:.4f} ms"
-              f"{band_txt})")
+              f"in passes of {depth} (plain {plain_ms:.2f} ms, bound "
+              f"{bound_s * 1e3:.4f} ms by {bound_by}, "
+              f"{bound_s * 1e3 / ms:.1%} of it; a {depth}-step pass's bound "
+              f"{pass_s * 1e3:.4f} ms by {pass_by}; at the reference's "
+              f"CostEstimate count {ce_s * 1e3:.4f} ms), {EARLIER[nd]} "
+              f"{old_ms:.4f} ms ({bound_s * 1e3 / old_ms:.1%} of the bound; "
+              f"kernel {ms_a:.4f} / earlier {old_a:.4f} / {old_b:.4f} in "
+              f"turns), {old_ms / ms:.2f}x; the kernel in passes of "
+              f"{16 if nd == 2 else cl.KMAX_3D} {deep_ms:.4f} ms; device time "
+              f"per chunk (torch.profiler) {fmt_ms(dev_ms)}, {EARLIER[nd]} "
+              f"{fmt_ms(old_dev_ms)}")
+        if sweep:
+            print(f"    {name} {L}x{m}^3 {dt_name(dt)} chunk of {k} steps in "
+                  f"passes of d (0 differing bytes from the plain version at "
+                  f"each d): " + ", ".join(
+                      f"d={d} {t:.4f} ms "
+                      f"({t / len(cl.passes(3, k, d)):.4f} ms/launch)"
+                      for d, t in sweep.items()))
         del A, S
         torch.cuda.empty_cache()
     print("[phase 2] lane times taken")
@@ -1096,6 +1215,7 @@ def phase_serve(smi):
     import numpy as np
 
     from heat_tpu_torch import HeatConfig, solve
+    from heat_tpu_torch.ops import cuda_lanes as cl
     from heat_tpu_torch.serve.engine import bf16_to_float32
 
     reqfile = WORK / "requests.jsonl"
@@ -1126,6 +1246,15 @@ def phase_serve(smi):
           f"idle {summary['device_idle_s']} s, launches {launches} on {smi}")
     for bucket, count in by_bucket.items():
         print(f"    {count} launches of {bucket}")
+    # launches per chunk by kernel: a chunk of at most 16 steps (--chunk) is
+    # at most len(passes(nd, 16)) launches
+    chunks = summary["lane_chunks"]
+    for name, nd in (("lanes2d", 2), ("lanes3d", 3)):
+        most = len(cl.passes(nd, int(SERVE_ARGS[3])))
+        print(f"  {name}: {launches[name]} launches in {chunks[name]} chunks,"
+              f" {launches[name] / chunks[name]:.4f} a chunk (at most {most})")
+        check(launches[name] <= most * chunks[name],
+              f"{name} took over {most} launches a chunk")
 
     profile = profiled_serve(reqfile, WORK / "serve-profiled", wall, ids, out_k)
 
@@ -1566,10 +1695,13 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=None))
     # the lane kernels at the serve main path's buckets: one serving chunk
-    # of 8 lanes (k steps: lanes2d two 8-step passes, lanes3d one launch
-    # per step; band_ms: lanes2d's earlier band design, one 16-step pass,
-    # one_pass_ms: the streamed kernel in one 16-step pass; device_ms and
-    # band_device_ms: the kernels' device time per chunk, torch.profiler),
+    # of 8 lanes (k steps: lanes2d two 8-step passes, lanes3d four 4-step
+    # passes; band_ms: lanes2d's earlier band design, one 16-step pass,
+    # one_pass_ms: the streamed lanes2d in one 16-step pass; step_ms:
+    # lanes3d's earlier one-step design, pass8_ms: lanes3d in two 8-step
+    # passes, sweep_ms: in passes of each depth; device_ms, band_device_ms
+    # and step_device_ms: the device time per chunk, torch.profiler;
+    # pass_bound_ms: one pass's bound at the shipped depth),
     # launches those of phase 5 at that bucket and dtype (every lane tier);
     # no single PyTorch call computes the fused lane chunk; bound_ms at the
     # kernels' own operation count, cost_estimate_bound_ms at the
@@ -1592,9 +1724,8 @@ def main() -> int:
             max_abs_err=max(v for (n_, _), v in errs.items() if n_ == name),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=None,
-            cost_estimate_bound_ms=t["cost_estimate_bound_ms"],
-            band_ms=t["band_ms"], one_pass_ms=t["one_pass_ms"],
-            device_ms=t["device_ms"], band_device_ms=t["band_device_ms"]))
+            **{key: v for key, v in t.items() if key not in (
+                "k", "ms", "plain_ms", "bound_ms", "bound_by")}))
     # the kernel lab's candidates (phase 6): one row per (kernel, variant,
     # dtype) benched, launches those of the lab's run; shipped_ms is the
     # shipped kernel (ftcs2d/ftcs3d) at the same shape, dtype and depth

@@ -2,6 +2,10 @@
 // along the row axis with the k steps pipelined: the shipped kernel
 // (ftcs3d.cu) and one tile of the kernel lab (lab3d.cu). It computes the
 // function of stencil3d.cuh's band kernel, byte for byte, in another order.
+// The body (stream3_body) takes its cells' arithmetic from a policy:
+// SoloCells below for those kernels, lanes3d.cu's LaneCells for the serving
+// engine's lane kernel (per-lane r, side and countdown, select-kept updates
+// rounded every step, fused partials), one body for both.
 //
 // Design. A block owns a TY x TX (mid, col) output tile and a segment of LZ
 // rows. It streams the rows of its input region, R = (TY+2k) x (TX+2k)
@@ -33,11 +37,11 @@
 //
 // Cells outside the array load as 0.0f and are then stepped like any other
 // cell, as in the band kernel, so the bytes kept are the same function.
-// Every cell, frozen or not, takes the multiply-mask update, so a NaN that
-// reaches a frozen cell spreads into it as in the Pallas body.
+// Under SoloCells every cell, frozen or not, takes the multiply-mask update,
+// so a NaN that reaches a frozen cell spreads into it as in the Pallas body.
 //
-// Arithmetic per cell and step, each line rounded once (maskr = frozen ? 0
-// : r; frozen where the GLOBAL row/mid/col index <= lo or >= hi):
+// SoloCells' arithmetic per cell and step, each line rounded once (maskr =
+// frozen ? 0 : r; frozen where the GLOBAL row/mid/col index <= lo or >= hi):
 //   ORDER_L1:  s = ((((row+1 + row-1) + mid+1) + mid-1) + col-1) + col+1
 //   ORDER_L2:  s = ((((row-1 + row+1) + mid-1) + mid+1) + col-1) + col+1
 //   UPD_LAP:   c' = fma(maskr, fma(-6, c, s), c)
@@ -49,7 +53,8 @@
 // 154112 bytes of shared memory, and the pipeline's state 8k values per
 // thread in registers: one block per SM. At k <= 4 (2 or 3 blocks per SM)
 // the block is smaller. k is a template parameter (the state's size), so a
-// launch picks one of eight instances at run time.
+// launch picks one of eight instances at run time; a runtime k or a break in
+// the step loop would send the state to local memory.
 
 #pragma once
 
@@ -78,45 +83,158 @@ struct Stream {
   static constexpr size_t SMEM = (size_t)K * 2 * PB * sizeof(float);
 };
 
-template <typename T, int ORDER, int UPD, int K, int LZ, int TY, int TX>
-__global__ void __launch_bounds__(Stream<K, TY, TX>::NT,
-                                  Stream<K, TY, TX>::MINB)
-ftcs3d_stream_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t m,
-                     int64_t mid, int64_t n, float r, Bounds b) {
+// The cells' side of the body (the rest is the same for every kernel that
+// streams a 3D field). A policy supplies:
+//   LANE               false for the solo kernels, true for the lane kernel
+//                      (lanes3d.cu): there the stores write the bits as
+//                      they are, and a lane with no step left in the pass
+//                      is copied instead of stepped
+//   done               (LANE) no step of the pass is on
+//   columns(gy, gx, keep)  the thread's setup (mid gy, cols gx .. gx+3;
+//                      bit c of keep: cell c is stored)
+//   row(t, gz)         step t's state on global row gz
+//   cell(z, c, up, cc, dn, mm, mp, left, right)  step's new value of cell
+//                      c from its centre and its row-1, row+1, mid-1,
+//                      mid+1, col-1 and col+1 neighbours
+//   keep(z, v, cc)     (LANE) the step's new values of the thread's cells,
+//                      once all are computed (cc: the old ones)
+//   output(gz, v, pre, keep)  step K's row gz (pre: its values before step
+//                      K), or a copied row (pre = v), before its store
+// The solo kernels' cells: the multiply-mask on the field's bounds, in
+// ORDER / UPD's form (above).
+template <int ORDER, int UPD>
+struct SoloCells {
+  static constexpr bool LANE = false;
+  const float r;
+  const Bounds& b;  // the kernel's parameter, read where it is used
+  float ryx[4];     // r, or 0 where the mid or col index freezes the cell
+
+  __device__ SoloCells(float r_, const Bounds& b_) : r(r_), b(b_) {}
+
+  __device__ __forceinline__ void columns(int64_t gy, int64_t gx, unsigned) {
+    const bool y_frozen = gy <= b.lo[1] || gy >= b.hi[1];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      ryx[c] = (y_frozen || gx + c <= b.lo[2] || gx + c >= b.hi[2]) ? 0.0f : r;
+  }
+  // whether row gz is frozen
+  __device__ __forceinline__ bool row(int, int64_t gz) const {
+    return gz <= b.lo[0] || gz >= b.hi[0];
+  }
+  __device__ __forceinline__ float cell(bool z_frozen, int c, float up,
+                                        float cc, float dn, float mm,
+                                        float mp, float left,
+                                        float right) const {
+    float sum;
+    if (ORDER == ORDER_L1) {
+      sum = dn + up;                   // row+1 + row-1
+      sum = sum + mp;                  // + mid+1
+      sum = sum + mm;                  // + mid-1
+    } else {
+      sum = up + dn;                   // row-1 + row+1
+      sum = sum + mm;                  // + mid-1
+      sum = sum + mp;                  // + mid+1
+    }
+    sum = sum + left;                  // + col-1
+    sum = sum + right;                 // + col+1
+    const float maskr = z_frozen ? 0.0f : ryx[c];
+    if (UPD == UPD_LAP) {
+      const float lap = __fmaf_rn(-6.0f, cc, sum);
+      return __fmaf_rn(maskr, lap, cc);
+    }
+    const float decay = __fmaf_rn(-6.0f, maskr, 1.0f);
+    return __fmaf_rn(decay, cc, maskr * sum);
+  }
+  __device__ __forceinline__ void output(int64_t, const float (&)[4],
+                                         const float (&)[4], unsigned) {}
+};
+
+// A stored value as f32 and back with its bits as they are (a bf16 value is
+// the upper half of its f32; every value a lane kernel stores is one the
+// storage type holds), so a kept cell, NaN payload and all, keeps its bytes
+// (a conversion instruction may rewrite a NaN's payload).
+__device__ __forceinline__ float load_bits(const float* p) { return *p; }
+__device__ __forceinline__ float load_bits(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (unsigned)*reinterpret_cast<const unsigned short*>(p) << 16);
+}
+__device__ __forceinline__ void store_bits(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_bits(__nv_bfloat16* p, float v) {
+  *reinterpret_cast<unsigned short*>(p) =
+      (unsigned short)(__float_as_uint(v) >> 16);
+}
+
+// The streamed body at depth K over an m x mid x n field, with the cells'
+// arithmetic from `cells` (see above): block (bx, by, bz) owns the ty x tx
+// (mid, col) output tile (ty <= TY, tx <= TX: the solo kernels take the
+// whole tile, the lane kernel sizes it to the field) and the segment of lz
+// rows. Threads whose region rows or columns lie past ty + 2K or tx + 2K
+// load nothing, and a warp with no row in the smaller region skips every
+// step. Every thread of the block calls it.
+template <typename T, int K, int TY, int TX, class Cells>
+__device__ __forceinline__ void stream3_body(Cells& cells,
+                                             const T* __restrict__ in,
+                                             T* __restrict__ out, int64_t m,
+                                             int64_t mid, int64_t n, int lz,
+                                             int ty, int tx, unsigned bx,
+                                             unsigned by, unsigned bz) {
   using S = Stream<K, TY, TX>;
   constexpr int RXP = S::RXP;
   extern __shared__ float4 smem4[];  // [step 0..K-1][parity][PB floats]
   float* const smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int64_t zs = (int64_t)blockIdx.z * LZ;    // first output row
+  const int64_t zs = (int64_t)bz * lz;    // first output row
   // planes streamed: global rows zs-K .. zs+nout+K-1
-  const int nout = (int)(m - zs < LZ ? m - zs : LZ);
+  const int nout = (int)(m - zs < lz ? m - zs : lz);
   const int np = nout + 2 * K;
   const int64_t plane = mid * n;
+  const int ry = ty + 2 * K;              // the region's rows and cols used
+  const int rx = tx + 2 * K;
 
   // the group: R row y, cols x .. x+3; in shared memory at 4 * tid
   const int y = tid / (RXP / 4);
   const int x = 4 * (tid - y * (RXP / 4));
-  const int64_t gy = (int64_t)blockIdx.y * TY - K + y;
-  const int64_t gx = (int64_t)blockIdx.x * TX - K + x;
+  const int64_t gy = (int64_t)by * ty - K + y;
+  const int64_t gx = (int64_t)bx * tx - K + x;
   const int64_t goff = gy * n + gx;   // the group's offset in a row plane
-  const bool y_in = tid < S::NG && gy >= 0 && gy < mid;
+  const bool y_in = tid < S::NG && (!Cells::LANE || y < ry) && gy >= 0 &&
+                    gy < mid;
   // the warp's largest distance of a row from R's edge: a step t whose
   // cone (distance >= t) misses all the warp's rows is skipped by the warp
-  const int wy = __reduce_max_sync(0xffffffffu, y < S::RY - 1 - y
+  const int wy = __reduce_max_sync(0xffffffffu, y < ry - 1 - y
                                                      ? y
-                                                     : S::RY - 1 - y);
-  const bool y_keep = y >= K && y < K + TY;
-  const bool y_frozen = gy <= b.lo[1] || gy >= b.hi[1];
+                                                     : ry - 1 - y);
+  const bool y_keep = y >= K && y < K + ty;
   bool in_yx[4];   // inside the array's (mid, col) extent
   bool keep[4];    // in the output tile and the array
-  float ryx[4];    // r, or 0 where the mid or col index freezes the cell
+  unsigned kept = 0;   // the same as bits: bit c is keep[c]
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    in_yx[c] = y_in && x + c < S::RX && gx + c >= 0 && gx + c < n;
-    keep[c] = in_yx[c] && y_keep && x + c >= K && x + c < K + TX;
-    ryx[c] = (y_frozen || gx + c <= b.lo[2] || gx + c >= b.hi[2]) ? 0.0f : r;
+    in_yx[c] = y_in && x + c < rx && gx + c >= 0 && gx + c < n;
+    keep[c] = in_yx[c] && y_keep && x + c >= K && x + c < K + tx;
+    kept |= keep[c] ? 1u << c : 0u;
+  }
+  cells.columns(gy, gx, kept);
+
+  if constexpr (Cells::LANE) {
+    // a lane with no step left: its output cells copied (block-uniform)
+    if (cells.done) {
+#pragma unroll 4
+      for (int q = 0; q < nout; ++q) {
+        const int64_t gz = zs + q;
+        const T* src = in + gz * plane + goff;
+        T* dst = out + gz * plane + goff;
+        float v[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[c] = keep[c] ? load_bits(src + c) : 0.0f;
+        cells.output(gz, v, v, kept);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (keep[c]) store_bits(dst + c, v[c]);
+      }
+      return;
+    }
   }
 
   // The pipeline's state: for each step t < K and cell, step t's values of
@@ -134,8 +252,13 @@ ftcs3d_stream_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t m,
     const int64_t gz = zs - K + p;
     const bool z_in = gz >= 0 && gz < m;
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      next[c] = z_in && in_yx[c] ? load_f(in + gz * plane + goff + c) : 0.0f;
+    for (int c = 0; c < 4; ++c) {
+      const T* src = in + gz * plane + goff + c;
+      if constexpr (Cells::LANE)
+        next[c] = z_in && in_yx[c] ? load_bits(src) : 0.0f;
+      else
+        next[c] = z_in && in_yx[c] ? load_f(src) : 0.0f;
+    }
   };
 
   // One streamed plane p: step 0 takes input plane p, step t computes
@@ -163,7 +286,7 @@ ftcs3d_stream_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t m,
       }
       if (wy < t) continue;  // and so are the later steps
       const int64_t gz = zs - K + p - t;  // global row of the plane computed
-      const bool z_frozen = gz <= b.lo[0] || gz >= b.hi[0];
+      const auto z = cells.row(t, gz);
       // step t-1's plane q (written in the last iteration), at the group
       const float* pl =
           smem + ((t - 1) * 2 + (par ^ 1)) * S::PB + S::GUARD + 4 * tid;
@@ -179,32 +302,13 @@ ftcs3d_stream_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t m,
       float nv[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const float up = older[t - 1][c];  // row-1
-        const float cc = newer[t - 1][c];  // centre
-        const float dn = f[c];             // row+1
         const float left = c == 0 ? cl : newer[t - 1][c == 0 ? 0 : c - 1];
         const float right = c == 3 ? cr : newer[t - 1][c == 3 ? 3 : c + 1];
-        float sum;
-        if (ORDER == ORDER_L1) {
-          sum = dn + up;                   // row+1 + row-1
-          sum = sum + mp[c];               // + mid+1
-          sum = sum + mm[c];               // + mid-1
-        } else {
-          sum = up + dn;                   // row-1 + row+1
-          sum = sum + mm[c];               // + mid-1
-          sum = sum + mp[c];               // + mid+1
-        }
-        sum = sum + left;                  // + col-1
-        sum = sum + right;                 // + col+1
-        const float maskr = z_frozen ? 0.0f : ryx[c];
-        if (UPD == UPD_LAP) {
-          const float lap = __fmaf_rn(-6.0f, cc, sum);
-          nv[c] = __fmaf_rn(maskr, lap, cc);
-        } else {
-          const float decay = __fmaf_rn(-6.0f, maskr, 1.0f);
-          nv[c] = __fmaf_rn(decay, cc, maskr * sum);
-        }
+        // row-1, centre, row+1 (plane q-1, q, q+1), then the in-plane ones
+        nv[c] = cells.cell(z, c, older[t - 1][c], newer[t - 1][c], f[c],
+                           mm[c], mp[c], left, right);
       }
+      if constexpr (Cells::LANE) cells.keep(z, nv, newer[t - 1]);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         older[t - 1][c] = f[c];  // q+1 now; the array holds q-1 next time
@@ -214,9 +318,16 @@ ftcs3d_stream_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t m,
         smem4[((t * 2 + par) * S::PB + S::GUARD) / 4 + tid] =
             make_float4(nv[0], nv[1], nv[2], nv[3]);
       } else {
+        // newer[K - 1] still holds the plane's values before step K
+        cells.output(gz, nv, newer[K - 1], kept);
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (keep[c]) store_f(out + gz * plane + goff + c, nv[c]);
+        for (int c = 0; c < 4; ++c) {
+          if (keep[c]) {
+            T* dst = out + gz * plane + goff + c;
+            if constexpr (Cells::LANE) store_bits(dst, nv[c]);
+            else store_f(dst, nv[c]);
+          }
+        }
       }
     }
     __syncthreads();  // this iteration's planes are written and read
@@ -227,6 +338,18 @@ ftcs3d_stream_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t m,
     iteration(p, 0, sa, sb);
     if (p + 1 < np) iteration(p + 1, 1, sb, sa);
   }
+}
+
+// The solo kernel: k masked steps of one field (ftcs3d.cu, lab3d.cu), on
+// TY x TX tiles and LZ-row segments.
+template <typename T, int ORDER, int UPD, int K, int LZ, int TY, int TX>
+__global__ void __launch_bounds__(Stream<K, TY, TX>::NT,
+                                  Stream<K, TY, TX>::MINB)
+ftcs3d_stream_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t m,
+                     int64_t mid, int64_t n, float r, Bounds b) {
+  SoloCells<ORDER, UPD> cells(r, b);
+  stream3_body<T, K, TY, TX>(cells, in, out, m, mid, n, LZ, TY, TX,
+                             blockIdx.x, blockIdx.y, blockIdx.z);
 }
 
 template <typename T, int ORDER, int UPD, int K, int LZ, int TY, int TX>

@@ -30,10 +30,11 @@ its interpret-mode Pallas lane kernels agree with this form byte for byte
 and with no other (``tests/test_torch_lane_kernels.py`` pins the forms);
 the select keeps a NaN in its own lane and frozen cells' bytes unchanged.
 Because every step rounds, a pass boundary is not a rounding point: the
-kernels pick their own depth per pass (``lanes2d`` up to 8 steps, of the
-16 its kernel takes, with rows streamed through a warp and the steps
-pipelined in registers, its launch geometry mirrored by
-``lanes2d_geometry``; ``lanes3d`` one step per launch).
+kernels pick their own depth per pass, with rows streamed through the
+block and the steps pipelined in registers (``lanes2d`` up to ``PASS_2D``
+steps, of the 16 its kernel takes, its launch geometry mirrored by
+``lanes2d_geometry``; ``lanes3d`` up to ``PASS_3D``, of the 8 its kernel
+takes, mirrored by ``lanes3d_geometry``).
 
 Fused into the chunk's last pass, per lane: the finite bit (AND over the
 whole slab, margin included) and four float32 stats over the request
@@ -80,6 +81,11 @@ K_BOUNDARY = 6
 # whose 16-row halo would dwarf their segments)
 KMAX_2D = 16
 PASS_2D = 8
+# steps per lanes3d launch: at most 8 (csrc/lanes3d.cu LANE_KMAX); a chunk
+# launches at most 4 at a time (PERF.md: the depth sweep at 8 x 258^3 on
+# the H100)
+KMAX_3D = 8
+PASS_3D = 4
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNELS = {2: "lanes2d", 3: "lanes3d"}
@@ -149,6 +155,65 @@ def lanes2d_geometry(L: int, m: int, k: int, slots: int) -> Lanes2dGeometry:
                            (gx, -(-m // lz), L))
 
 
+class Lanes3dGeometry(NamedTuple):
+    """A ``lanes3d`` launch: a block owns a ``tile x tile`` (mid, col)
+    output tile (at most ``tile_max``, the compiled region's, on a side) and
+    a segment of ``seg_rows`` rows of one lane, with ``threads`` threads;
+    the grid is (column tiles x lanes, mid tiles, segments)."""
+
+    tile_max: int
+    tile: int
+    seg_rows: int
+    threads: int
+    grid: Tuple[int, int, int]
+
+
+# csrc/lanes3d.cu: tiles of at most 48 cells a side at k <= 4, 32 above;
+# segments of 8 (LANE_LZMIN) to 1024 (LANE_LZMAX) rows
+_SEG_ROWS_3D = (8, 1024)
+
+
+def _lane_tile_3d(k: int) -> int:
+    return 48 if k <= 4 else 32
+
+
+def _stream3_threads(k: int, tile: int) -> int:
+    """Threads of a block of ``stencil3d_stream.cuh``'s ``Stream<k, tile,
+    tile>``: one per 4 cells of the (tile + 2k)-square region, rows padded
+    to 4 cells, rounded up to whole warps."""
+    side = tile + 2 * k
+    groups = side * (-(-side // 4))
+    return -(-groups // 32) * 32
+
+
+def lanes3d_geometry(L: int, m: int, k: int, slots: int) -> Lanes3dGeometry:
+    """``lanes3d``'s launch geometry for ``L`` lanes of ``m^3`` at depth
+    ``k`` on a card that holds ``slots`` of its blocks at once (the mirror of
+    ``lanes3d_geo`` in ``csrc/lanes3d.cu``): ``ceil(m / tile_max)`` tiles a
+    side, cut to ``ceil(m / tiles)`` cells, and the segment length of
+    ``min(8, m)..min(1024, m)`` rows whose grid, counted in waves of
+    ``slots`` blocks, costs the fewest row-times (waves x (rows + 2k)), the
+    longest of equals."""
+    if not (1 <= k <= KMAX_3D and 3 <= m <= 46341 and 1 <= L <= 65535
+            and slots >= 1):
+        raise ValueError(f"no lanes3d launch for L={L}, m={m}, k={k}, "
+                         f"slots={slots}")
+    tile_max = _lane_tile_3d(k)
+    tiles = -(-m // tile_max)
+    blocks = tiles * tiles * L
+    best, lz = None, 0
+    for rows in range(min(_SEG_ROWS_3D[0], m), min(_SEG_ROWS_3D[1], m) + 1):
+        segs = -(-m // rows)
+        if segs > _MAX_GRID_Y:
+            continue
+        cost = -(-(blocks * segs) // slots) * (rows + 2 * k)
+        if best is None or cost <= best:
+            best, lz = cost, rows
+    return Lanes3dGeometry(tile_max, -(-m // tiles), lz,
+                           _stream3_threads(k, tile_max),
+                           (tiles * L, tiles, -(-m // lz)))
+
+
 def lane_kernel_available(ndim: int, dtype) -> bool:
     """True where a lane kernel serves the bucket: f32 and bf16, 2D and 3D
     (the counterpart of the reference's ``lane_kernel_available``; every
@@ -157,9 +222,10 @@ def lane_kernel_available(ndim: int, dtype) -> bool:
 
 
 def passes(ndim: int, ksteps: int, depth: int = 0) -> list:
-    """Steps of each kernel launch in a ``ksteps``-step chunk: lanes2d runs
-    up to ``depth`` (by default ``PASS_2D``, 8) per launch, lanes3d one."""
-    cap = (depth or PASS_2D) if ndim == 2 else 1
+    """Steps of each kernel launch in a ``ksteps``-step chunk: up to
+    ``depth`` per launch, by default ``PASS_2D`` (8) in 2D and ``PASS_3D``
+    (4) in 3D."""
+    cap = depth or (PASS_2D if ndim == 2 else PASS_3D)
     return [min(cap, ksteps - d) for d in range(0, ksteps, cap)]
 
 
@@ -298,8 +364,8 @@ def write_boundary(boundary: torch.Tensor, remaining: torch.Tensor,
 
 def _kernel_fn(name: str, export: str = ""):
     """``heat_<name>`` (or ``export``, an export of the same signature: the
-    band design ``heat_lanes2d_band``) from the built library, with its C
-    signature."""
+    earlier designs ``heat_lanes2d_band`` and ``heat_lanes3d_step``) from the
+    built library, with its C signature."""
     from . import _build
 
     lib = _build.load(name)
@@ -307,15 +373,18 @@ def _kernel_fn(name: str, export: str = ""):
         p, i = ctypes.c_void_p, ctypes.c_int
         # dtype, in, out, L, m, r, n, rem, k, offset, bc_lo, rem_out,
         # boundary, ktotal, stream
-        for fn_name in (f"heat_{name}", "heat_lanes2d_band"):
+        for fn_name in (f"heat_{name}", "heat_lanes2d_band",
+                        "heat_lanes3d_step"):
             if hasattr(lib, fn_name):
                 fn = getattr(lib, fn_name)
                 fn.restype = ctypes.c_int
                 fn.argtypes = [i, p, p, i, i, p, p, p, i, i, i, p, p, i, p]
-        if hasattr(lib, "heat_lanes2d_geometry"):
-            lib.heat_lanes2d_geometry.restype = ctypes.c_int
-            lib.heat_lanes2d_geometry.argtypes = [
-                i, i, i, i, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
+        for fn_name in ("heat_lanes2d_geometry", "heat_lanes3d_geometry"):
+            if hasattr(lib, fn_name):
+                fn = getattr(lib, fn_name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [i, i, i, i, ctypes.c_int64,
+                               ctypes.POINTER(ctypes.c_int64)]
         lib.heat_cuda_error_string.restype = ctypes.c_char_p
         lib.heat_cuda_error_string.argtypes = [i]
         lib._heat_typed = True
@@ -339,11 +408,28 @@ def compiled_lanes2d_geometry(dtype, L: int, m: int,
     return Lanes2dGeometry(v[0], v[1], v[2], v[3], (v[4], v[5], v[6])), v[7]
 
 
+def compiled_lanes3d_geometry(dtype, L: int, m: int,
+                              k: int) -> Tuple[Lanes3dGeometry, int]:
+    """The geometry ``heat_lanes3d`` launches with (its C export
+    ``heat_lanes3d_geometry``) and the card's resident blocks of the
+    instance it was sized for. Needs the card's build; ``chip_smoke.py``
+    holds ``lanes3d_geometry`` to it."""
+    lib, _ = _kernel_fn("lanes3d")
+    geo = (ctypes.c_int64 * 8)()
+    err = lib.heat_lanes3d_geometry(_KERNEL_DTYPES[_as_torch_dtype(dtype)], L,
+                                    m, k, 0, geo)
+    if err:
+        raise RuntimeError(f"heat_lanes3d_geometry: "
+                           f"{lib.heat_cuda_error_string(err).decode()}")
+    v = list(geo)
+    return Lanes3dGeometry(v[0], v[1], v[2], v[3], (v[4], v[5], v[6])), v[7]
+
+
 def _launch_passes(lib, fn, label: str, fields, spare, r, n, rem, rem_out,
                    boundary, ksteps: int, bc_lo: int, count: bool,
                    depth: int = 0):
     """The chunk's kernel passes through ``fn`` (``passes()``' depths, up to
-    ``depth`` steps a launch in 2D), ping-ponging ``fields`` and ``spare``;
+    ``depth`` steps a launch), ping-ponging ``fields`` and ``spare``;
     returns the post-chunk stack. Adds one to ``launches[label]`` per
     launch where ``count``."""
     nd = fields.dim() - 1

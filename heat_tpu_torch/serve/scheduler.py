@@ -290,6 +290,7 @@ class _GroupRunner:
         outer = self.outer
         outer.chunks_dispatched += 1
         if self._kernel_name is not None:
+            outer.lane_chunks[self._kernel_name] += 1
             outer.lane_passes[(self._kernel_name, self.key.n,
                                self.key.dtype)] += len(
                 cuda_lanes.passes(self.key.ndim, k))
@@ -467,6 +468,7 @@ class Engine:
         self.tail_chunks = 0
         self.lane_passes = collections.Counter()  # kernel launches the
                         # dispatched chunks cost, by (kernel, bucket, dtype)
+        self.lane_chunks = collections.Counter()  # those chunks, by kernel
         self.boundary_waits = 0
         self.boundary_wait_s = 0.0   # host wall blocked on boundary fetches
         self.device_idle_s = 0.0     # est. device idle: per-group gaps with
@@ -785,8 +787,9 @@ class Engine:
         kernels are built once per checkout, ``compile_s`` is the time to
         load them). The observatories' own keys are left out (ROADMAP).
         The port adds ``lane_passes``, the lane kernel launches that the
-        dispatched chunks cost by kernel, and ``lane_passes_by_bucket``,
-        the same by ``"<kernel> <bucket side> <dtype>"``."""
+        dispatched chunks cost by kernel, ``lane_passes_by_bucket``, the
+        same by ``"<kernel> <bucket side> <dtype>"``, and ``lane_chunks``,
+        those chunks by kernel."""
         with self._lock:
             by_status = collections.Counter(r["status"] for r in self._records)
             by_placement = collections.Counter(
@@ -806,6 +809,7 @@ class Engine:
                 "lane_passes_by_bucket": {
                     f"{name} {n} {dtype}": count for (name, n, dtype), count
                     in sorted(self.lane_passes.items())},
+                "lane_chunks": dict(self.lane_chunks),
                 "placement": dict(by_placement),
                 "mega_lanes": 0,
                 "queued_now": queued,

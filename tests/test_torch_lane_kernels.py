@@ -70,7 +70,7 @@ def _assert_same(got, want_fields, want_fin, want_stats):
 
 
 _GRID = [(nd, B, dtype, bc, k)
-         for nd, buckets in ((2, (12, 16)), (3, (8,)))
+         for nd, buckets in ((2, (12, 16)), (3, (8, 33)))
          for B in buckets
          for dtype in ("float32", "bfloat16")
          for bc in ("edges", "ghost")
@@ -235,7 +235,63 @@ def test_availability_and_pass_schedule():
     assert cl.passes(2, 37) == [8, 8, 8, 8, 5]
     assert cl.passes(2, 16) == [8, 8]
     assert cl.passes(2, 4) == [4]
-    assert cl.passes(3, 4) == [1, 1, 1, 1]
+    assert cl.passes(3, 4) == [4]
+    assert cl.passes(3, 16) == [4, 4, 4, 4]
+    assert cl.passes(3, 37) == [4] * 9 + [1]
+    assert cl.passes(3, 16, 1) == [1] * 16
+
+
+_QNAN = {"float32": (torch.int32, 0x7FC00001), "bfloat16": (torch.int16, 0x7FC1)}
+
+
+def _depth_case(dtype):
+    """A 3D stack of B = 8 whose lanes take, in a 16-step chunk: steps past
+    the chunk; n < B with NaNs of a payload no kernel computes at the live
+    region's edge (read by live cells under ghost BC) and in a cell two
+    rows past it (kept: its bytes must survive); a countdown that ends
+    inside a 4-step and inside an 8-step pass; none left; a NaN in the
+    centre that spreads."""
+    B, m = 8, 10
+    f = np.random.default_rng(7).uniform(1, 2, (5, m, m, m)).astype(np.float32)
+    f[4, 1 + B // 2, 1 + B // 2, 1 + B // 2] = np.nan
+    T = torch.from_numpy(f).to(_TORCH[dtype])
+    n = torch.tensor([B, B - 3, B, B, B], dtype=torch.int32)
+    rem = torch.tensor([20, 17, 6, 0, 16], dtype=torch.int32)
+    itype, payload = _QNAN[dtype]
+    for row in (B - 3 + 1, B - 3 + 3):
+        T.view(itype)[1, row, 3, 4] = payload
+    r = torch.tensor([1 / 6, 0.15, 0.1, 1 / 6, 0.15], dtype=torch.float32)
+    return T, r, n, rem
+
+
+def _in_passes(T, r, n, rem, depths, bc_lo):
+    """A 16-step chunk as the kernel runs it: passes of the given depths,
+    each gated from its offset in the chunk; the last pass's finite bits
+    and stats."""
+    off = 0
+    for k in depths:
+        T, fin, stats = cl.lane_multistep_3d_plain(T, r, n, rem - off, k, bc_lo)
+        off += k
+    return T, fin, stats
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bc", ["edges", "ghost"])
+def test_pass_depth_does_not_change_bytes(dtype, bc):
+    """Every step rounds to storage, so where a chunk is cut into passes is
+    no rounding point: [16], [8, 8], [4, 4, 4, 4] and [1] * 16 give the same
+    bytes (NaN payloads included), finite bits and stats."""
+    T, r, n, rem = _depth_case(dtype)
+    itype = _QNAN[dtype][0]
+    want = _in_passes(T, r, n, rem, [16], _BC_LO[bc])
+    kept = T.view(itype)[1, 8, 3, 4]
+    assert torch.equal(want[0].view(itype)[1, 8, 3, 4], kept)
+    assert not bool(want[1][4]) and bool(want[1][0])
+    for depths in ([8, 8], [4] * 4, [1] * 16):
+        got = _in_passes(T, r, n, rem, depths, _BC_LO[bc])
+        assert torch.equal(got[0].view(itype), want[0].view(itype)), depths
+        assert torch.equal(got[1], want[1]), depths
+        np.testing.assert_array_equal(got[2].numpy(), want[2].numpy())
 
 
 @pytest.mark.parametrize("nd, m, itemsize, k, by", [
