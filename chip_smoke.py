@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of heat_tpu_torch: builds the CUDA kernels, holds them
 against their plain PyTorch versions byte for byte, drives the ``run`` path
-at the shipped sizes in 2D and 3D, the ``serve`` path and the kernel lab,
-and checks the answer against the serial oracle.
+at the shipped sizes in 2D and 3D, the ``serve`` path, the kernel lab and
+the ``sharded`` backend, and checks the answer against the serial oracle.
 
 Usage, from the repository root on a host with one CUDA card::
 
@@ -149,6 +149,39 @@ a checkout of the repository, it exits non-zero and prints no result):
    version timed once at its shape and held to the kernel's bytes. Prints
    each row's ms per pass, its bound, the plain version's ms and the
    shipped kernel's ms at the same shape, dtype and depth.
+
+7. the sharded backend (``--backend sharded``), its main path through
+   ``heat_tpu_torch.cli.main(["run", "--backend", "sharded", ...])`` with
+   the launch counts zeroed just before and read just after:
+   ``configs/hip.dat`` (32768^2, sigma 0.25, the ``hip`` preset in f32
+   since f64 has no kernel, ntime cut to 128, no heartbeat) on 2x2 shards
+   in this process (``--virtual-devices 4 --mesh 2x2``), ``--comm staged``
+   then ``direct``, and 512^3 f32 at sigma 1/6 on 2x2x1 shards for 64
+   steps under edges and ghost BC: each field against the single-device
+   ``cuda`` run of the same config, bytes, and ``ftcs2d``/``ftcs3d``
+   launches equal to shards x passes (the reference's passes at the
+   padded shard shape, kf from ``fuse_depth_sharded``); at 8192^2 on 2x2
+   shards, seq = indep, staged = direct and the parity order (IC start) =
+   the default order (both on the torch step), bytes; bf16 at 8192^2 and
+   256^3 through the kernels against the same sharded path on the plain
+   bounded version on the card, bytes; ``ftcs_multistep_bounded_cuda``
+   with the bounds of a corner, an edge and an inner shard (2D 3x3 shards
+   of 6144^2, 3D 3x3x3 of 384^3), f32/bf16, edges/ghost, at kf and kf - 3,
+   owned cells against the plain version, bytes; the multi-process
+   worlds at 2048^2 (``launch -n 2 -- run ... --comm staged --mesh 2x1``
+   over gloo, the two ranks sharing the card, and ``launch -n 1 ...
+   --comm direct``, a 1-rank NCCL world): their ``soln.dat`` and
+   ``soln#####.dat`` files and gsum equal to ``--virtual-devices 2`` in
+   this process; ``launch -n 2 ... --comm direct`` refuses, naming
+   ``--comm staged``. Prints points/s of every sharded run beside the
+   single-device run, one exchange's ms (CUDA events around the exchange
+   alone) and the bytes the shards receive, direct and staged, at the
+   main path's shard shapes, and each kernel's ms per pass at a corner
+   shard's shape beside its plain version and bound.
+
+``python3 chip_smoke.py --worlds`` on a host with several cards builds the
+kernels and runs only ``phase_worlds``: worlds of one rank per card,
+direct (NCCL) and staged, against the same shards in one process.
 
 The last two lines: the ``nvidia-smi`` line is printed before a JSON
 object with one entry per kernel and main-path shape, and the very last
@@ -551,10 +584,10 @@ def phase_times():
     return times
 
 
-def cli_run(input_dat: str, *args):
-    """One ``run --backend cuda`` through the CLI entry point in WORK, with
-    ``input_dat`` as its input.dat; the launch counts zeroed just before and
-    read just after. Returns (stdout, launches)."""
+def cli_run(input_dat: str, *args, backend: str = "cuda"):
+    """One ``run --backend <backend>`` through the CLI entry point in WORK,
+    with ``input_dat`` as its input.dat; the launch counts zeroed just
+    before and read just after. Returns (stdout, launches)."""
     from heat_tpu_torch import cli
     from heat_tpu_torch.ops import cuda_stencil as cs
 
@@ -565,7 +598,7 @@ def cli_run(input_dat: str, *args):
     try:
         cs.reset_launches()
         with contextlib.redirect_stdout(buf):
-            rc = cli.main(["run", "--backend", "cuda", *args])
+            rc = cli.main(["run", "--backend", backend, *args])
         launches = dict(cs.launches)
     finally:
         os.chdir(cwd)
@@ -1646,6 +1679,421 @@ def phase_lab(smi):
     return rows, launches
 
 
+# phase 7: configs/hip.dat (32768^2, sigma 0.25) with ntime cut to 128, and
+# a 2048^2 cut of it for the multi-process worlds (soln files at 2048^2)
+HIP_DAT = "32768 0.25 0.05 1.0 128 0\n"
+HIP_ARGS = ("--variant", "hip", "--dtype", "float32", "--heartbeat-every",
+            "0", "--json", "--report-sum")
+SMALL_HIP = dict(sigma=0.25, nu=0.05, dom_len=1.0, ic="uniform", bc="ghost",
+                 backend="sharded")
+
+
+@contextlib.contextmanager
+def captured_solves():
+    """The SolveResult of every solve the CLI runs inside the block."""
+    from heat_tpu_torch import backends
+
+    got, real = [], backends.solve
+
+    def spy(*a, **kw):
+        got.append(real(*a, **kw))
+        return got[-1]
+
+    backends.solve = spy
+    try:
+        yield got
+    finally:
+        backends.solve = real
+
+
+def ndiff_bits(a, b) -> int:
+    """Cells whose bits differ between two host fields (bf16 widened to f32
+    exactly on fetch, so f32 bits compare both)."""
+    import numpy as np
+
+    check(a.shape == b.shape and a.dtype == b.dtype, "field shapes differ")
+    return int(np.count_nonzero(a.view(np.uint32) != b.view(np.uint32)))
+
+
+def sharded_launches(n, mesh, dtype, ntime, kf) -> tuple:
+    """(timed, warm-up) kernel launches of a sharded run with no heartbeat:
+    every shard runs ntime // kf blocks of kf steps and one of the
+    remainder, each cut into the reference's passes at the padded shard
+    shape; the warm-up makes each distinct block once."""
+    from heat_tpu_torch.ops import pass_schedule
+
+    padded = [n // m + 2 * kf for m in mesh]
+    shards = 1
+    for m in mesh:
+        shards *= m
+    n_fused, rem = divmod(ntime, kf)
+    full = len(pass_schedule.passes(padded, dtype, kf))
+    part = len(pass_schedule.passes(padded, dtype, rem)) if rem else 0
+    return (shards * (n_fused * full + part),
+            shards * ((full if n_fused else 0) + part))
+
+
+def sharded_main_path(key, input_dat, args, n, mesh, dtype, ntime, smi):
+    """One sharded run through the CLI (launch counts zeroed just before
+    and read just after); checks the kernel and its launches."""
+    name = "ftcs2d" if len(mesh) == 2 else "ftcs3d"
+    print(f"[phase 7] run --backend sharded {key}")
+    with captured_solves() as got:
+        out, launches = cli_run(input_dat, *args, backend="sharded")
+    res = got[-1]
+    rec = json.loads(out.strip().splitlines()[-1])
+    check(rec["kernel"] == f"cuda {name}", f"kernel {rec['kernel']}")
+    check(rec["launches"] == launches, "launch count mismatch")
+    timed, warm = sharded_launches(n, mesh, dtype, ntime, rec["kf"])
+    check(launches[name] == timed + warm,
+          f"{launches[name]} {name} launches, expected {timed + warm}")
+    print(f"  {key}: {rec['points_per_s']:.6g} points/s, kf {rec['kf']}, "
+          f"{rec['exchanges']} exchanges, {launches[name]} {name} launches "
+          f"({timed} timed + {warm} warm-up) on {smi}")
+    return rec, res
+
+
+def single_run(input_dat, args):
+    """The single-device cuda run of the same config: (record, result)."""
+    with captured_solves() as got:
+        out, _ = cli_run(input_dat, *args)
+    return json.loads(out.strip().splitlines()[-1]), got[-1]
+
+
+def launch_world(where: Path, input_dat: str, n: int, *args):
+    """``python -m heat_tpu_torch launch -n <n> -- run ...`` in ``where``."""
+    where.mkdir(parents=True, exist_ok=True)
+    (where / "input.dat").write_text(input_dat)
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    return subprocess.run(
+        [sys.executable, "-m", "heat_tpu_torch", "launch", "-n", str(n),
+         "--deadline", "300", "--", "run", "--backend", "sharded", *args],
+        cwd=where, env=env, capture_output=True, text=True, timeout=400)
+
+
+def phase_sharded(smi):
+    """Phase 7, the sharded backend: hip.dat at full width (2x2 shards on
+    the one card, staged and direct) and 512^3 (2x2x1) against the
+    single-device cuda runs, bytes; the formulations at 8192^2; bf16
+    against the plain bounded version on the card; the bounded kernels
+    with shard bounds; the multi-process worlds; exchange times."""
+    import functools
+    import itertools
+    from unittest import mock
+
+    import torch
+
+    from heat_tpu_torch import HeatConfig, solve
+    from heat_tpu_torch.backends import sharded
+    from heat_tpu_torch.machine import device_model
+    from heat_tpu_torch.ops import cuda_stencil as cs
+    from heat_tpu_torch.ops import pass_schedule
+    from heat_tpu_torch.parallel import comm as pcomm
+    from heat_tpu_torch.parallel import halo, mesh as pmesh
+    from heat_tpu_torch.utils import torch_dtype
+
+    t0 = time.perf_counter()
+    out = {"runs": {}, "times": {}, "kernels": {}}
+    main = {}   # main-path run -> (config, mesh, kf)
+
+    # 1. hip.dat, f32 (f64 has no kernel), 128 steps: 2x2 shards, staged
+    # then direct, against the single-device cuda run, bytes
+    rec1, single = single_run(HIP_DAT, HIP_ARGS)
+    T_ref = single.T
+    del single
+    torch.cuda.empty_cache()
+    print(f"  32768^2 f32 single-device cuda: {rec1['points_per_s']:.6g} "
+          f"points/s on {smi}")
+    out["runs"]["32768 single"] = rec1
+    for comm in ("staged", "direct"):
+        rec, res = sharded_main_path(
+            f"32768^2 f32 2x2 {comm}", HIP_DAT,
+            HIP_ARGS + ("--virtual-devices", "4", "--mesh", "2x2", "--comm",
+                        comm), 32768, (2, 2), "float32", 128, smi)
+        nd = ndiff_bits(res.T, T_ref)
+        print(f"  32768^2 2x2 {comm}: {nd} cells differ from the "
+              f"single-device run, gsum {rec['gsum']!r} vs {rec1['gsum']!r}")
+        check(nd == 0 and rec["gsum"] == rec1["gsum"],
+              f"32768^2 2x2 {comm} is not the single-device field")
+        out["runs"][f"32768 2x2 {comm}"] = rec
+        main[f"32768 2x2 {comm}"] = (res.cfg, res.mesh_shape, rec["kf"])
+        del res
+        torch.cuda.empty_cache()
+    del T_ref
+
+    # 2. 512^3 f32 at sigma 1/6, 2x2x1 shards, 64 steps, edges and ghost
+    dat3 = f"512 {SIGMA_3D!r} 0.05 2.0 64\n"
+    for bc in ("edges", "ghost"):
+        args = ("--ndim", "3", "--bc", bc, "--dtype", "float32", "--json",
+                "--report-sum")
+        rec_s, single = single_run(dat3, args)
+        rec, res = sharded_main_path(
+            f"512^3 f32 2x2x1 {bc}", dat3,
+            args + ("--virtual-devices", "4", "--mesh", "2x2x1"), 512,
+            (2, 2, 1), "float32", 64, smi)
+        nd = ndiff_bits(res.T, single.T)
+        print(f"  512^3 2x2x1 {bc}: {nd} cells differ from the single-device "
+              f"run ({rec_s['points_per_s']:.6g} points/s)")
+        check(nd == 0, f"512^3 2x2x1 {bc} is not the single-device field")
+        out["runs"][f"512^3 2x2x1 {bc}"] = rec
+        out["runs"][f"512^3 single {bc}"] = rec_s
+        main[f"512^3 2x2x1 {bc}"] = (res.cfg, res.mesh_shape, rec["kf"])
+        del res, single
+        torch.cuda.empty_cache()
+
+    # 3. the formulations at 8192^2, 64 steps: staged = direct, the
+    # parity order (IC start) = the default order (both on the torch
+    # step, the order the parity path computes in)
+    cfg = HeatConfig(n=8192, ntime=64, dtype="float32", mesh_shape=(2, 2),
+                     **SMALL_HIP)
+
+    def field_of(c, **kw):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return solve(c, virtual_devices=4, **kw).T
+
+    nd = ndiff_bits(field_of(cfg.with_(comm="staged")), field_of(cfg))
+    print(f"  8192^2 2x2 staged vs direct: {nd} cells differ")
+    check(nd == 0, "8192^2 staged differs from direct")
+    torch_base = field_of(cfg.with_(local_kernel="torch"))
+    nd = ndiff_bits(field_of(cfg.with_(local_kernel="torch",
+                                       parity_order=True)), torch_base)
+    print(f"  8192^2 2x2 parity order vs default order (torch step): {nd} "
+          f"cells differ")
+    check(nd == 0, "parity order (IC start) differs from the default order")
+    del torch_base
+
+    # 4. bf16 through the kernel against the same sharded path on the
+    # plain bounded version on the card
+    plain = functools.partial(cs.ftcs_multistep_bounded_cuda, plain=True)
+    for c in (cfg.with_(dtype="bfloat16"),
+              HeatConfig(n=256, ndim=3, sigma=SIGMA_3D, ntime=64,
+                         dtype="bfloat16", mesh_shape=(2, 2, 1),
+                         bc="ghost", backend="sharded")):
+        cs.reset_launches()
+        got = field_of(c)
+        name = cs._KERNELS[c.ndim]
+        check(cs.launches[name] > 0, f"bf16 {c.n} never launched {name}")
+        with mock.patch.object(sharded, "ftcs_multistep_bounded_cuda", plain):
+            cs.reset_launches()
+            want = field_of(c)
+            check(cs.launches[name] == 0, "the plain path launched")
+        nd = ndiff_bits(got, want)
+        print(f"  {c.n}^{c.ndim} bf16 {'x'.join(map(str, c.mesh_shape))}: "
+              f"kernel vs plain bounded version, {nd} cells differ")
+        check(nd == 0, f"bf16 {c.n}^{c.ndim} kernel != plain")
+        del got, want
+
+    # 5. the bounded kernels with shard bounds, corner / edge / inner
+    # shards of 3-wide meshes, at kf and at a remainder depth: owned cells
+    # (the margins read outside the array, zeros in the kernel, wrapped in
+    # the plain version) compared bit for bit
+    ncase = 0
+
+    def agree(key, T, r, k, b, owned):
+        """The kernel against its plain version on one shard: (max abs
+        error on the owned cells, the plain call's ms)."""
+        got = cs.ftcs_multistep_bounded_cuda(T, r, k, b)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        want = cs.ftcs_multistep_bounded_cuda(T, r, k, b, plain=True)
+        e1.record()
+        torch.cuda.synchronize()
+        g, w = got[owned], want[owned]
+        diff = int((bits(g) != bits(w)).sum())
+        check(diff == 0, f"{key} {list(T.shape)} {dt_name(T.dtype)} k={k} "
+                         f"bounds {b}: {diff} differ")
+        return float((g.float() - w.float()).abs().max()), e0.elapsed_time(e1)
+
+    for nd_, n, mesh in ((2, 6144, (3, 3)), (3, 384, (3, 3, 3))):
+        name = cs._KERNELS[nd_]
+        r = 0.2 if nd_ == 2 else 0.15
+        for dt in (torch.float32, torch.bfloat16):
+            kf = sharded.fuse_depth_sharded(
+                HeatConfig(n=n, ndim=nd_, dtype=str(dt).replace("torch.", "")),
+                mesh)
+            padded = [n // m + 2 * kf for m in mesh]
+            owned = tuple(slice(kf, -kf) for _ in mesh)
+            for role, coords in (("corner", (0,) * nd_),
+                                 ("edge", (0,) + (1,) * (nd_ - 1)),
+                                 ("inner", (1,) * nd_)):
+                for bc in ("edges", "ghost"):
+                    for k in (kf, kf - 3):
+                        b = sharded.shard_bounds(bc, coords, mesh, padded, kf)
+                        T = field(padded, dt, seed=ncase)
+                        agree(f"{name} {role} {bc}", T, r, k, b, owned)
+                        ncase += 1
+                        del T
+    print(f"  {ncase} bounded kernel-vs-plain cases at shard shapes, 0 "
+          f"differing bytes")
+
+    # 5b. the main path's own shards: each run's padded shard shape, its
+    # kf, every pass depth the run cuts kf into, its r and BC, the bounds
+    # of each of its shards and of an edge and an inner shard of a 3-wide
+    # mesh; the kernel row of phase 7 takes its error from these cases
+    # and its plain time from the run's first shard at the deepest pass
+    nmain, seen = 0, set()
+    for key, (c, mesh, kf) in main.items():
+        name = cs._KERNELS[c.ndim]
+        padded = [c.n // m + 2 * kf for m in mesh]
+        if (tuple(padded), c.bc, c.r, c.dtype) in seen:
+            continue    # staged and direct: the same shards
+        seen.add((tuple(padded), c.bc, c.r, c.dtype))
+        depths = sorted(set(pass_schedule.passes(padded, c.dtype, kf)),
+                        reverse=True)
+        owned = tuple(slice(kf, -kf) for _ in mesh)
+        wide = (3,) * c.ndim
+        roles = ([(mesh, co) for co in itertools.product(
+                     *(range(m) for m in mesh))]
+                 + [(wide, (0,) + (1,) * (c.ndim - 1)), (wide, (1,) * c.ndim)])
+        T = field(padded, torch_dtype(c.dtype), seed=nmain)
+        row = out["kernels"].setdefault((name, tuple(padded)), dict(
+            key=key, kf=kf, k=depths[0], r=c.r, err=0.0,
+            bounds=sharded.shard_bounds(c.bc, (0,) * c.ndim, mesh, padded,
+                                        kf)))
+        for k in depths:
+            for m, co in roles:
+                b = sharded.shard_bounds(c.bc, co, m, padded, kf)
+                err, plain_ms = agree(f"{key} shard {co} of {m}", T, c.r, k,
+                                      b, owned)
+                row["err"] = max(row["err"], err)
+                if row["key"] == key and k == depths[0] and b == row["bounds"]:
+                    row["plain_ms"] = plain_ms
+                nmain += 1
+        del T
+        torch.cuda.empty_cache()
+        print(f"  {key}: kernel = plain version on {len(roles)} shards' "
+              f"bounds at {'x'.join(map(str, padded))}, kf {kf}, pass depths "
+              f"{depths}, r {c.r!r}, {c.bc} BC")
+    print(f"  {nmain} main-path shard cases, 0 differing bytes")
+
+    # 6. the multi-process worlds at 2048^2: launch -n 2 staged over gloo
+    # (two ranks share the card), launch -n 1 direct (a 1-rank NCCL
+    # world), against --virtual-devices 2 in this process; launch -n 2
+    # direct must refuse (NCCL puts one rank on one GPU)
+    dat = "2048 0.25 0.05 1.0 64 1\n"
+    args = ("--variant", "hip", "--dtype", "float32", "--heartbeat-every",
+            "0", "--json", "--report-sum")
+    out_l, _ = cli_run(dat, *args, "--virtual-devices", "2", "--mesh", "2x1",
+                       "--comm", "staged", backend="sharded")
+    rec_l = json.loads(out_l.strip().splitlines()[-1])
+    local = WORK / "mp_local"
+    local.mkdir()
+    for f in WORK.glob("soln*.dat"):
+        f.rename(local / f.name)
+    for key, n_proc, extra in (("2 ranks staged", 2, ("--mesh", "2x1",
+                                                      "--comm", "staged")),
+                               ("1 rank direct", 1, ("--comm", "direct"))):
+        where = WORK / f"mp_{n_proc}"
+        t_w = time.perf_counter()
+        proc = launch_world(where, dat, n_proc, *args, *extra)
+        print("".join(f"    | {line}\n" for line in
+                      proc.stdout.splitlines()[-4:]), end="")
+        check(proc.returncode == 0,
+              f"launch {key} rc {proc.returncode}: {proc.stderr[-2000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(rec["kernel"] == "cuda ftcs2d" and rec["launches"]["ftcs2d"] > 0,
+              f"launch {key} ran {rec['kernel']}")
+        names = ["soln.dat"] + (["soln00000.dat", "soln00001.dat"]
+                                if n_proc == 2 else [])
+        same = all((where / f).read_bytes() == (local / f).read_bytes()
+                   for f in names)
+        print(f"  launch {key}: gsum {rec['gsum']!r} (in-process "
+              f"{rec_l['gsum']!r}), {', '.join(names)} equal: {same}, "
+              f"{rec['points_per_s']:.6g} points/s, "
+              f"{time.perf_counter() - t_w:.1f} s with start-up")
+        check(same and rec["gsum"] == rec_l["gsum"],
+              f"launch {key} differs from the in-process run")
+        out["runs"][f"2048 launch {key}"] = rec
+    proc = launch_world(WORK / "mp_direct2", dat, 2, *args, "--mesh", "2x1",
+                        "--comm", "direct")
+    refused = proc.returncode != 0 and "--comm staged" in proc.stderr
+    print(f"  launch 2 ranks direct on one card: rc {proc.returncode}, "
+          f"refused naming --comm staged: {refused}")
+    check(refused, "launch -n 2 --comm direct did not refuse")
+
+    # 7. times: one exchange alone (CUDA events) at the main path's shard
+    # shapes and kf, and each kernel's deepest pass at its shard shape
+    dm = device_model(0)
+    for key in ("32768 2x2 direct", "512^3 2x2x1 ghost"):
+        c, mesh, kf = main[key]
+        for comm in ("direct", "staged"):
+            lc = pcomm.LocalComm(pmesh.RankMesh(mesh), "cuda",
+                                 staged=comm == "staged")
+            shards = [torch.zeros([c.n // m + 2 * kf for m in mesh],
+                                  device="cuda") for _ in range(lc.mesh.size)]
+            ms = event_ms(lambda: halo.halo_exchange(shards, lc, 1.0,
+                                                     width=kf), 10)
+            per = lc.stats["bytes"] / lc.stats["exchanges"]
+            out["times"][f"exchange {key} {comm}"] = dict(ms=ms, bytes=per)
+            print(f"  one {comm} exchange at {key} (kf {kf}): {ms:.4f} ms, "
+                  f"{per:.0f} bytes received by the shards, on {smi}")
+            del shards
+    for (name, shape), t in out["kernels"].items():
+        A = field(shape, torch.float32, seed=3)
+        B = torch.empty_like(A)
+        ms = event_ms(lambda: cs._launch(A, t["r"], t["k"], t["bounds"], B),
+                      20)
+        bound_s, bound_by = dm.pass_bound_s(A.numel(), 4, t["k"],
+                                            ndim=len(shape))
+        t.update(ms=ms, bound_ms=bound_s * 1e3, bound_by=bound_by)
+        print(f"  {name} {'x'.join(map(str, shape))} f32 k={t['k']} (shard "
+              f"(0, ...) of {t['key']}): {ms:.4f} ms/pass (plain "
+              f"{t['plain_ms']:.2f} ms, bound {bound_s * 1e3:.4f} ms by "
+              f"{bound_by}, {bound_s * 1e3 / ms:.1%} of it) on {smi}")
+        del A, B
+        torch.cuda.empty_cache()
+    print(f"[phase 7] sharded backend done ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def phase_worlds():
+    """``python3 chip_smoke.py --worlds``, on a host with several cards:
+    worlds of one rank per card (``launch -n <cards> -- run --backend
+    sharded``), ``--comm direct`` (NCCL point to point between the cards)
+    and ``--comm staged`` (gloo through host memory), each against the
+    same shards in one process (``--virtual-devices <cards>``: shard i on
+    card i, slabs copied between the cards): soln files and gsum equal.
+    A periodic 2D mesh of size 2 per axis sends both of a rank's slabs to
+    one peer, the case NCCL must match in order."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    check(cards >= 2, f"--worlds needs several cards, found {cards}")
+    cases = (("1024 0.2 0.05 2.0 37 1\n", ("--bc", "periodic")),
+             ("1024 0.2 0.05 2.0 37 1\n", ("--bc", "ghost", "--dtype",
+                                            "bfloat16", "--exchange", "seq",
+                                            "--mesh", f"{cards}x1")),
+             ("128 0.15 0.05 2.0 21 1\n", ("--ndim", "3", "--bc", "edges")))
+    common = ("--dtype", "float32", "--heartbeat-every", "0", "--json",
+              "--report-sum")
+    for i, (dat, args) in enumerate(cases):
+        args = common + args
+        out, _ = cli_run(dat, *args, "--virtual-devices", str(cards),
+                         backend="sharded")
+        local_rec = json.loads(out.strip().splitlines()[-1])
+        local = WORK / f"worlds_local_{i}"
+        local.mkdir()
+        for f in WORK.glob("soln*.dat"):
+            f.rename(local / f.name)
+        names = sorted(f.name for f in local.iterdir())
+        check(len(names) == cards + 1, f"{len(names)} soln files")
+        for comm in ("direct", "staged"):
+            where = WORK / f"worlds_{comm}_{i}"
+            proc = launch_world(where, dat, cards, *args, "--comm", comm)
+            check(proc.returncode == 0,
+                  f"launch {comm} rc {proc.returncode}: {proc.stderr[-2000:]}")
+            rec = json.loads(proc.stdout.strip().splitlines()[-1])
+            same = all((where / f).read_bytes() == (local / f).read_bytes()
+                       for f in names)
+            print(f"[worlds] {' '.join(args[len(common):])}: {cards} ranks "
+                  f"{comm}, mesh {rec['mesh']}, kernel {rec['kernel']}, "
+                  f"gsum {rec['gsum']!r} (one process {local_rec['gsum']!r}), "
+                  f"{len(names)} soln files equal: {same}")
+            check(same and rec["gsum"] == local_rec["gsum"]
+                  and rec["kernel"].startswith("cuda ftcs"),
+                  f"the {comm} world differs from one process")
+
+
 def main() -> int:
     import torch
 
@@ -1661,6 +2109,14 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir()
     t0 = time.perf_counter()
+    if sys.argv[1:] == ["--worlds"]:
+        try:
+            phase_build()
+            phase_worlds()
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        print(f"chip_smoke --worlds: ok in {time.perf_counter() - t0:.1f} s")
+        return 0
     try:
         phase_build()
         errs = phase_compare()
@@ -1672,6 +2128,7 @@ def main() -> int:
         serve = phase_serve(smi)
         lab_errs = phase_lab_compare()
         lab_rows, lab_launches = phase_lab(smi)
+        shard = phase_sharded(smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
@@ -1743,6 +2200,22 @@ def main() -> int:
             max_abs_err=lab_errs[lkey], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=None, shipped_ms=row["shipped_ms"]))
+    # the sharded main path (phase 7): ftcs2d on the 2x2 shards of
+    # hip.dat, ftcs3d on the 2x2x1 shards of 512^3, each at the run's
+    # padded shard shape and deepest pass (launches of the run; the error
+    # of phase 7's cases at that shape, every pass depth and shard)
+    for (name, shape), t in shard["kernels"].items():
+        launches = shard["runs"][t["key"]]["launches"][name]
+        check(launches > 0, f"sharded main path {t['key']} never launched "
+                            f"{name}")
+        kernels.append(dict(
+            name=(f"{name} {'x'.join(map(str, shape))} f32 k={t['k']} "
+                  f"(sharded {t['key'].split()[1]} shard)"),
+            route="cuda", source=SOURCES[name],
+            replaces=K2 if name == "ftcs2d" else K3,
+            launches=launches, max_abs_err=t["err"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

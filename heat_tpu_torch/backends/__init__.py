@@ -8,7 +8,9 @@ here the variants are pluggable backends behind one registry:
                                              kernel; heat_tpu's ``xla``)
 - ``cuda``    : hand-written Hopper kernel (== cuda_kernel, hip
                                              heat_kernel.cpp; heat_tpu's ``pallas``)
-- ``sharded`` : not ported yet (ROADMAP.md §1 step 6)
+- ``sharded`` : the field decomposed over a mesh of shards, halo
+                exchange over ``torch.distributed`` or within the process,
+                ``cuda``'s kernels on every shard (== mpi+cuda, hip)
 
 Device backends run on the card unless the caller asks for the CPU:
 ``solve(cfg)`` resolves to ``cuda`` and raises when there is none;
@@ -39,7 +41,12 @@ class SolveResult:
     gsum_dtype: Optional[str] = None  # accumulation dtype of gsum
     start_step: int = 0            # nonzero when resumed from checkpoint
     T_dev: Any = None              # final field as a tensor on its device
+                                   # (sharded: this process's shards)
     device: Optional[str] = None   # where the solve ran ("host" = numpy)
+    mesh_shape: Optional[tuple] = None  # sharded: the mesh of shards
+    mesh: Any = None               # sharded: its RankMesh
+    exchange: Optional[dict] = None  # sharded: exchanges, bytes received,
+                                     # fuse depth kf, local kernel
 
 
 def register(name: str):
@@ -50,7 +57,7 @@ def register(name: str):
 
 
 def get_backend(name: str) -> Callable:
-    from . import cuda, serial_np, torch_step  # noqa: F401
+    from . import cuda, serial_np, sharded, torch_step  # noqa: F401
 
     if name not in _REGISTRY:
         raise KeyError(f"unknown backend {name!r}; available: {sorted(_REGISTRY)}")
@@ -75,10 +82,6 @@ def solve(cfg: HeatConfig, T0: Optional[np.ndarray] = None, device=None,
           **kw) -> SolveResult:
     """Run the configured backend end to end on ``device`` (default cuda;
     the ``serial`` oracle always runs on the host)."""
-    if cfg.backend == "sharded":
-        raise NotImplementedError(
-            "the sharded backend is not ported to heat_tpu_torch yet "
-            "(ROADMAP.md §1 step 6, torch.distributed halo exchange)")
     fn = get_backend(cfg.backend)
     if cfg.backend == "serial":
         return fn(cfg, T0=T0, **kw)

@@ -16,9 +16,10 @@ size once on a copy, so no build or first-launch cost lands in ``solve_s``.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -45,6 +46,25 @@ def host_fetch(x) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+@dataclasses.dataclass(frozen=True)
+class FieldOps:
+    """How ``drive`` handles its state. The default is one tensor; the
+    sharded backend's state is its shards (``backends.sharded.ShardField``).
+
+    ``sync`` blocks until the state's device work is done (and, across
+    processes, until every rank got there) before a clock read;
+    ``finite_flag`` is an all-finite flag ``raise_if_flagged`` reads;
+    ``gather`` is the whole owned field as one tensor, on any device, or
+    None on a rank that does not hold it."""
+
+    sync: Callable[[Any], Any] = sync
+    finite_flag: Callable[[Any], Any] = debug.finite_flag
+    gather: Callable[[Any], Any] = lambda T: T
+
+
+TENSOR = FieldOps()
 
 
 def event_interval(cfg: HeatConfig) -> int:
@@ -77,6 +97,7 @@ def drive(
     warm: Callable[[torch.Tensor, int], None],
     start_step: int = 0,
     kernel: Optional[str] = None,
+    ops: FieldOps = TENSOR,
 ) -> SolveResult:
     """Run ``advance(T, k)`` to ``cfg.ntime``.
 
@@ -90,6 +111,10 @@ def drive(
     the atomic-rename write in a bounded-queue background writer — drained
     on every exit path, writer errors surfaced at the next boundary.
     ``--async-io off`` restores the inline sync -> fetch -> save stall.
+
+    ``ops`` says how the state is synchronised, checked and fetched
+    (``FieldOps``); the result's ``T`` is the gathered field on the host,
+    None on a rank that does not hold it.
     """
     t_all0 = time.perf_counter()
     chunk = event_interval(cfg)
@@ -101,7 +126,7 @@ def drive(
         t_c0 = time.perf_counter()
         for k in chunk_sizes(cfg, remaining):
             warm(T_dev.clone(), k)
-        sync(T_dev)
+        ops.sync(T_dev)
         compile_s = time.perf_counter() - t_c0
 
     t0 = time.perf_counter()
@@ -126,7 +151,7 @@ def drive(
 
         def job():
             # the device-to-host copy lands HERE, in the writer thread
-            T_ck = T_snap.detach().cpu()
+            T_ck = ops.gather(T_snap).detach().cpu()
             if check:
                 # the writer re-validates the snapshot it is about to
                 # persist: a non-finite field never reaches disk
@@ -191,7 +216,7 @@ def drive(
                                     and _settle_pending()):
                                 continue  # rolled back: re-step the chunk
                             pending_flag = (
-                                debug.finite_flag(T_dev), step,
+                                ops.finite_flag(T_dev), step,
                                 async_io.device_snapshot(T_dev)
                                 if rollback else None,
                                 rollback and writer is not None
@@ -199,7 +224,8 @@ def drive(
                                 and step % cfg.checkpoint_every == 0)
                         else:
                             try:
-                                debug.check_finite(T_dev, step)
+                                debug.raise_if_flagged(
+                                    ops.finite_flag(T_dev), step)
                             except FloatingPointError:
                                 if _try_rollback(step):
                                     continue
@@ -217,12 +243,12 @@ def drive(
                             # else deferred to _settle_pending: persist only
                             # flag-verified snapshots
                         else:
-                            sync(T_dev)
-                            checkpoint.save(cfg, T_dev, step)
+                            ops.sync(T_dev)
+                            checkpoint.save(cfg, ops.gather(T_dev), step)
                 if pending_flag is None or not _settle_pending():
                     break
                 # final boundary flagged and rolled back: resume stepping
-            sync(T_dev)
+            ops.sync(T_dev)
     except BaseException:
         # drain-on-exception: every queued snapshot still lands on disk (a
         # blow-up's last good boundary is exactly the state a resume
@@ -236,9 +262,10 @@ def drive(
         # finished stepping, so the remaining writes overlap nothing
         writer.drain()
 
-    T_host = host_fetch(T_dev)
+    whole = ops.gather(T_dev)
+    T_host = None if whole is None else host_fetch(whole)
     gsum = gsum_dtype = None
-    if cfg.report_sum:
+    if cfg.report_sum and T_host is not None:
         # the reference's commented-out global reduction
         # (mpi+cuda/heat.F90:266-273), accumulated in f64 on the host so
         # every backend reports the identical sum regardless of storage dtype

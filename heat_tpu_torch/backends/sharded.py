@@ -1,0 +1,435 @@
+"""The ``sharded`` backend: the field decomposed over a mesh of shards, a
+halo exchange between them, the stencil kernel on every shard.
+
+Counterpart of heat_tpu's ``sharded`` backend, the rebuild of the
+reference's decomposed variants (``fortran/mpi+cuda/heat.F90``, CUDA-aware
+and staged MPI, and ``fortran/hip``, always staged). The global field is
+cut into equal blocks, one per shard of a ``RankMesh``; every fused block
+of ``kf`` steps is one width-``kf`` halo exchange (``parallel.halo``)
+followed by ``kf`` steps on each shard, the communication-avoiding scheme:
+ghost layer L is valid for the first ``kf - L`` steps, exactly when it is
+read, so owned cells get the bytes of an every-step exchange.
+
+The shards are held by a communicator (``parallel.comm``): ``LocalComm``,
+every shard in this process (on ``cuda:(i % device_count)`` or the CPU),
+or ``DistComm``, one shard per rank of a ``torch.distributed`` world.
+``comm="direct"`` moves device slabs, ``"staged"`` sends every slab
+through host memory.
+
+Each shard steps through ``ops.cuda_stencil.ftcs_multistep_bounded_cuda``
+(``local_kernel="cuda"``, heat_tpu's ``pallas``: ``ftcs2d``/``ftcs3d``, or
+their plain versions on CPU tensors) with per-shard bounds, or through the
+plain PyTorch step with a pinned mask (``"torch"``, heat_tpu's ``xla``).
+``"auto"`` is the kernel on a CUDA shard where one applies, else torch.
+
+Step order and boundary semantics are the reference's (see
+``heat_tpu.backends.sharded``): swap-then-update by default;
+``parity_order`` carries the width-1 padded field and runs the literal
+update-then-swap (fortran/mpi+cuda/heat.F90:206-219). ``ghost`` pins the
+global-edge ghosts at ``bc_value``; ``edges`` also freezes the global
+boundary ring; ``periodic`` closes the rings and pins nothing.
+
+Two solve paths: the padded-carry state (each shard carried as owned +
+2*kf cells, margins garbage between exchanges; checkpoints, numerics
+checks and injected faults read and write the owned cells through
+``ShardField``), and the parity path.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..config import HeatConfig
+from ..ops.cuda_stencil import (_NO_FREEZE, ftcs_multistep_bounded_cuda,
+                                kernel_available)
+from ..ops.pass_schedule import KMAX_2D, KMAX_3D, effective_chunk_2d
+from ..ops.stencil import accum_dtype_for, laplacian_interior
+from ..parallel.comm import DistComm, LocalComm
+from ..parallel.halo import halo_exchange, halo_pad
+from ..parallel.mesh import build_mesh, validate_divisible
+from ..runtime.logging import master_print
+from ..utils import torch_dtype
+from . import SolveResult, register
+from .common import FieldOps, drive, load_or_init
+
+class ShardField:
+    """This process's shards of the field: each the owned block inside a
+    ``margin``-cell ring (``kf`` on the padded-carry path, 1 on the parity
+    path; margins are ghosts or garbage). Indexing one cell takes its
+    global index."""
+
+    def __init__(self, shards: List[torch.Tensor], comm, n: int, margin: int):
+        self.shards = shards
+        self.comm = comm
+        self.n = n
+        self.margin = margin
+
+    def clone(self) -> "ShardField":
+        return ShardField([s.clone() for s in self.shards], self.comm, self.n,
+                          self.margin)
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0].device
+
+    @property
+    def shape(self) -> tuple:
+        return (self.n,) * self.shards[0].dim()
+
+    def owned(self) -> List[torch.Tensor]:
+        m = self.margin
+        return [s[(slice(m, -m),) * s.dim()] for s in self.shards]
+
+    def __setitem__(self, idx, value) -> None:
+        for rank, s in zip(self.comm.ranks, self.shards):
+            blk = self.comm.mesh.block(rank, self.n)
+            if all(b.start <= i < b.stop for b, i in zip(blk, idx)):
+                s[tuple(i - b.start + self.margin for b, i in zip(blk, idx))] = value
+
+
+def _all_finite(F: ShardField) -> bool:
+    return F.comm.all_true(all(bool(torch.isfinite(o).all())
+                               for o in F.owned()))
+
+
+SHARD_OPS = FieldOps(sync=lambda F: F.comm.sync(), finite_flag=_all_finite,
+                     gather=lambda F: F.comm.gather(F.owned(), F.n))
+
+
+def resolve_local_kernel(cfg: HeatConfig, comm, padded_shape) -> str:
+    """``cuda`` or ``torch`` for this run's shards (see the module
+    docstring); an explicit ``cuda`` without a kernel raises, and an
+    ``auto`` that runs the plain step on the card says why."""
+    if cfg.local_kernel == "torch":
+        return "torch"
+    if kernel_available(padded_shape, torch_dtype(cfg.dtype)):
+        on_card = all(d.type == "cuda" for d in comm.devices)
+        return "cuda" if cfg.local_kernel == "cuda" or on_card else "torch"
+    why = ("the stencil kernels have no f64 path" if cfg.dtype == "float64"
+           else f"no kernel plan for the shard shape {tuple(padded_shape)}")
+    if cfg.local_kernel == "cuda":
+        raise ValueError(
+            f"local_kernel='cuda' does not support dtype={cfg.dtype!r} at "
+            f"this size ({why}); use local_kernel='torch' or 'auto'")
+    if comm.devices[0].type == "cuda":
+        master_print(f"local kernel: the plain torch step on the card ({why}; "
+                     f"local_kernel=auto)")
+    return "torch"
+
+
+def _edge_pad(p: torch.Tensor) -> torch.Tensor:
+    """``jnp.pad(p, 1, mode="edge")``."""
+    for d in range(p.dim()):
+        size = p.shape[d]
+        p = torch.cat([p.narrow(d, 0, 1), p, p.narrow(d, size - 1, 1)], dim=d)
+    return p
+
+
+def _global_masks(coords, shape, base_off, n: int, edges: bool):
+    """Per-axis broadcastable masks of the cells outside the global field
+    (and, with ``edges``, on its boundary ring), for a shard at ``coords``
+    whose padded array starts ``base_off`` cells before its block."""
+    nd = len(shape)
+    pinned = None
+    for d, (c, m) in enumerate(zip(coords, shape)):
+        g = c * (m - 2 * base_off) - base_off + torch.arange(m)
+        axis = (g < 0) | (g > n - 1)
+        if edges:
+            axis = axis | (g == 0) | (g == n - 1)
+        axis = axis.view([-1 if e == d else 1 for e in range(nd)])
+        pinned = axis if pinned is None else pinned | axis
+    return pinned
+
+
+def shard_bounds(bc: str, coords, mesh_shape, padded_shape, wpad: int) -> list:
+    """Per-axis (lo, hi) freeze bounds of the shard at ``coords``, in its
+    padded coordinates: only global-domain edges freeze (the Dirichlet
+    ghosts, plus the boundary ring under "edges"); an inner side is open
+    (-1 / M), its wpad-cell margin owns the array-edge garbage; a periodic
+    mesh freezes nothing."""
+    edges = 1 if bc == "edges" else 0
+    bounds = []
+    for c, size, M in zip(coords, mesh_shape, padded_shape):
+        if bc == "periodic":
+            bounds += [-_NO_FREEZE, _NO_FREEZE]
+            continue
+        bounds.append(wpad - 1 + edges if c == 0 else -1)
+        bounds.append(M - wpad - edges if c == size - 1 else M)
+    return bounds
+
+
+def make_local_multistep(cfg: HeatConfig, comm, kernel: str):
+    """``padded_multi(shards, wpad, ksteps)`` over the shards of ``comm``:
+    exchanges the width-``wpad`` ghost rings, then runs ``ksteps <= wpad``
+    fused steps on each padded shard (input and output padded; the
+    output's margins are garbage)."""
+    r = cfg.r
+    bc_value = cfg.bc_value
+    periodic = cfg.bc == "periodic"
+    edges = cfg.bc == "edges"
+    n = cfg.n
+    mesh = comm.mesh
+    coords = [mesh.coords(rank) for rank in comm.ranks]
+
+    @functools.lru_cache(maxsize=None)
+    def pinned_mask(i: int, shape: tuple, wpad: int, device):
+        return _global_masks(coords[i], shape, wpad, n, edges).to(device)
+
+    def padded_multi(shards: Sequence[torch.Tensor], wpad: int,
+                     ksteps: int) -> List[torch.Tensor]:
+        halo_exchange(shards, comm, bc_value, width=wpad)
+        if kernel == "cuda":
+            return [ftcs_multistep_bounded_cuda(
+                        p, r, ksteps,
+                        shard_bounds(cfg.bc, c, mesh.shape, p.shape, wpad))
+                    for c, p in zip(coords, shards)]
+        out = []
+        for i, p0 in enumerate(shards):
+            acc_dt = accum_dtype_for(p0.dtype)
+            rr = torch.tensor(r, dtype=acc_dt, device=p0.device)
+            pinned = (None if periodic
+                      else pinned_mask(i, tuple(p0.shape), wpad, p0.device))
+            p = p0
+            for _ in range(ksteps):
+                # clamp-pad so the outermost ring has *some* neighbour
+                # value; its update is garbage but sits beyond every layer
+                # a valid cell reads afterwards
+                new = (p.to(acc_dt) + rr * laplacian_interior(_edge_pad(p))
+                       ).to(p.dtype)
+                p = new if pinned is None else torch.where(pinned, p0, new)
+            out.append(p)
+        return out
+
+    return padded_multi
+
+
+def fuse_depth_sharded(cfg: HeatConfig, axis_sizes) -> int:
+    """Halo width per exchange: the requested fuse depth capped by the
+    smallest local extent (a shard can't lend deeper halo than it owns);
+    the auto depth is ``sqrt(L/d)`` (per-exchange overhead against margin
+    work), capped at the kernel's per-pass depth: 8 in 3D, in 2D the
+    depth the reference's planner gives the ghost-padded shard. The cap
+    keys on the CONFIGURED kernel, as in the reference: a configured
+    ``torch`` kernel (and f64, which never runs the kernel) keeps the
+    plain sqrt form; ``auto`` keeps the cap wherever it resolves."""
+    kmax = KMAX_2D if cfg.ndim == 2 else KMAX_3D
+    local_min = min(cfg.n // s for s in axis_sizes)
+    want = cfg.fuse_steps
+    if not want:
+        want = max(1, min(kmax, round((local_min / cfg.ndim) ** 0.5)))
+        if (cfg.ndim == 2 and cfg.local_kernel != "torch"
+                and cfg.dtype != "float64"):
+            want = min(want, _auto_chunk_2d(cfg, axis_sizes))
+    return max(1, min(want, local_min))
+
+
+def _auto_chunk_2d(cfg: HeatConfig, axis_sizes) -> int:
+    """Per-pass depth of the 2D kernel at the ghost-padded shard shape of
+    the deepest candidate halo (``_auto_chunk_2d``, sharded.py:1060)."""
+    rows = cfg.n // axis_sizes[0] + 2 * KMAX_2D
+    cols = cfg.n // axis_sizes[-1] + 2 * KMAX_2D
+    return effective_chunk_2d((rows, cols), cfg.dtype)
+
+
+def _chunked_advance(step, kf: int):
+    """``(advance, warm)``: fused blocks of ``kf`` steps and one remainder
+    block, ``step(shards, nsteps)`` each; ``warm`` makes each distinct
+    block once."""
+
+    def advance(F: ShardField, k: int) -> ShardField:
+        n_fused, rem = divmod(k, kf)
+        for _ in range(n_fused):
+            F.shards = step(F.shards, kf)
+        if rem:
+            F.shards = step(F.shards, rem)
+        return F
+
+    def warm(F: ShardField, k: int) -> None:
+        n_fused, rem = divmod(k, kf)
+        if n_fused:
+            F.shards = step(F.shards, kf)
+        if rem:
+            step(F.shards, rem)
+
+    return advance, warm
+
+
+def make_parity_machinery(cfg: HeatConfig, comm):
+    """``(seed, step)`` of the literal update-then-swap order: the carried
+    state is the width-1 padded field; every step updates all owned cells
+    against the ghosts as they are, then swaps. An IC start seeds the
+    ghosts by one exchange (the reference's IC fills the whole padded
+    array); an explicit T0 seeds them with ``bc_value`` only, and the
+    first step reads stale ghosts, as a raw restart of the reference
+    would."""
+    r = cfg.r
+    bc_value = cfg.bc_value
+    n = cfg.n
+    coords = [comm.mesh.coords(rank) for rank in comm.ranks]
+    masks = {}
+
+    def seed(owned: Sequence[torch.Tensor], from_ic: bool) -> List[torch.Tensor]:
+        padded = [halo_pad(s, bc_value, 1) for s in owned]
+        if from_ic:
+            halo_exchange(padded, comm, bc_value, width=1)
+        return padded
+
+    def step(padded: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        out = []
+        for i, p in enumerate(padded):
+            if i not in masks:  # the ghost ring (+ the boundary ring)
+                masks[i] = _global_masks(coords[i], tuple(p.shape), 1, n,
+                                         cfg.bc == "edges").to(p.device)
+            acc_dt = accum_dtype_for(p.dtype)
+            rr = torch.tensor(r, dtype=acc_dt, device=p.device)
+            new = p.to(acc_dt, copy=True)
+            new[(slice(1, -1),) * p.dim()] += rr * laplacian_interior(p)
+            out.append(torch.where(masks[i], p, new.to(p.dtype)))
+        # ghost update AFTER the stencil — the literal :218 ``call swap()``
+        return list(halo_exchange(out, comm, bc_value, width=1))
+
+    return seed, step
+
+
+def make_comm(cfg: HeatConfig, device, virtual_devices: Optional[int] = None):
+    """The communicator of this run: ``DistComm`` inside a
+    ``torch.distributed`` world, else ``LocalComm`` over
+    ``virtual_devices`` shards (default: the mesh's, else one per card, or
+    one on the CPU)."""
+    device = torch.device(device)
+    staged = cfg.comm == "staged"
+    periodic = cfg.bc == "periodic"
+    if dist.is_available() and dist.is_initialized():
+        if virtual_devices:
+            raise ValueError(
+                "--virtual-devices N runs N shards in one process; a "
+                "multi-process world runs one shard per rank")
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh = build_mesh(cfg.ndim, dist.get_world_size(), cfg.mesh_shape,
+                          periodic)
+        return DistComm(mesh, device, staged)
+    if virtual_devices:
+        nshards = virtual_devices
+    elif cfg.mesh_shape:
+        nshards = int(np.prod(cfg.mesh_shape))
+    else:
+        nshards = torch.cuda.device_count() if device.type == "cuda" else 1
+    mesh = build_mesh(cfg.ndim, nshards, cfg.mesh_shape, periodic)
+    return LocalComm(mesh, device, staged)
+
+
+def _initial_shards(cfg: HeatConfig, T0, comm):
+    """(owned shards, start_step): explicit T0 > checkpoint (host arrays,
+    each shard's block copied over) > each shard's block of the IC built
+    on its device."""
+    from ..grid import initial_condition_device
+
+    T0_host, start_step = load_or_init(cfg, T0, default_ic=False)
+    blocks = [comm.mesh.block(rank, cfg.n) for rank in comm.ranks]
+    if T0_host is None:
+        return [initial_condition_device(cfg, dev, blk)
+                for dev, blk in zip(comm.devices, blocks)], start_step
+    T0_host = np.asarray(T0_host)
+    dt = torch_dtype(cfg.dtype)
+    return [torch.tensor(T0_host[blk], device=dev).to(dt)
+            for dev, blk in zip(comm.devices, blocks)], start_step
+
+
+def _kernel_label(kernel: str, cfg: HeatConfig, comm) -> str:
+    if kernel == "torch":
+        return "torch-step"
+    name = "ftcs2d" if cfg.ndim == 2 else "ftcs3d"
+    if comm.devices[0].type == "cuda":
+        return f"cuda {name}"
+    return f"{name} plain version (cpu)"
+
+
+def _announce(cfg: HeatConfig, comm) -> None:
+    """The reference's per-rank announcements (mesh decomposition, local
+    nx/ny at mpi+cuda/heat.F90:239-240, rank -> GPU at :69), master-only."""
+    mesh = comm.mesh
+    master_print(f"Automatic mesh decomposition: "
+                 f"{dict(zip(mesh.axis_names, mesh.shape))}")
+    master_print("local block: " + " x ".join(
+        str(cfg.n // s) for s in mesh.shape))
+    if isinstance(comm, DistComm):
+        where = [None] * mesh.size
+        dist.all_gather_object(where, (str(comm.devices[0]), comm.rank),
+                               group=comm.host)
+    else:
+        where = [(str(d), 0) for d in comm.devices]
+    for rank, (dev, proc) in list(enumerate(where))[:32]:
+        master_print(f"  mesh {mesh.coords(rank)} -> device {dev} "
+                     f"(process {proc})")
+    if mesh.size > 32:
+        master_print(f"  ... ({mesh.size - 32} more shards)")
+    if cfg.checkpoint_every:
+        master_print("checkpoint I/O: "
+                     + ("async snapshot-and-continue (bounded queue depth "
+                        "2; --async-io off for the sync fallback)"
+                        if cfg.use_async_io() else "sync (--async-io off)"))
+
+
+@register("sharded")
+def solve(cfg: HeatConfig, T0: Optional[np.ndarray] = None, device=None,
+          comm=None, virtual_devices: Optional[int] = None,
+          **_) -> SolveResult:
+    if cfg.exchange == "overlap":
+        raise NotImplementedError(
+            "exchange='overlap' (the interior stepping on one stream while "
+            "the halo exchange flies) is not ported yet: ROADMAP.md §1 item "
+            "2, the overlap exchange; use --exchange indep")
+    comm = comm or make_comm(cfg, device, virtual_devices)
+    mesh = comm.mesh
+    validate_divisible(cfg.n, mesh)
+    if cfg.checkpoint_every and mesh.size > 1 and isinstance(comm, DistComm):
+        raise NotImplementedError(
+            "checkpoints of a multi-process sharded run (per-rank shard "
+            "files) are not ported yet: ROADMAP.md §1 item 2, shard "
+            "checkpoints; run the shards in one process (--virtual-devices "
+            "N) to checkpoint")
+    kf = fuse_depth_sharded(cfg, mesh.shape)
+    padded_shape = [cfg.n // s + 2 * kf for s in mesh.shape]
+    _announce(cfg, comm)
+
+    if cfg.parity_order:
+        if cfg.checkpoint_every:
+            raise ValueError(
+                "parity_order is a bit-parity experiment mode and does not "
+                "support checkpointing (the carried state is the padded field)")
+        master_print("step ordering: update-then-swap "
+                     "(reference parity, mpi+cuda/heat.F90:206-219)")
+        owned, start_step = _initial_shards(cfg, T0, comm)
+        seed, one_step = make_parity_machinery(cfg, comm)
+        state = ShardField(seed(owned, from_ic=T0 is None), comm, cfg.n, 1)
+        advance, warm = _chunked_advance(lambda shards, _: one_step(shards), 1)
+        kernel = "torch"
+        label = "torch-step (parity order)"
+    else:
+        kernel = resolve_local_kernel(cfg, comm, padded_shape)
+        padded_multi = make_local_multistep(cfg, comm, kernel)
+        owned, start_step = _initial_shards(cfg, T0, comm)
+        state = ShardField([halo_pad(s, cfg.bc_value, kf) for s in owned],
+                           comm, cfg.n, kf)
+        del owned
+        # margins stay width kf; only the step count shrinks on the
+        # remainder block
+        advance, warm = _chunked_advance(
+            lambda shards, k: padded_multi(shards, kf, k), kf)
+        label = _kernel_label(kernel, cfg, comm)
+
+    res = drive(cfg, state, advance, warm, start_step=start_step,
+                kernel=label, ops=SHARD_OPS)
+    res.gsum = comm.broadcast(res.gsum)
+    if res.gsum is not None:
+        res.gsum_dtype = "float64"
+    res.mesh_shape = tuple(mesh.shape)
+    res.mesh = mesh
+    res.exchange = dict(comm.stats, kf=kf, local_kernel=kernel)
+    return res

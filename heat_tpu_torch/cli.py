@@ -10,8 +10,10 @@ default) unless ``--device cpu`` is given.
 
 Usage: ``python -m heat_tpu_torch run [--backend cuda] [--json]``,
 ``python -m heat_tpu_torch serve --requests FILE.jsonl [--json]`` (the
-serving engine: one ``<id>.npz`` per request with ``--out-dir``) and
-``python -m heat_tpu_torch info``.
+serving engine: one ``<id>.npz`` per request with ``--out-dir``),
+``python -m heat_tpu_torch launch -n N -- run --backend sharded ...`` (N
+worker processes in one ``torch.distributed`` world, the reference's
+``mpirun -np N``) and ``python -m heat_tpu_torch info``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,17 @@ from typing import Optional, Sequence
 from .config import VARIANTS, HeatConfig, parse_input, variant_config
 from .grid import coords, initial_condition
 from .runtime.logging import master_print
+
+
+def _parse_mesh(s: str):
+    try:
+        dims = tuple(int(t) for t in s.lower().replace("x", " ").split())
+    except ValueError:
+        dims = ()
+    if not dims or any(d < 1 for d in dims):
+        raise argparse.ArgumentTypeError(
+            f"mesh must be positive dims like '4x2', got {s!r}")
+    return dims
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,8 +62,30 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--bc", choices=["edges", "ghost", "periodic"])
     run.add_argument("--bc-value", type=float)
     run.add_argument("--ndim", type=int, choices=[2, 3])
+    run.add_argument("--comm", choices=["direct", "staged"],
+                     help="sharded halo exchange: device slabs sent "
+                          "directly (CUDA-aware analog) or through host "
+                          "memory (NO_AWARE analog)")
+    run.add_argument("--exchange", choices=["seq", "indep", "overlap"],
+                     help="halo exchange formulation: indep (seq, the "
+                          "reference's other form with the same bytes, "
+                          "runs it too); overlap is not ported yet")
+    run.add_argument("--mesh", type=_parse_mesh,
+                     help="mesh of shards, e.g. 2x2 (sharded backend)")
+    run.add_argument("--virtual-devices", type=int, metavar="N",
+                     help="run N shards in this process on --device "
+                          "(shard i on cuda:(i %% device_count)); the "
+                          "single-process form of 'mpirun -np N'")
+    run.add_argument("--local-kernel", choices=["auto", "torch", "cuda"],
+                     help="sharded per-shard stepping: the stencil kernel "
+                          "(cuda), the plain PyTorch step (torch), or auto "
+                          "(the kernel on the card where one applies)")
+    run.add_argument("--parity-order", action="store_true",
+                     help="literal update-then-swap step ordering "
+                          "(reference parity, mpi+cuda/heat.F90:206-219)")
     run.add_argument("--fuse-steps", type=int,
-                     help="cuda temporal blocking depth (0=auto, 1=off)")
+                     help="temporal blocking depth: steps per kernel call, "
+                          "or per halo exchange when sharded (0=auto, 1=off)")
     run.add_argument("--heartbeat-every", type=int,
                      help="print 'time_it: i' every k steps (reference prints every step)")
     run.add_argument("--report-sum", action="store_true",
@@ -156,7 +191,21 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--json", action="store_true",
                        help="also print the summary as one JSON line")
 
-    sub.add_parser("info", help="show devices / kernel toolchain / native-lib status")
+    launch = sub.add_parser(
+        "launch",
+        help="run N worker processes joined into one torch.distributed "
+             "world on this machine (the reference's 'mpirun -np N', "
+             "fortran/mpi+cuda/makefile:1-2)")
+    launch.add_argument("-n", "--processes", type=int, default=2)
+    launch.add_argument("--deadline", type=float, metavar="S", default=3600.0,
+                        help="wall-clock limit in seconds; at the deadline "
+                             "every worker is stopped and launch exits 124")
+    launch.add_argument("cmd", nargs=argparse.REMAINDER,
+                        help="worker arguments, e.g.: -- run --backend "
+                             "sharded --comm staged")
+
+    sub.add_parser("info", help="show devices / kernel toolchain / "
+                                "native-lib / process-group status")
     return p
 
 
@@ -165,13 +214,16 @@ def _apply_overrides(cfg: HeatConfig, args) -> HeatConfig:
     over = {}
     for field in ("backend", "dtype", "ic", "bc", "ndim", "fuse_steps",
                   "heartbeat_every", "checkpoint_every", "checkpoint_dir",
-                  "async_io", "profile_dir", "write_int", "on_nan", "inject"):
+                  "async_io", "profile_dir", "write_int", "on_nan", "inject",
+                  "comm", "exchange", "local_kernel"):
         v = getattr(args, field, None)
         if v is not None:
             over[field] = v
     if getattr(args, "bc_value", None) is not None:
         over["bc_value"] = args.bc_value
-    for flag in ("report_sum", "check_numerics", "soln"):
+    if getattr(args, "mesh", None):
+        over["mesh_shape"] = tuple(args.mesh)
+    for flag in ("report_sum", "check_numerics", "soln", "parity_order"):
         if getattr(args, flag, False):
             over[flag] = True
     return cfg.with_(**over)
@@ -207,7 +259,15 @@ def cmd_run(args) -> int:
 
     try:  # no card where one was asked for
         device = None if cfg.backend == "serial" else resolve_device(args.device)
-    except RuntimeError as e:
+        if cfg.backend == "sharded":
+            # join the world before any device work: the first act of the
+            # reference's distributed variants (mpi_init + rank -> GPU
+            # binding, fortran/mpi+cuda/heat.F90:60-70); a process started
+            # alone joins nothing
+            from .parallel.dist import init_distributed
+
+            device = init_distributed(device, cfg.comm) or device
+    except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
 
@@ -218,8 +278,9 @@ def cmd_run(args) -> int:
         write_int_dat("int.dat", axes, initial_condition(cfg))
 
     try:
-        res = solve(cfg, device=device)
-    except NotImplementedError as e:  # a path later slices bring
+        res = solve(cfg, device=device, virtual_devices=args.virtual_devices)
+    except (NotImplementedError, ValueError) as e:  # a path later slices
+        # bring, or a configuration the backend refuses
         print(f"error: {e}", file=sys.stderr)
         return 2
     for line in res.timing.report_lines():
@@ -228,10 +289,7 @@ def cmd_run(args) -> int:
         master_print(f"Sum of Temperature: {res.gsum:.10g}")
 
     if cfg.soln:
-        from .io import write_soln
-
-        write_soln(args.out, axes, res.T)
-        master_print(f"wrote {args.out}")
+        _write_solution(args.out, axes, res)
 
     if args.json:
         rec = {
@@ -249,8 +307,40 @@ def cmd_run(args) -> int:
         if res.timing.overlap_s is not None:
             rec["overlap_s"] = res.timing.overlap_s
             rec["io_wait_s"] = res.timing.io_wait_s
+        if res.mesh_shape is not None:
+            rec.update(mesh=list(res.mesh_shape), comm=cfg.comm,
+                       exchange=cfg.exchange, **res.exchange)
         master_print(json.dumps(rec))
     return 0
+
+
+def _write_solution(out: str, axes, res) -> None:
+    """soln.dat, and for a decomposed run the per-shard ``soln#####.dat``
+    files (shard number = linear mesh index, the reference's per-rank
+    contract, mpi+cuda/heat.F90:277-288): from the gathered field in a
+    single process, each rank its own shard in a world of several."""
+    from .io import write_soln, write_soln_blocks, write_soln_sharded
+
+    outdir = Path(out).parent
+    if res.mesh_shape and any(s > 1 for s in res.mesh_shape):
+        field = res.T_dev
+        if len(field.comm.ranks) < field.comm.mesh.size:
+            from .backends.common import host_fetch
+
+            files = write_soln_sharded(
+                outdir, axes, [(rank, host_fetch(o)) for rank, o in
+                               zip(field.comm.ranks, field.owned())],
+                res.mesh_shape)
+            print(f"[rank {field.comm.rank}] wrote {len(files)} shard "
+                  f"file(s) ({files[0].name} .. {files[-1].name})",
+                  file=sys.stderr)
+        else:
+            files = write_soln_blocks(outdir, axes, res.T, res.mesh_shape)
+            master_print(f"wrote {len(files)} per-shard files "
+                         f"({files[0].name} .. {files[-1].name})")
+    if res.T is not None:
+        write_soln(out, axes, res.T)
+        master_print(f"wrote {out}")
 
 
 def _serve_report(summary: dict, ok: int, args) -> None:
@@ -329,11 +419,74 @@ def cmd_serve(args) -> int:
     return 0 if ok == summary["requests"] else 1
 
 
+def cmd_launch(args) -> int:
+    """Spawn N local workers joined into one ``torch.distributed`` world:
+    torchrun (``torch.distributed.run --standalone``) run in this process,
+    with a deadline.
+
+    Each worker runs the same command (SPMD) with the torchrun variables
+    (the rendezvous of MPI_Init, fortran/mpi+cuda/heat.F90:60-62); rank 0
+    alone prints results. When a worker dies torchrun stops the others (a
+    peer blocked in a collective never returns) and its exit code is
+    launch's; at the deadline every worker is stopped and launch exits 124.
+    """
+    import os
+    import signal
+
+    from torch.distributed.elastic.multiprocessing.errors import \
+        ChildFailedError
+    from torch.distributed.run import parse_args, run
+
+    cmd = list(args.cmd)
+    if cmd and cmd[0] == "--":
+        cmd = cmd[1:]
+    if not cmd:
+        print("launch: missing worker arguments (e.g. "
+              "`heat_tpu_torch launch -n 2 -- run --backend sharded`)",
+              file=sys.stderr)
+        return 2
+    if args.processes < 1:
+        print("launch: -n must be >= 1", file=sys.stderr)
+        return 2
+    root = str(Path(__file__).resolve().parent.parent)
+    os.environ["PYTHONPATH"] = (root + os.pathsep
+                                + os.environ.get("PYTHONPATH", ""))
+
+    class Deadline(Exception):
+        pass
+
+    def expire(*_):
+        raise Deadline
+
+    # the exception unwinds torchrun's agent, whose shutdown stops the
+    # workers
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.setitimer(signal.ITIMER_REAL, args.deadline)
+    try:
+        run(parse_args(["--standalone", f"--nproc-per-node={args.processes}",
+                        "--monitor-interval=0.1", "-m", "heat_tpu_torch",
+                        *cmd]))
+    except Deadline:
+        print(f"launch: deadline {args.deadline:g}s exceeded, the workers "
+              f"were stopped", file=sys.stderr)
+        return 124
+    except ChildFailedError as e:
+        rank, failure = e.get_first_failure()
+        print(f"launch: worker {rank} exited rc={failure.exitcode}",
+              file=sys.stderr)
+        return failure.exitcode if failure.exitcode > 0 else 1
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, old)
+    return 0
+
+
 def cmd_info(_args) -> int:
     import torch
 
     from .io.native import native_available
     from .ops import _build
+    from .parallel.dist import describe
 
     print(f"torch {torch.__version__}, CUDA runtime {torch.version.cuda}, "
           f"cuda available: {torch.cuda.is_available()}")
@@ -354,12 +507,13 @@ def cmd_info(_args) -> int:
           f"into {_build.build_dir()})")
     print(f"native fastio: "
           f"{'available' if native_available() else 'unavailable (numpy fallback)'}")
+    print(describe())
     return 0
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    return {"run": cmd_run, "serve": cmd_serve,
+    return {"run": cmd_run, "serve": cmd_serve, "launch": cmd_launch,
             "info": cmd_info}[args.command](args)
 
 

@@ -147,15 +147,29 @@ def _hat_index_bounds(cfg: HeatConfig):
     return bounds
 
 
-def initial_condition_device(cfg: HeatConfig, device) -> torch.Tensor:
+def initial_condition_device(cfg: HeatConfig, device, block=None) -> torch.Tensor:
     """Build the initial field directly on ``device`` with torch.
 
     Same field as ``initial_condition``: the hat region comes from the
     identical host-side coordinate comparison and the sine axis from the
     same host samples (only their O(n^d) outer product runs on the device,
-    in f32 for bf16 with one cast at the end, as the host path casts)."""
+    in f32 for bf16 with one cast at the end, as the host path casts).
+
+    ``block`` (a slice of global indices per axis) builds one shard's block
+    of that field from the global coordinates, with the bytes of
+    ``initial_condition(cfg)[block]``: a shard never builds the whole
+    field to cut its block out."""
     dt = torch_dtype(cfg.dtype)
-    shape = cfg.shape
+    if block is None:
+        block = (slice(0, cfg.n),) * cfg.ndim
+    ranges = [range(cfg.n)[b] for b in block]
+    shape = tuple(len(r) for r in ranges)
+
+    def axis(values, d):
+        sh = [1] * cfg.ndim
+        sh[d] = shape[d]
+        return values.reshape(sh)
+
     if cfg.ic == "uniform":
         return torch.full(shape, 2.0, dtype=dt, device=device)
     if cfg.ic == "zero":
@@ -164,16 +178,12 @@ def initial_condition_device(cfg: HeatConfig, device) -> torch.Tensor:
         ax = torch.from_numpy(_sine_axis(cfg.n, np_dtype(cfg.dtype))).to(device)
         out = None
         for d in range(cfg.ndim):
-            sh = [1] * cfg.ndim
-            sh[d] = cfg.n
-            a = ax.reshape(sh)
+            a = axis(ax[block[d]], d)
             out = a if out is None else out * a
         return out.expand(shape).to(dt).contiguous()
     hot = None
     for d, (lo_i, hi_i) in enumerate(_hat_index_bounds(cfg)):
-        sh = [1] * cfg.ndim
-        sh[d] = cfg.n
-        io = torch.arange(cfg.n, device=device).reshape(sh)
+        io = axis(torch.arange(ranges[d].start, ranges[d].stop, device=device), d)
         m = (io >= lo_i) & (io <= hi_i)
         hot = m if hot is None else hot & m
     two = torch.tensor(2.0, dtype=dt, device=device)

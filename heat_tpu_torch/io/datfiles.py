@@ -13,7 +13,9 @@ same as ``heat_tpu.io``'s, so the two packages write identical bytes.
 
 from __future__ import annotations
 
-from typing import Tuple
+import itertools
+from pathlib import Path
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -42,6 +44,44 @@ def write_int_dat(path, axes, T0) -> None:
 def write_soln(path, axes, T) -> None:
     """Post-solve dump (fortran/serial/heat.f90:77-83)."""
     write_dat(path, axes, T)
+
+
+def _write_block(directory: Path, prefix: str, axes, coords, mesh_shape,
+                 local: np.ndarray) -> Path:
+    rank = int(np.ravel_multi_index(tuple(coords), tuple(mesh_shape)))
+    local_axes = tuple(ax[c * s:(c + 1) * s]
+                       for ax, c, s in zip(axes, coords, local.shape))
+    path = directory / f"{prefix}{rank:05d}.dat"
+    write_dat(path, local_axes, local)
+    return path
+
+
+def write_soln_sharded(directory, axes, shards: Sequence[Tuple[int, np.ndarray]],
+                       mesh_shape, prefix: str = "soln") -> list:
+    """Per-shard solution files ``soln#####.dat`` of the shards this
+    process holds, ``(linear mesh index, owned block)`` each
+    (fortran/mpi+cuda/heat.F90:277-288): each rank of a multi-process run
+    writes its own."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    return [_write_block(directory, prefix, axes,
+                         np.unravel_index(rank, tuple(mesh_shape)),
+                         mesh_shape, np.asarray(local))
+            for rank, local in shards]
+
+
+def write_soln_blocks(directory, axes, T: np.ndarray, mesh_shape,
+                      prefix: str = "soln") -> list:
+    """Per-shard solution files from the gathered host field: one
+    ``soln#####.dat`` per mesh block, shard number = linear mesh index —
+    the single-process form of the reference's per-rank dumps."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    local = [T.shape[d] // s for d, s in enumerate(mesh_shape)]
+    return [_write_block(directory, prefix, axes, coords, mesh_shape,
+                         T[tuple(slice(c * lp, (c + 1) * lp)
+                                 for c, lp in zip(coords, local))])
+            for coords in itertools.product(*[range(s) for s in mesh_shape])]
 
 
 def read_dat(path, ndim: int = 2):

@@ -140,6 +140,16 @@ def chunk_2d(shape: tuple, dt: str, ksteps: int) -> int:
     return cap
 
 
+def effective_chunk_2d(shape, dtype, ksteps: Optional[int] = None) -> int:
+    """Per-pass depth of the 2D kernel at a runtime shape, ghosts included
+    (``effective_chunk_2d``, pallas_stencil.py:163): the thin kernel's
+    ``min(ksteps, cap)`` or the column-tiled kernel's own ``kchunk``. The
+    sharded backend's fuse depth is capped by it."""
+    k = KMAX_2D if ksteps is None else ksteps
+    return min(max(k, 1), chunk_2d(tuple(int(s) for s in shape),
+                                   _dtype_name(dtype), k))
+
+
 # -- 3D ----------------------------------------------------------------------
 
 

@@ -243,11 +243,10 @@ def device_snapshot(T):
     async checkpoint. The drive loop steps on with its two ping-pong buffers
     while the writer thread holds the copy until its D2H fetch."""
     import numpy as np
-    import torch
 
-    if isinstance(T, torch.Tensor):
-        return T.clone()
-    return np.array(T)
+    if isinstance(T, np.ndarray):
+        return np.array(T)
+    return T.clone()   # a tensor, or the sharded backend's shards
 
 
 class PendingCopy:

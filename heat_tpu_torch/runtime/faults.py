@@ -201,11 +201,12 @@ class FaultPlan:
 
 def _inject_nan(T):
     import numpy as np
-    import torch
 
     idx = tuple(s // 2 for s in T.shape)
-    if isinstance(T, torch.Tensor):
-        T[idx] = float("nan")   # the drive loop owns its field buffer
+    if not isinstance(T, np.ndarray):
+        # a tensor, or the sharded backend's shards (global cell index):
+        # the drive loop owns its field buffer
+        T[idx] = float("nan")
         return T
     T = np.array(T)
     T[idx] = np.nan

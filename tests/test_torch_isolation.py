@@ -41,7 +41,10 @@ def test_import_loads_no_jax():
                "heat_tpu_torch.backends.cuda, heat_tpu_torch.ops.cuda_stencil, "
                "heat_tpu_torch.ops.cuda_lanes, heat_tpu_torch.serve, "
                "heat_tpu_torch.ops.cuda_lab, heat_tpu_torch.labs.kernel_lab, "
-               "heat_tpu_torch.labs.tune_on_chip; "
+               "heat_tpu_torch.labs.tune_on_chip, "
+               "heat_tpu_torch.backends.sharded, heat_tpu_torch.parallel.comm, "
+               "heat_tpu_torch.parallel.dist, heat_tpu_torch.parallel.halo, "
+               "heat_tpu_torch.parallel.mesh; "
                "print(sorted(m for m in sys.modules "
                "if m.split('.')[0] in ('jax', 'jaxlib', 'heat_tpu')))")
     assert out.returncode == 0, out.stderr

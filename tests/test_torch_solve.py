@@ -94,8 +94,9 @@ def test_cuda_backend_pass_schedule():
 
 def test_cuda_backend_refuses_paths_of_later_slices():
     port, _ = _cfgs("python_cuda", None, "cuda")
+    # the sharded backend runs; its overlap exchange is a later slice
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(port.with_(backend="sharded"), device="cpu")
+        solve(port.with_(backend="sharded", exchange="overlap"), device="cpu")
     # 3D runs on cuda since K3 was ported
     res = solve(port.with_(ndim=3, n=9), device="cpu")
     assert res.T.shape == (9, 9, 9)
