@@ -11,6 +11,11 @@ Usage, from the repository root on a host with one CUDA card::
 Phases (any failure raises and exits non-zero; without a card, or outside
 a checkout of the repository, it exits non-zero and prints no result):
 
+0. right after the build, the card-only pytest cases,
+   ``python -m pytest --noconftest -p no:cacheprovider -m cuda
+   tests/test_torch_card.py`` (that file imports neither JAX nor
+   heat_tpu): a failure or a skip fails the run;
+
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions, the
    kernel builds (``nvcc`` for sm_90a, one process per source, started
    together, each source's time) and their ptxas register reports, with
@@ -33,7 +38,8 @@ a checkout of the repository, it exits non-zero and prints no result):
    cells, the same bytes elsewhere, the NaN in the frozen ring);
    ``ftcs3d`` — 24x20x130, 67x45x129 and 256^3 under edges/ghost/periodic,
    f32/bf16, k in {1, 4, 8}, r in {1/6, 0.15}; segment ends of the
-   streamed design (256-row segments): 300x40x70 (rows not a multiple of
+   streamed design (segments of up to 256 rows, sized to fill whole waves
+   of the card): 300x40x70 (rows not a multiple of
    256) and 20x33x40 (fewer rows than 256 + 2k) likewise at r 0.15; bounds
    inside the field on every axis (lo 3, hi size-5) through
    ``ftcs_multistep_bounded_cuda`` at 67x45x129 and 256^3, k in {1, 5, 8},
@@ -89,11 +95,12 @@ a checkout of the repository, it exits non-zero and prints no result):
    512^3 bf16 for 3200 steps, 1024^3 f32 (4 GiB per field) for 160 steps;
    each also run for fewer steps (64 at 512^3, 32 at 1024^3) and that
    run's global sum held equal to the plain version's over the same passes;
-   the 512^3 f32 field after 3200 steps held bit for bit against the plain
-   version's over the same 3200 steps, and against the ``torch`` backend's
-   on the card (the serial oracle's f32 arithmetic: same order, two
-   roundings) at the reference's f32 tolerance scaled by steps (5e-6 per
-   30 steps);
+   the 512^3 f32 field through ``solve()`` equal to the CLI run's, and
+   after 1600 steps (the depth cut from 3200 to keep the script
+   near its time) held bit for bit against the plain version's over the
+   same steps, and against the ``torch`` backend's on the card (the serial
+   oracle's f32 arithmetic: same order, two roundings) at the reference's
+   f32 tolerance scaled by steps (5e-6 per 30 steps);
 4. configs/serial.dat (1024^2, 30 steps) on ``cuda`` in f32, and a 64^3 f32
    solve at sigma 0.15 under edges and ghost BC for 50 steps, each written
    to soln.dat and read back, against the serial numpy oracle at the
@@ -173,15 +180,34 @@ a checkout of the repository, it exits non-zero and prints no result):
    --comm direct``, a 1-rank NCCL world): their ``soln.dat`` and
    ``soln#####.dat`` files and gsum equal to ``--virtual-devices 2`` in
    this process; ``launch -n 2 ... --comm direct`` refuses, naming
-   ``--comm staged``. Prints points/s of every sharded run beside the
-   single-device run, one exchange's ms (CUDA events around the exchange
-   alone) and the bytes the shards receive, direct and staged, at the
-   main path's shard shapes, and each kernel's ms per pass at a corner
-   shard's shape beside its plain version and bound.
+   ``--comm staged``. Every hip.dat and 512^3 run also with ``--exchange
+   overlap`` (the interior on the kernel while the halo flies, then the
+   rim regions), its field equal to indep's and the single run's, its
+   launches those of the interior and every region in their own passes;
+   bf16 overlap at 8192^2 and 256^3 equal to the plain bounded version;
+   the kernel against its plain version on the interior and every region
+   of every overlap run's shards (shifted bounds, kept cells, bytes); a
+   checkpointed 2-rank staged world at 2048^2 under ``launch
+   --max-restarts 2`` crashed at step 20 by rank 1 (``--inject
+   crash@20:proc=1``): one ``launch_restart`` record resuming at step 16,
+   soln files and gsum equal to the uninterrupted world. Prints points/s
+   of every sharded run beside the single-device run, overlap against
+   indep, the kernel calls and launches per shard and exchange block, one
+   exchange's ms (CUDA events around the exchange alone) and the bytes
+   the shards receive, direct and staged, at the main path's shard shapes;
+   from ``torch.profiler``, one overlap block at hip.dat's and 512^3's
+   shard shapes, staged and direct: the side-stream copies' µs overlapped
+   with the interior kernels and the card's busy share of the block; and
+   each kernel's ms per pass at a corner shard's shape and at an overlap
+   face region's beside its plain version and bound.
 
 ``python3 chip_smoke.py --worlds`` on a host with several cards builds the
 kernels and runs only ``phase_worlds``: worlds of one rank per card,
-direct (NCCL) and staged, against the same shards in one process.
+direct (NCCL) and staged, against the same shards in one process; on four
+cards hip.dat's 32768^2 on 2x2 ranks over NCCL with ``--exchange
+overlap`` beside indep (sums equal, points/s of each); and a checkpointed
+world of one rank per card crashed and restarted by ``launch
+--max-restarts 2`` (files and sums equal to the uninterrupted world).
 
 The last two lines: the ``nvidia-smi`` line is printed before a JSON
 object with one entry per kernel and main-path shape, and the very last
@@ -460,7 +486,8 @@ def phase_compare():
               for bc in ("edges", "ghost", "periodic")
               for dt in (f32, bf16) for k in (1, 4, 8) for r in (1 / 6, 0.15)]
     # the streamed ftcs3d's segment ends: rows not a multiple of its
-    # 256-row segment, and fewer rows than a segment and its 2k halo
+    # segment (sized per field to fill whole waves), and fewer rows than a
+    # segment and its 2k halo
     cases += [(shape, bc, dt, k, 0.15)
               for shape in ((300, 40, 70), (20, 33, 40))
               for bc in ("edges", "ghost", "periodic")
@@ -714,12 +741,14 @@ def phase_main_path(smi):
     print(f"  512^3 bf16 vs f32: mean |dT| bound {diff:.3g}")
     check(diff < 3e-2, "bf16 run drifted from f32")
 
-    # the config-4 run in full: its field after 3200 steps equals, bit for
-    # bit, the plain version's run in the same passes; and against the
+    # the config-4 run through solve() gives the CLI run's field; its
+    # field after 1600 steps (half the run: the depth this check runs at,
+    # cut from 3200 to keep the whole script near its time) equals, bit
+    # for bit, the plain version's run in the same passes; and against the
     # torch backend (the serial oracle's f32 arithmetic: the same order,
     # two roundings per step, where the kernel rounds the update and
     # s - 6c once) it stays inside the reference's f32 tolerance of 5e-6
-    # per 30 steps, scaled to 3200 steps: the two forms differ by under an
+    # per 30 steps, scaled to its steps: the two forms differ by under an
     # ulp per step and an FTCS step at r <= 1/6 does not grow a max-norm
     # difference
     cfg = HeatConfig(n=512, ndim=3, sigma=SIGMA_3D, nu=0.05, dom_len=2.0,
@@ -728,13 +757,15 @@ def phase_main_path(smi):
     check(got.timing.kernel == "cuda ftcs3d", f"kernel {got.timing.kernel}")
     gsum = float(np.sum(np.asarray(got.T, np.float64)))
     check(gsum == runs["512^3 f32"]["gsum"], "solve() and run disagree")
+    cfg = cfg.with_(ntime=1600)
+    got = solve(cfg.with_(backend="cuda"), device="cuda")
     T = initial_condition_device(cfg, "cuda")
     for _ in range(cfg.ntime // 16):
         T = ftcs_multistep_edges_cuda(T, cfg.r, 16, plain=True)
     ndiff = int((bits(got.T_dev) != bits(T)).sum())
-    print(f"  512^3 f32 x3200 vs the plain version in the same passes: "
-          f"{ndiff} cells differ")
-    check(ndiff == 0, "512^3 x3200 field is not the plain version's")
+    print(f"  512^3 f32 x{cfg.ntime} vs the plain version in the same "
+          f"passes: {ndiff} cells differ")
+    check(ndiff == 0, f"512^3 x{cfg.ntime} field is not the plain version's")
     del T
     oracle = solve(cfg.with_(backend="torch"), device="cuda").T
     check(np.isfinite(got.T).all() and got.T.shape == oracle.shape,
@@ -742,8 +773,9 @@ def phase_main_path(smi):
     err = float(np.abs(got.T - oracle).max())
     atol = F32_ATOL * cfg.ntime / 30
     runs["512^3 f32"]["oracle_err"] = err
-    print(f"  512^3 f32 x3200 vs the torch step (serial oracle arithmetic): "
-          f"max|err| {err:g} (atol {atol:g} = 5e-6 per 30 steps)")
+    print(f"  512^3 f32 x{cfg.ntime} vs the torch step (serial oracle "
+          f"arithmetic): max|err| {err:g} (atol {atol:g} = 5e-6 per 30 "
+          f"steps)")
     check(err <= atol, "512^3 cuda solve off the oracle")
     del got, oracle
     torch.cuda.empty_cache()
@@ -1715,11 +1747,23 @@ def ndiff_bits(a, b) -> int:
     return int(np.count_nonzero(a.view(np.uint32) != b.view(np.uint32)))
 
 
-def sharded_launches(n, mesh, dtype, ntime, kf) -> tuple:
+def block_calls(padded, kf, overlap: bool) -> list:
+    """The input shapes of one exchange block's kernel calls on a shard:
+    the padded shard, or with ``--exchange overlap`` the interior and
+    every region (``sharded.overlap_regions``)."""
+    from heat_tpu_torch.backends import sharded
+
+    if not overlap:
+        return [tuple(padded)]
+    return [shape for _, shape in sharded.overlap_regions(padded, kf)]
+
+
+def sharded_launches(n, mesh, dtype, ntime, kf, overlap=False) -> tuple:
     """(timed, warm-up) kernel launches of a sharded run with no heartbeat:
     every shard runs ntime // kf blocks of kf steps and one of the
-    remainder, each cut into the reference's passes at the padded shard
-    shape; the warm-up makes each distinct block once."""
+    remainder, each call of a block (``block_calls``) cut into the
+    reference's passes at its input shape; the warm-up makes each distinct
+    block once."""
     from heat_tpu_torch.ops import pass_schedule
 
     padded = [n // m + 2 * kf for m in mesh]
@@ -1727,8 +1771,10 @@ def sharded_launches(n, mesh, dtype, ntime, kf) -> tuple:
     for m in mesh:
         shards *= m
     n_fused, rem = divmod(ntime, kf)
-    full = len(pass_schedule.passes(padded, dtype, kf))
-    part = len(pass_schedule.passes(padded, dtype, rem)) if rem else 0
+    calls = block_calls(padded, kf, overlap)
+    full = sum(len(pass_schedule.passes(s, dtype, kf)) for s in calls)
+    part = (sum(len(pass_schedule.passes(s, dtype, rem)) for s in calls)
+            if rem else 0)
     return (shards * (n_fused * full + part),
             shards * ((full if n_fused else 0) + part))
 
@@ -1736,7 +1782,10 @@ def sharded_launches(n, mesh, dtype, ntime, kf) -> tuple:
 def sharded_main_path(key, input_dat, args, n, mesh, dtype, ntime, smi):
     """One sharded run through the CLI (launch counts zeroed just before
     and read just after); checks the kernel and its launches."""
+    from heat_tpu_torch.ops import pass_schedule
+
     name = "ftcs2d" if len(mesh) == 2 else "ftcs3d"
+    overlap = "overlap" in args
     print(f"[phase 7] run --backend sharded {key}")
     with captured_solves() as got:
         out, launches = cli_run(input_dat, *args, backend="sharded")
@@ -1744,12 +1793,19 @@ def sharded_main_path(key, input_dat, args, n, mesh, dtype, ntime, smi):
     rec = json.loads(out.strip().splitlines()[-1])
     check(rec["kernel"] == f"cuda {name}", f"kernel {rec['kernel']}")
     check(rec["launches"] == launches, "launch count mismatch")
-    timed, warm = sharded_launches(n, mesh, dtype, ntime, rec["kf"])
+    check(rec["exchange"] == ("overlap" if overlap else "indep"),
+          f"exchange {rec['exchange']}")
+    timed, warm = sharded_launches(n, mesh, dtype, ntime, rec["kf"], overlap)
     check(launches[name] == timed + warm,
           f"{launches[name]} {name} launches, expected {timed + warm}")
+    padded = [n // m + 2 * rec["kf"] for m in mesh]
+    calls = block_calls(padded, rec["kf"], overlap)
+    per_block = sum(len(pass_schedule.passes(s, dtype, rec["kf"]))
+                    for s in calls)
     print(f"  {key}: {rec['points_per_s']:.6g} points/s, kf {rec['kf']}, "
           f"{rec['exchanges']} exchanges, {launches[name]} {name} launches "
-          f"({timed} timed + {warm} warm-up) on {smi}")
+          f"({timed} timed + {warm} warm-up; per shard and exchange block "
+          f"{len(calls)} kernel calls, {per_block} launches) on {smi}")
     return rec, res
 
 
@@ -1760,15 +1816,179 @@ def single_run(input_dat, args):
     return json.loads(out.strip().splitlines()[-1]), got[-1]
 
 
-def launch_world(where: Path, input_dat: str, n: int, *args):
-    """``python -m heat_tpu_torch launch -n <n> -- run ...`` in ``where``."""
+def launch_world(where: Path, input_dat: str, n: int, *args,
+                 launch_args=()):
+    """``python -m heat_tpu_torch launch -n <n> [launch_args] -- run ...``
+    in ``where``."""
     where.mkdir(parents=True, exist_ok=True)
     (where / "input.dat").write_text(input_dat)
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     return subprocess.run(
         [sys.executable, "-m", "heat_tpu_torch", "launch", "-n", str(n),
-         "--deadline", "300", "--", "run", "--backend", "sharded", *args],
-        cwd=where, env=env, capture_output=True, text=True, timeout=400)
+         "--deadline", "300", *launch_args, "--", "run", "--backend",
+         "sharded", *args],
+        cwd=where, env=env, capture_output=True, text=True, timeout=700)
+
+
+RESTART_ARGS = ("--checkpoint-every", "8", "--async-io", "off")
+RESTART_RE = re.compile(r"^launch: restart (\{.*\})$", re.M)
+
+
+def restarted_world(key, input_dat, n_proc, args, names, crash="crash@20:proc=1"):
+    """A checkpointed world crashed by ``crash`` under ``launch
+    --max-restarts 2``, beside the same world uninterrupted: the soln
+    files ``names`` and gsum equal, exactly one ``launch_restart`` record,
+    resuming at 16 (the crash fires at the 24-step boundary, before that
+    boundary's checkpoint). Returns both worlds' records."""
+    recs = {}
+    for run, extra in (("clean", ()), ("crash", ("--inject", crash))):
+        where = WORK / f"restart_{key}_{run}"
+        t_w = time.perf_counter()
+        proc = launch_world(where, input_dat, n_proc, *args, *RESTART_ARGS,
+                            *extra, launch_args=("--max-restarts", "2"))
+        check(proc.returncode == 0, f"{key} {run} world rc "
+                                    f"{proc.returncode}: {proc.stderr[-2000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(rec["kernel"].startswith("cuda ftcs")
+              and sum(rec["launches"].values()) > 0,
+              f"{key} {run} world ran {rec['kernel']}")
+        restarts = [json.loads(m) for m in RESTART_RE.findall(proc.stderr)]
+        recs[run] = (rec, restarts, where, time.perf_counter() - t_w, proc)
+    (clean, _, cdir, _, _), (crash_rec, restarts, xdir, wall, proc) = (
+        recs["clean"], recs["crash"])
+    check(not recs["clean"][1], f"{key}: the clean world restarted")
+    same = all((cdir / f).read_bytes() == (xdir / f).read_bytes()
+               for f in names)
+    print(f"  {key}: restart records {restarts}")
+    print(f"  {key}: crashed world gsum {crash_rec['gsum']!r} (clean "
+          f"{clean['gsum']!r}), {len(names)} soln files equal: {same}, "
+          f"resumed: {'resumed from shard checkpoints at step 16' in proc.stdout}, "
+          f"{crash_rec['points_per_s']:.6g} points/s after the resume "
+          f"(clean {clean['points_per_s']:.6g}), {wall:.1f} s with the "
+          f"restart")
+    check(same and crash_rec["gsum"] == clean["gsum"],
+          f"{key}: the restarted world differs from the clean one")
+    check(len(restarts) == 1 and restarts[0]["event"] == "launch_restart"
+          and restarts[0]["resume_step"] == 16 and restarts[0]["rc"] == 43,
+          f"{key}: expected one restart resuming at 16, got {restarts}")
+    check("resumed from shard checkpoints at step 16" in proc.stdout,
+          f"{key}: the world did not resume from the shard files")
+    return clean, crash_rec
+
+
+def intervals_overlap_us(a, b) -> float:
+    """Microseconds during which some interval of ``a`` and some of ``b``
+    both run (each a list of (start, end) in us)."""
+    def merged(xs):
+        out = []
+        for s, e in sorted(xs):
+            if out and s <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], e)
+            else:
+                out.append([s, e])
+        return out
+
+    total, mb = 0.0, merged(b)
+    for s, e in merged(a):
+        for s2, e2 in mb:
+            total += max(0.0, min(e, e2) - max(s, s2))
+    return total
+
+
+def overlap_window(key, c, mesh, kf, comm, smi, blocks=3):
+    """``blocks`` ``--exchange overlap`` blocks at a main path's shard
+    shapes (shards on this card, ``LocalComm``) under ``torch.profiler``;
+    in the last block: the device time of the interior kernels, of the
+    side-stream copies (the staged round trips), and the microseconds in
+    which both run. A measurement: "not measured" where the profiler fails
+    or sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from heat_tpu_torch.backends import sharded
+    from heat_tpu_torch.ops import pass_schedule
+    from heat_tpu_torch.parallel import comm as pcomm
+    from heat_tpu_torch.parallel import mesh as pmesh
+
+    lc = pcomm.LocalComm(pmesh.RankMesh(mesh), "cuda",
+                         staged=comm == "staged")
+    step = sharded.make_local_multistep(
+        c.with_(exchange="overlap", comm=comm), lc, "cuda")
+    padded = [c.n // m + 2 * kf for m in mesh]
+    shards = [field(padded, torch.float32, seed=i)
+              for i in range(lc.mesh.size)]
+    shards = step(shards, kf, kf)   # warm: the buffers, the first launches
+    torch.cuda.synchronize()
+    trace = WORK / f"overlap_window_{comm}.json"
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(blocks):
+                shards = step(shards, kf, kf)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    except Exception as e:  # noqa: BLE001 — a measurement, not a check
+        print(f"  overlap window {key} {comm}: not measured "
+              f"({type(e).__name__}: {e})")
+        return None
+    device = [ev for ev in events if isinstance(ev.get("args"), dict)
+              and "stream" in ev["args"] and "dur" in ev]
+    cats = {}
+    for ev in device:
+        cats[(ev.get("cat"), ev["args"]["stream"])] = cats.get(
+            (ev.get("cat"), ev["args"]["stream"]), 0) + 1
+    print(f"  overlap window {key} {comm}: device events by (category, "
+          f"stream): {sorted(cats.items(), key=str)}")
+    # launches of a block: every call in its passes, the interior's first
+    passes = [len(pass_schedule.passes(s, "float32", kf)) for s in
+              block_calls([c.n // m + 2 * kf for m in mesh], kf, True)]
+    kernels = sorted((ev["ts"], ev["ts"] + ev["dur"], ev["args"]["stream"])
+                     for ev in device if ev.get("cat") == "kernel"
+                     and "ftcs" in ev.get("name", ""))
+    per_block = lc.mesh.size * sum(passes)
+    if len(kernels) < per_block:
+        print(f"  overlap window {key} {comm}: not measured ({len(kernels)} "
+              f"ftcs kernels in the trace, {per_block} a block)")
+        return None
+    # the last block: from the end of the block before it (its copies
+    # wait for that) to its last kernel
+    t_from = (kernels[-per_block - 1][1] if len(kernels) > per_block
+              else float("-inf"))
+    kernels = kernels[-per_block:]
+    main_stream = kernels[0][2]
+    interior = [(s, e) for s, e, _ in kernels[:lc.mesh.size * passes[0]]]
+    copies = [(ev["ts"], ev["ts"] + ev["dur"]) for ev in device
+              if "memcpy" in str(ev.get("cat", "")).lower()
+              and ev["args"]["stream"] != main_stream and ev["ts"] >= t_from]
+    t_end = kernels[-1][1]
+    t_start = max(t_from, min(s for s, _ in copies + interior))
+    busy = [(max(ev["ts"], t_start), min(ev["ts"] + ev["dur"], t_end))
+            for ev in device if ev["ts"] < t_end
+            and ev["ts"] + ev["dur"] > t_start]
+    res = dict(
+        busy_us=intervals_overlap_us(busy, [(t_start, t_end)]),
+        block_us=t_end - t_start,
+        interior_us=sum(e - s for s, e in interior),
+        kernels_us=sum(e - s for s, e, _ in kernels),
+        copies_us=sum(e - s for s, e in copies), copies=len(copies),
+        overlapped_us=intervals_overlap_us(copies, interior),
+        overlapped_any_us=intervals_overlap_us(
+            copies, [(s, e) for s, e, _ in kernels]),
+        window_us=max(e for _, e, _ in kernels) - kernels[0][0])
+    print(f"  overlap window, the last of {blocks} blocks of {key} {comm} "
+          f"({len(kernels)} ftcs kernels): interior {res['interior_us']:.1f} "
+          f"us, all kernels "
+          f"{res['kernels_us']:.1f} us, {res['copies']} side-stream copies "
+          f"{res['copies_us']:.1f} us, overlapped with the interior "
+          f"{res['overlapped_us']:.1f} us (with any kernel "
+          f"{res['overlapped_any_us']:.1f} us), first to last kernel "
+          f"{res['window_us']:.1f} us; the card busy {res['busy_us']:.1f} us "
+          f"of the block's {res['block_us']:.1f} us "
+          f"({res['busy_us'] / res['block_us']:.1%}), on {smi}")
+    del shards
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_sharded(smi):
@@ -1779,6 +1999,7 @@ def phase_sharded(smi):
     with shard bounds; the multi-process worlds; exchange times."""
     import functools
     import itertools
+    import math
     from unittest import mock
 
     import torch
@@ -1805,20 +2026,36 @@ def phase_sharded(smi):
     print(f"  32768^2 f32 single-device cuda: {rec1['points_per_s']:.6g} "
           f"points/s on {smi}")
     out["runs"]["32768 single"] = rec1
+    # each beside --exchange overlap (the interior and every region on the
+    # kernel while the halo flies): bytes of indep and of the single run
     for comm in ("staged", "direct"):
-        rec, res = sharded_main_path(
-            f"32768^2 f32 2x2 {comm}", HIP_DAT,
-            HIP_ARGS + ("--virtual-devices", "4", "--mesh", "2x2", "--comm",
-                        comm), 32768, (2, 2), "float32", 128, smi)
-        nd = ndiff_bits(res.T, T_ref)
-        print(f"  32768^2 2x2 {comm}: {nd} cells differ from the "
-              f"single-device run, gsum {rec['gsum']!r} vs {rec1['gsum']!r}")
-        check(nd == 0 and rec["gsum"] == rec1["gsum"],
-              f"32768^2 2x2 {comm} is not the single-device field")
-        out["runs"][f"32768 2x2 {comm}"] = rec
-        main[f"32768 2x2 {comm}"] = (res.cfg, res.mesh_shape, rec["kf"])
-        del res
-        torch.cuda.empty_cache()
+        T_indep = None
+        for form in ("indep", "overlap"):
+            key = f"32768 2x2 {comm}" + (" overlap" if form == "overlap"
+                                         else "")
+            rec, res = sharded_main_path(
+                f"32768^2 f32 2x2 {comm} {form}", HIP_DAT,
+                HIP_ARGS + ("--virtual-devices", "4", "--mesh", "2x2",
+                            "--comm", comm, "--exchange", form), 32768,
+                (2, 2), "float32", 128, smi)
+            nd = ndiff_bits(res.T, T_ref)
+            ni = 0 if T_indep is None else ndiff_bits(res.T, T_indep)
+            print(f"  32768^2 2x2 {comm} {form}: {nd} cells differ from the "
+                  f"single-device run, {ni} from indep, gsum "
+                  f"{rec['gsum']!r} vs {rec1['gsum']!r}")
+            check(nd == 0 and ni == 0 and rec["gsum"] == rec1["gsum"],
+                  f"32768^2 2x2 {comm} {form} is not the single-device field")
+            out["runs"][key] = rec
+            main[key] = (res.cfg, res.mesh_shape, rec["kf"])
+            if T_indep is None:
+                T_indep = res.T
+            del res
+            torch.cuda.empty_cache()
+        ratio = (out["runs"][f"32768 2x2 {comm} overlap"]["points_per_s"]
+                 / out["runs"][f"32768 2x2 {comm}"]["points_per_s"])
+        print(f"  32768^2 2x2 {comm}: overlap {ratio:.4f}x indep points/s on "
+              f"{smi}")
+        del T_indep
     del T_ref
 
     # 2. 512^3 f32 at sigma 1/6, 2x2x1 shards, 64 steps, edges and ghost
@@ -1827,19 +2064,34 @@ def phase_sharded(smi):
         args = ("--ndim", "3", "--bc", bc, "--dtype", "float32", "--json",
                 "--report-sum")
         rec_s, single = single_run(dat3, args)
-        rec, res = sharded_main_path(
-            f"512^3 f32 2x2x1 {bc}", dat3,
-            args + ("--virtual-devices", "4", "--mesh", "2x2x1"), 512,
-            (2, 2, 1), "float32", 64, smi)
-        nd = ndiff_bits(res.T, single.T)
-        print(f"  512^3 2x2x1 {bc}: {nd} cells differ from the single-device "
-              f"run ({rec_s['points_per_s']:.6g} points/s)")
-        check(nd == 0, f"512^3 2x2x1 {bc} is not the single-device field")
-        out["runs"][f"512^3 2x2x1 {bc}"] = rec
         out["runs"][f"512^3 single {bc}"] = rec_s
-        main[f"512^3 2x2x1 {bc}"] = (res.cfg, res.mesh_shape, rec["kf"])
-        del res, single
-        torch.cuda.empty_cache()
+        T_indep = None
+        for form in ("indep", "overlap"):
+            key = f"512^3 2x2x1 {bc}" + (" overlap" if form == "overlap"
+                                         else "")
+            rec, res = sharded_main_path(
+                f"512^3 f32 2x2x1 {bc} {form}", dat3,
+                args + ("--virtual-devices", "4", "--mesh", "2x2x1",
+                        "--exchange", form), 512, (2, 2, 1), "float32", 64,
+                smi)
+            nd = ndiff_bits(res.T, single.T)
+            ni = 0 if T_indep is None else ndiff_bits(res.T, T_indep)
+            print(f"  512^3 2x2x1 {bc} {form}: {nd} cells differ from the "
+                  f"single-device run ({rec_s['points_per_s']:.6g} "
+                  f"points/s), {ni} from indep")
+            check(nd == 0 and ni == 0,
+                  f"512^3 2x2x1 {bc} {form} is not the single-device field")
+            out["runs"][key] = rec
+            main[key] = (res.cfg, res.mesh_shape, rec["kf"])
+            if T_indep is None:
+                T_indep = res.T
+            del res
+            torch.cuda.empty_cache()
+        ratio = (out["runs"][f"512^3 2x2x1 {bc} overlap"]["points_per_s"]
+                 / out["runs"][f"512^3 2x2x1 {bc}"]["points_per_s"])
+        print(f"  512^3 2x2x1 {bc}: overlap {ratio:.4f}x indep points/s on "
+              f"{smi}")
+        del single, T_indep
 
     # 3. the formulations at 8192^2, 64 steps: staged = direct, the
     # parity order (IC start) = the default order (both on the torch
@@ -1865,23 +2117,31 @@ def phase_sharded(smi):
     # 4. bf16 through the kernel against the same sharded path on the
     # plain bounded version on the card
     plain = functools.partial(cs.ftcs_multistep_bounded_cuda, plain=True)
-    for c in (cfg.with_(dtype="bfloat16"),
-              HeatConfig(n=256, ndim=3, sigma=SIGMA_3D, ntime=64,
-                         dtype="bfloat16", mesh_shape=(2, 2, 1),
-                         bc="ghost", backend="sharded")):
-        cs.reset_launches()
-        got = field_of(c)
-        name = cs._KERNELS[c.ndim]
-        check(cs.launches[name] > 0, f"bf16 {c.n} never launched {name}")
-        with mock.patch.object(sharded, "ftcs_multistep_bounded_cuda", plain):
+    bf16_overlap = []
+    for c0 in (cfg.with_(dtype="bfloat16"),
+               HeatConfig(n=256, ndim=3, sigma=SIGMA_3D, ntime=64,
+                          dtype="bfloat16", mesh_shape=(2, 2, 1),
+                          bc="ghost", backend="sharded")):
+        for c in (c0, c0.with_(exchange="overlap")):
             cs.reset_launches()
-            want = field_of(c)
-            check(cs.launches[name] == 0, "the plain path launched")
-        nd = ndiff_bits(got, want)
-        print(f"  {c.n}^{c.ndim} bf16 {'x'.join(map(str, c.mesh_shape))}: "
-              f"kernel vs plain bounded version, {nd} cells differ")
-        check(nd == 0, f"bf16 {c.n}^{c.ndim} kernel != plain")
-        del got, want
+            got = field_of(c)
+            name = cs._KERNELS[c.ndim]
+            check(cs.launches[name] > 0, f"bf16 {c.n} never launched {name}")
+            with mock.patch.object(sharded, "ftcs_multistep_bounded_cuda",
+                                   plain):
+                cs.reset_launches()
+                want = field_of(c)
+                check(cs.launches[name] == 0, "the plain path launched")
+            nd = ndiff_bits(got, want)
+            print(f"  {c.n}^{c.ndim} bf16 {'x'.join(map(str, c.mesh_shape))} "
+                  f"{c.exchange}: kernel vs plain bounded version, {nd} "
+                  f"cells differ")
+            check(nd == 0, f"bf16 {c.n}^{c.ndim} {c.exchange} kernel != plain")
+            if c.exchange == "overlap":
+                kf = sharded.fuse_depth_sharded(c, c.mesh_shape)
+                bf16_overlap.append((f"{c.n}^{c.ndim} bf16 overlap", c,
+                                     c.mesh_shape, kf))
+            del got, want
 
     # 5. the bounded kernels with shard bounds, corner / edge / inner
     # shards of 3-wide meshes, at kf and at a remainder depth: owned cells
@@ -1966,6 +2226,57 @@ def phase_sharded(smi):
               f"{depths}, r {c.r!r}, {c.bc} BC")
     print(f"  {nmain} main-path shard cases, 0 differing bytes")
 
+    # 5c. the overlap runs' kernel calls: the interior (bounds that freeze
+    # nothing) and every region of every shard with its shifted bounds, at
+    # each run's depths (kf, and the remainder block's), the kept cells
+    # against the plain version; the kernel rows of the main path's
+    # overlap take a face region's error and plain time from these
+    nreg, seen = 0, set()
+    overlap_runs = [(key, c, mesh, kf) for key, (c, mesh, kf) in main.items()
+                    if c.exchange == "overlap"] + bf16_overlap
+    for key, c, mesh, kf in overlap_runs:
+        name = cs._KERNELS[c.ndim]
+        padded = [c.n // m + 2 * kf for m in mesh]
+        depths = {kf} | ({c.ntime % kf} if c.ntime % kf else set())
+        regions = sharded.overlap_regions(padded, kf)
+        face = max(regions[1:c.ndim + 1], key=lambda rg: rg[1])
+        for co in itertools.product(*(range(m) for m in mesh)):
+            full = sharded.shard_bounds(c.bc, co, mesh, padded, kf)
+            for sigma, shape in regions:
+                if not any(sigma):
+                    b = [-cs._NO_FREEZE, cs._NO_FREEZE] * c.ndim
+                    keep = tuple(slice(kf, s - kf) for s in shape)
+                else:
+                    origin = [0 if s < 0 else L - 3 * kf if s > 0 else kf
+                              for s, L in zip(sigma, padded)]
+                    b = [v - origin[j // 2] for j, v in enumerate(full)]
+                    keep = tuple(slice(kf, 2 * kf) if s
+                                 else slice(kf, L - 3 * kf)
+                                 for s, L in zip(sigma, padded))
+                for k in sorted(depths, reverse=True):
+                    case = (tuple(shape), tuple(b), k, c.dtype, c.r)
+                    if case in seen:
+                        continue
+                    seen.add(case)
+                    T = field(shape, torch_dtype(c.dtype), seed=nreg)
+                    err, plain_ms = agree(f"{key} region {sigma} of {co}", T,
+                                          c.r, k, b, keep)
+                    nreg += 1
+                    del T
+                    if not (c.dtype == "float32" and key in main
+                            and (sigma, shape) == face):
+                        continue
+                    row = out["kernels"].setdefault((name, tuple(shape)), dict(
+                        key=key, kf=kf, r=c.r, err=0.0, bounds=b,
+                        k=max(pass_schedule.passes(shape, c.dtype, kf)),
+                        what="overlap face region"))
+                    row["err"] = max(row["err"], err)
+        torch.cuda.empty_cache()
+        print(f"  {key}: kernel = plain version on the interior and "
+              f"{len(regions) - 1} regions of each of {math.prod(mesh)} "
+              f"shards at depths {sorted(depths)}")
+    print(f"  {nreg} overlap region cases, 0 differing bytes")
+
     # 6. the multi-process worlds at 2048^2: launch -n 2 staged over gloo
     # (two ranks share the card), launch -n 1 direct (a 1-rank NCCL
     # world), against --virtual-devices 2 in this process; launch -n 2
@@ -2005,11 +2316,20 @@ def phase_sharded(smi):
               f"launch {key} differs from the in-process run")
         out["runs"][f"2048 launch {key}"] = rec
     proc = launch_world(WORK / "mp_direct2", dat, 2, *args, "--mesh", "2x1",
-                        "--comm", "direct")
+                        "--comm", "direct", launch_args=("--max-restarts",
+                                                         "0"))
     refused = proc.returncode != 0 and "--comm staged" in proc.stderr
     print(f"  launch 2 ranks direct on one card: rc {proc.returncode}, "
           f"refused naming --comm staged: {refused}")
     check(refused, "launch -n 2 --comm direct did not refuse")
+    # a checkpointed 2-rank world (staged, the ranks sharing the card)
+    # crashed at step 20 by rank 1 and restarted by the supervisor
+    clean, crashed = restarted_world(
+        "2048^2 2 ranks staged", dat, 2,
+        args + ("--mesh", "2x1", "--comm", "staged"),
+        ["soln.dat", "soln00000.dat", "soln00001.dat"])
+    out["runs"]["2048 restarted world"] = crashed
+    out["runs"]["2048 clean checkpointed world"] = clean
 
     # 7. times: one exchange alone (CUDA events) at the main path's shard
     # shapes and kf, and each kernel's deepest pass at its shard shape
@@ -2028,22 +2348,54 @@ def phase_sharded(smi):
             print(f"  one {comm} exchange at {key} (kf {kf}): {ms:.4f} ms, "
                   f"{per:.0f} bytes received by the shards, on {smi}")
             del shards
+    for key, name in (("32768 2x2 direct overlap", "32768^2 2x2"),
+                      ("512^3 2x2x1 edges overlap", "512^3 2x2x1 edges")):
+        c, mesh, kf = main[key]
+        for comm in ("staged", "direct"):
+            out["times"][f"overlap window {name} {comm}"] = overlap_window(
+                name, c, mesh, kf, comm, smi)
     for (name, shape), t in out["kernels"].items():
         A = field(shape, torch.float32, seed=3)
         B = torch.empty_like(A)
         ms = event_ms(lambda: cs._launch(A, t["r"], t["k"], t["bounds"], B),
                       20)
+        if "plain_ms" not in t:   # one plain pass at the row's depth
+            t["plain_ms"] = event_ms(lambda: cs._pass(
+                A, t["r"], t["k"], t["bounds"], plain=True), 1)
         bound_s, bound_by = dm.pass_bound_s(A.numel(), 4, t["k"],
                                             ndim=len(shape))
         t.update(ms=ms, bound_ms=bound_s * 1e3, bound_by=bound_by)
-        print(f"  {name} {'x'.join(map(str, shape))} f32 k={t['k']} (shard "
-              f"(0, ...) of {t['key']}): {ms:.4f} ms/pass (plain "
+        print(f"  {name} {'x'.join(map(str, shape))} f32 k={t['k']} "
+              f"({t.get('what', 'shard')} (0, ...) of {t['key']}): "
+              f"{ms:.4f} ms/pass (plain "
               f"{t['plain_ms']:.2f} ms, bound {bound_s * 1e3:.4f} ms by "
               f"{bound_by}, {bound_s * 1e3 / ms:.1%} of it) on {smi}")
         del A, B
         torch.cuda.empty_cache()
     print(f"[phase 7] sharded backend done ({time.perf_counter() - t0:.1f} s)")
     return out
+
+
+def phase_card_tests():
+    """The card-only pytest cases (``tests/test_torch_card.py``, which
+    imports neither JAX nor heat_tpu): every case must pass; a skip or a
+    failure fails the run."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p",
+         "no:cacheprovider", "-m", "cuda", "-q", "-rs",
+         "tests/test_torch_card.py"],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+        capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    print("".join(f"    | {line}\n" for line in lines[-12:]), end="")
+    summary = lines[-1] if lines else ""
+    check(proc.returncode == 0 and "passed" in summary
+          and not re.search(r"skipped|failed|error|deselected", summary),
+          f"card-only pytest cases: {summary!r} (rc {proc.returncode}): "
+          f"{proc.stderr[-2000:]}")
+    print(f"[phase card] tests/test_torch_card.py -m cuda: {summary} "
+          f"({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_worlds():
@@ -2092,6 +2444,39 @@ def phase_worlds():
             check(same and rec["gsum"] == local_rec["gsum"]
                   and rec["kernel"].startswith("cuda ftcs"),
                   f"the {comm} world differs from one process")
+    # hip.dat at full width on 2x2 ranks, direct over NCCL between the
+    # cards: --exchange overlap beside indep, sums equal (no soln files at
+    # this size), points/s of each world
+    if cards >= 4:
+        recs = {}
+        for form in ("indep", "overlap"):
+            where = WORK / f"worlds_hip_{form}"
+            t_w = time.perf_counter()
+            proc = launch_world(where, HIP_DAT, 4, *HIP_ARGS, "--mesh", "2x2",
+                                "--comm", "direct", "--exchange", form)
+            check(proc.returncode == 0, f"hip.dat {form} world rc "
+                                        f"{proc.returncode}: "
+                                        f"{proc.stderr[-2000:]}")
+            rec = recs[form] = json.loads(proc.stdout.strip().splitlines()[-1])
+            check(rec["kernel"] == "cuda ftcs2d" and rec["exchange"] == form
+                  and rec["launches"]["ftcs2d"] > 0,
+                  f"hip.dat {form} world ran {rec['kernel']}")
+            print(f"[worlds] hip.dat 32768^2 f32 ghost, 4 ranks direct "
+                  f"(NCCL) {form}: {rec['points_per_s']:.6g} points/s, "
+                  f"kf {rec['kf']}, {rec['exchanges']} exchanges, "
+                  f"{rec['launches']['ftcs2d']} ftcs2d launches on rank 0, "
+                  f"gsum {rec['gsum']!r}, "
+                  f"{time.perf_counter() - t_w:.1f} s with start-up")
+        check(recs["overlap"]["gsum"] == recs["indep"]["gsum"],
+              "the overlap world's sum differs from indep")
+        print(f"[worlds] hip.dat overlap "
+              f"{recs['overlap']['points_per_s'] / recs['indep']['points_per_s']:.4f}x "
+              f"indep points/s across {cards} cards")
+    # a checkpointed world of one rank per card, crashed and restarted
+    restarted_world(f"1024^2 {cards} ranks direct",
+                    "1024 0.2 0.05 2.0 37 1\n", cards,
+                    common + ("--bc", "ghost", "--comm", "direct"),
+                    ["soln.dat"] + [f"soln{i:05d}.dat" for i in range(cards)])
 
 
 def main() -> int:
@@ -2119,6 +2504,7 @@ def main() -> int:
         return 0
     try:
         phase_build()
+        phase_card_tests()
         errs = phase_compare()
         times = phase_times()
         errs.update(phase_lane_compare())
@@ -2210,7 +2596,8 @@ def main() -> int:
                             f"{name}")
         kernels.append(dict(
             name=(f"{name} {'x'.join(map(str, shape))} f32 k={t['k']} "
-                  f"(sharded {t['key'].split()[1]} shard)"),
+                  f"(sharded {t['key'].split()[1]} "
+                  f"{t.get('what', 'shard')})"),
             route="cuda", source=SOURCES[name],
             replaces=K2 if name == "ftcs2d" else K3,
             launches=launches, max_abs_err=t["err"],

@@ -57,11 +57,16 @@ class FieldOps:
     processes, until every rank got there) before a clock read;
     ``finite_flag`` is an all-finite flag ``raise_if_flagged`` reads;
     ``gather`` is the whole owned field as one tensor, on any device, or
-    None on a rank that does not hold it."""
+    None on a rank that does not hold it; ``shard_blocks`` is None where a
+    checkpoint is the gathered field, else this rank's owned blocks as
+    ``(global start offsets, host tensor)``, saved as its shard file (a
+    world of several ranks, the reference's branch for a field that is not
+    fully addressable)."""
 
     sync: Callable[[Any], Any] = sync
     finite_flag: Callable[[Any], Any] = debug.finite_flag
     gather: Callable[[Any], Any] = lambda T: T
+    shard_blocks: Callable[[Any], Any] = lambda T: None
 
 
 TENSOR = FieldOps()
@@ -146,19 +151,26 @@ def drive(
                  else None)
     rollbacks_at: dict = {}
 
-    def _submit_snapshot(T_snap, at_step: int) -> None:
-        check = cfg.check_numerics
-
-        def job():
-            # the device-to-host copy lands HERE, in the writer thread
-            T_ck = ops.gather(T_snap).detach().cpu()
+    def _persist(T, at_step: int, check: bool) -> None:
+        """Write boundary ``at_step``: the gathered field, or this rank's
+        shard file; with ``check``, a non-finite field never reaches disk."""
+        blocks = ops.shard_blocks(T)
+        if blocks is None:
+            T_ck = ops.gather(T).detach().cpu()
             if check:
-                # the writer re-validates the snapshot it is about to
-                # persist: a non-finite field never reaches disk
                 debug.check_finite(T_ck, at_step, label="checkpoint snapshot")
             checkpoint.save(cfg, T_ck, at_step)
+            return
+        if check:
+            for _, b in blocks:
+                debug.check_finite(b, at_step, label="checkpoint snapshot")
+        checkpoint.save_shards(cfg, blocks, at_step)
 
-        writer.submit(job)
+    def _submit_snapshot(T_snap, at_step: int) -> None:
+        check = cfg.check_numerics
+        # the device-to-host copy lands in the writer thread; the writer
+        # re-validates the snapshot it is about to persist
+        writer.submit(lambda: _persist(T_snap, at_step, check))
 
     def _try_rollback(bad_step: int) -> bool:
         """Restore the last verified-finite boundary after a flagged one;
@@ -244,7 +256,7 @@ def drive(
                             # flag-verified snapshots
                         else:
                             ops.sync(T_dev)
-                            checkpoint.save(cfg, ops.gather(T_dev), step)
+                            _persist(T_dev, step, False)
                 if pending_flag is None or not _settle_pending():
                     break
                 # final boundary flagged and rolled back: resume stepping
@@ -294,6 +306,47 @@ def resolve_initial_field(cfg: HeatConfig, T0: Optional[np.ndarray], device):
     # not alias the caller's array
     T = torch.tensor(np.asarray(T0_host), device=device)
     return T.to(torch_dtype(cfg.dtype)), start_step
+
+
+def _agree_resume_step(local_step: Optional[int]) -> Optional[int]:
+    """The shard-checkpoint step every rank of the world resumes at: the
+    MINIMUM of the ranks' newest valid steps (a crash between two ranks'
+    saves leaves them holding different ones, and ranks that start at
+    different steps desynchronise the exchanges). A rank with no shard file
+    pulls every rank down to none (-1 on the wire): all start over
+    together, never one from its initial condition against peers mid-run.
+    An ``all_gather_object`` over the world's gloo group."""
+    import torch.distributed as dist
+
+    local = -1 if local_step is None else int(local_step)
+    agreed = local
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        from ..parallel.dist import host_group
+
+        steps = [None] * dist.get_world_size()
+        dist.all_gather_object(steps, local, group=host_group())
+        agreed = min(steps)
+        if agreed != local:
+            master_print(f"shard-checkpoint resume: local step {local} vs "
+                         f"world-wide agreed step {agreed}")
+    return None if agreed < 0 else agreed
+
+
+def resume_from_shards(cfg: HeatConfig) -> Optional[tuple]:
+    """``(blocks, step)`` of this rank's shard file at the step the world
+    agrees on, each block ``(global start offsets, host array)``; None
+    when there is none, or when a newer global checkpoint exists (shard
+    files are preferred over an older global file only). Every rank of
+    the world must call it: the agreement is a collective."""
+    sstep = _agree_resume_step(checkpoint.latest_shards(cfg, max_step=cfg.ntime))
+    if sstep is None:
+        return None
+    gstep = checkpoint.latest_step(cfg, max_step=cfg.ntime)
+    if gstep is not None and sstep < gstep:
+        return None
+    blocks, step = checkpoint.load_shards(cfg, sstep)
+    master_print(f"resumed from shard checkpoints at step {step}")
+    return blocks, step
 
 
 def load_or_init(cfg: HeatConfig, T0: Optional[np.ndarray], default_ic: bool = True):

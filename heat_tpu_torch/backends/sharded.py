@@ -38,6 +38,7 @@ checks and injected faults read and write the owned cells through
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -50,12 +51,12 @@ from ..ops.cuda_stencil import (_NO_FREEZE, ftcs_multistep_bounded_cuda,
 from ..ops.pass_schedule import KMAX_2D, KMAX_3D, effective_chunk_2d
 from ..ops.stencil import accum_dtype_for, laplacian_interior
 from ..parallel.comm import DistComm, LocalComm
-from ..parallel.halo import halo_exchange, halo_pad
+from ..parallel.halo import halo_exchange, halo_pad, post_axis
 from ..parallel.mesh import build_mesh, validate_divisible
 from ..runtime.logging import master_print
 from ..utils import torch_dtype
 from . import SolveResult, register
-from .common import FieldOps, drive, load_or_init
+from .common import FieldOps, drive, load_or_init, resume_from_shards
 
 class ShardField:
     """This process's shards of the field: each the owned block inside a
@@ -97,21 +98,49 @@ def _all_finite(F: ShardField) -> bool:
                                for o in F.owned()))
 
 
+def _saves_shards(comm) -> bool:
+    """A world of several ranks checkpoints per-rank shard files; shards
+    in one process write the global file."""
+    return isinstance(comm, DistComm) and comm.mesh.size > 1
+
+
+def _shard_blocks(F: ShardField):
+    """This rank's owned blocks with their global start offsets, on the
+    host, where the run saves shard files; else None."""
+    if not _saves_shards(F.comm):
+        return None
+    return [(tuple(b.start for b in F.comm.mesh.block(rank, F.n)),
+             o.contiguous().cpu())
+            for rank, o in zip(F.comm.ranks, F.owned())]
+
+
 SHARD_OPS = FieldOps(sync=lambda F: F.comm.sync(), finite_flag=_all_finite,
-                     gather=lambda F: F.comm.gather(F.owned(), F.n))
+                     gather=lambda F: F.comm.gather(F.owned(), F.n),
+                     shard_blocks=_shard_blocks)
 
 
 def resolve_local_kernel(cfg: HeatConfig, comm, padded_shape) -> str:
     """``cuda`` or ``torch`` for this run's shards (see the module
     docstring); an explicit ``cuda`` without a kernel raises, and an
-    ``auto`` that runs the plain step on the card says why."""
-    if cfg.local_kernel == "torch":
-        return "torch"
-    if kernel_available(padded_shape, torch_dtype(cfg.dtype)):
-        on_card = all(d.type == "cuda" for d in comm.devices)
-        return "cuda" if cfg.local_kernel == "cuda" or on_card else "torch"
+    ``auto`` that runs the plain step on the card says why. The overlap
+    exchange is built on the bounded kernel: without it, it raises."""
+    available = kernel_available(padded_shape, torch_dtype(cfg.dtype))
+    on_card = all(d.type == "cuda" for d in comm.devices)
     why = ("the stencil kernels have no f64 path" if cfg.dtype == "float64"
            else f"no kernel plan for the shard shape {tuple(padded_shape)}")
+    if cfg.exchange == "overlap" and not (
+            available and (cfg.local_kernel == "cuda"
+                           or cfg.local_kernel == "auto" and on_card)):
+        raise ValueError(
+            f"exchange='overlap' requires the stencil kernel (the interior/"
+            f"rim split is built on the bounded multistep kernel; here "
+            f"local_kernel={cfg.local_kernel!r}"
+            + ("" if available else f", {why}")
+            + "); use local_kernel='cuda', or exchange='indep'")
+    if cfg.local_kernel == "torch":
+        return "torch"
+    if available:
+        return "cuda" if cfg.local_kernel == "cuda" or on_card else "torch"
     if cfg.local_kernel == "cuda":
         raise ValueError(
             f"local_kernel='cuda' does not support dtype={cfg.dtype!r} at "
@@ -163,11 +192,203 @@ def shard_bounds(bc: str, coords, mesh_shape, padded_shape, wpad: int) -> list:
     return bounds
 
 
+def _span(s: int, w: int, size: int) -> slice:
+    """On one axis of a padded shard of extent ``size``, the cells region
+    side ``s`` reads: within ``3w`` of the low (-1) or high (+1) array
+    edge, or the owned span (0)."""
+    return (slice(w, size - w) if s == 0 else slice(0, 3 * w) if s < 0
+            else slice(size - 3 * w, size))
+
+
+def overlap_regions(padded_shape, w: int) -> list:
+    """``(sigma, shape)`` of every kernel call of one overlap block on a
+    shard of ``padded_shape``, the shape its passes are planned at: the
+    interior first (sigma all 0; the owned block's passes), then the
+    ``3^nd - 1`` boundary regions (their inputs' shapes), faces before
+    edges and corners within each highest axis; a tiny shard (owned extent
+    < 2w on an axis) takes the wide form, one 3w-deep band per face."""
+    nd = len(padded_shape)
+    owned = tuple(s - 2 * w for s in padded_shape)
+    out = [((0,) * nd, owned)]
+    if min(owned) < 2 * w:
+        for d in range(nd):
+            for s in (-1, 1):
+                out.append((tuple(s if e == d else 0 for e in range(nd)),
+                            tuple(3 * w if e == d else padded_shape[e]
+                                  for e in range(nd))))
+        return out
+    for top in range(nd):
+        for sigma in sorted((sg for sg in itertools.product((-1, 0, 1),
+                                                            repeat=nd)
+                             if any(sg) and max(d for d in range(nd)
+                                                if sg[d]) == top),
+                            key=lambda sg: sum(map(abs, sg))):
+            out.append((sigma, tuple(L - 2 * w if s == 0 else 3 * w
+                                     for s, L in zip(sigma, padded_shape))))
+    return out
+
+
+def make_overlap_multistep(cfg: HeatConfig, comm):
+    """``padded_multi`` (see ``make_local_multistep``) with the exchange in
+    flight while the shards compute: ``padded_multi_overlap`` and
+    ``_overlap_wide`` of heat_tpu's sharded backend, the same bytes.
+
+    Per fused block of ``ksteps <= w`` steps on each padded shard:
+
+    1. **Interior**: the owned cells at least ``w`` from every shard edge
+       read, within ``ksteps`` steps, only owned cells, so they step from
+       the PRE-exchange field with bounds that freeze nothing: one kernel
+       call on the whole padded shard, written straight into the output,
+       cut into the passes of the owned block. Axis 0's exchange is posted
+       before these kernels are enqueued (NCCL's stream waits on the work
+       before the post), so it flies under them.
+    2. **Exchange**: the per-face receive slabs of the indep form
+       (``parallel.halo.post_axis``), never written into one array. Axis
+       d + 1 is posted once axis d's slabs have landed, as its sends stitch
+       in axis d's corners.
+    3. **Regions**: the ``3^nd - 1`` boundary regions (the cells within w
+       of the faces ``sigma`` marks). Each region's input is the
+       pre-exchange data plus only its own faces' slabs, written in axis
+       order (later axes own the corners); the kernel runs on it with the
+       shard's bounds shifted to its origin, and its w-deep kept part goes
+       to the output. A region runs as soon as its highest axis's slabs
+       have landed, inside the next axis's flight window.
+
+    Shards with an owned extent below 2w take the wide form: the whole
+    exchange, written into the margins, then one 3w-deep band per face
+    sliced from the written array (earlier axes' bands own the corners).
+
+    Every kernel call is planned by ``pass_schedule`` at its own input
+    shape, as the reference plans each, so bf16 rounds where the
+    reference's overlap rounds. The output of each shard goes into a
+    second buffer, swapped with the input at the next block: slabs of a
+    direct ``LocalComm`` are views of the neighbours' padded arrays, so no
+    input is written while a region may still read it."""
+    r = cfg.r
+    bc_value = cfg.bc_value
+    mesh = comm.mesh
+    coords = [mesh.coords(rank) for rank in comm.ranks]
+    spare: dict = {}
+
+    def out_buffer(i: int, p: torch.Tensor) -> torch.Tensor:
+        """Shard i's output: the input of the block before (its margins
+        are garbage by contract, as every block's output margins are)."""
+        b = spare.get(i)
+        if (b is None or b.shape != p.shape or b.dtype != p.dtype
+                or b.device != p.device or b.data_ptr() == p.data_ptr()):
+            b = torch.empty_like(p)
+        spare[i] = p
+        return b
+
+    def region_input(p, recv, sigma, w):
+        Lp = p.shape
+        nd = p.dim()
+        inp = p[tuple(_span(s, w, L) for s, L in zip(sigma, Lp))].clone(
+            memory_format=torch.contiguous_format)
+        for d, s in enumerate(sigma):
+            if s == 0:
+                continue
+            slab = recv[d][0 if s < 0 else 1]
+            dst = [slice(None)] * nd
+            dst[d] = slice(0, w) if s < 0 else slice(2 * w, 3 * w)
+            inp[tuple(dst)] = slab[tuple(
+                slice(None) if e == d else _span(se, w, Lp[e])
+                for e, se in enumerate(sigma))]
+        return inp
+
+    def run_region(out, inp, origin, bounds, ksteps, keep, dst) -> None:
+        """The kernel on one region's input (the shard's bounds shifted to
+        the input's ``origin``), ``out[dst] = band[keep]``."""
+        bnd = [b - origin[j // 2] for j, b in enumerate(bounds)]
+        _put(out, dst, ftcs_multistep_bounded_cuda(inp, r, ksteps, bnd), keep)
+
+    def padded_multi(shards: Sequence[torch.Tensor], w: int,
+                     ksteps: int) -> List[torch.Tensor]:
+        nd = shards[0].dim()
+        Lp = tuple(shards[0].shape)
+        regions = overlap_regions(Lp, w)
+        wide = min(Lp) - 2 * w < 2 * w
+        recvs: dict = {}
+        pending = (None if wide
+                   else post_axis(shards, recvs, 0, comm, bc_value, w))
+        # 1) the interior, from the PRE-exchange field: the kernel on the
+        # whole padded shard, straight into the output, in the passes of
+        # the owned block (the reference steps the owned block alone).
+        # Its kept cells, 2w and more from the array edge, reach within
+        # ksteps <= w steps only owned cells, so they are the bytes of the
+        # owned block's call; the rest of the output is overwritten by the
+        # regions or is margin
+        nofreeze = [-_NO_FREEZE, _NO_FREEZE] * nd
+        outs = [ftcs_multistep_bounded_cuda(p, r, ksteps, nofreeze,
+                                            out=out_buffer(i, p),
+                                            plan_shape=regions[0][1])
+                for i, p in enumerate(shards)]
+        bounds = [shard_bounds(cfg.bc, c, mesh.shape, Lp, w) for c in coords]
+
+        def rim(s: int, L: int) -> tuple:
+            """The w-deep owned rim of face ``s``: its place in a 3w-deep
+            input and in the shard."""
+            return (slice(w, 2 * w), slice(w, 2 * w) if s < 0
+                    else slice(L - 2 * w, L - w))
+
+        if wide:
+            # the whole exchange into the margins (the interior above read
+            # owned cells only), then one band per face
+            halo_exchange(shards, comm, bc_value, width=w)
+            for sigma, _ in regions[1:]:
+                d = next(e for e, s in enumerate(sigma) if s)
+                src = [slice(None)] * nd
+                src[d] = _span(sigma[d], w, Lp[d])
+                origin = [0] * nd
+                origin[d] = src[d].start
+                # earlier axes' bands own the corners
+                keep = [slice(2 * w, L - 2 * w) if e < d else slice(w, L - w)
+                        for e, L in enumerate(Lp)]
+                dst = list(keep)
+                keep[d], dst[d] = rim(sigma[d], Lp[d])
+                for i, p in enumerate(shards):
+                    run_region(outs[i], p[tuple(src)], origin, bounds[i],
+                               ksteps, keep, dst)
+            return outs
+        # 2) + 3) each axis's slabs, then the regions whose highest axis
+        # it is, in the next axis's flight window
+        for d in range(nd):
+            recvs[d] = pending()
+            if d + 1 < nd:
+                pending = post_axis(shards, recvs, d + 1, comm, bc_value, w)
+            for sigma, _ in regions[1:]:
+                if max(e for e, s in enumerate(sigma) if s) != d:
+                    continue
+                origin = [_span(s, w, L).start for s, L in zip(sigma, Lp)]
+                keep = [rim(s, L)[0] if s else slice(w, L - 3 * w)
+                        for s, L in zip(sigma, Lp)]
+                dst = [rim(s, L)[1] if s else slice(2 * w, L - 2 * w)
+                       for s, L in zip(sigma, Lp)]
+                for i, p in enumerate(shards):
+                    recv = {e: recvs[e][i] for e in range(d + 1)}
+                    run_region(outs[i], region_input(p, recv, sigma, w),
+                               origin, bounds[i], ksteps, keep, dst)
+        return outs
+
+    return padded_multi
+
+
+def _put(out, dst, src, keep) -> None:
+    """``out[dst] = src[keep]``, skipping an empty span (tiny shards)."""
+    if any(s.stop <= s.start for s in dst):
+        return
+    out[tuple(dst)] = src[tuple(keep)]
+
+
 def make_local_multistep(cfg: HeatConfig, comm, kernel: str):
     """``padded_multi(shards, wpad, ksteps)`` over the shards of ``comm``:
     exchanges the width-``wpad`` ghost rings, then runs ``ksteps <= wpad``
     fused steps on each padded shard (input and output padded; the
-    output's margins are garbage)."""
+    output's margins are garbage). With ``--exchange overlap`` the
+    exchange flies while the shards compute
+    (``make_overlap_multistep``)."""
+    if cfg.exchange == "overlap":
+        return make_overlap_multistep(cfg, comm)
     r = cfg.r
     bc_value = cfg.bc_value
     periodic = cfg.bc == "periodic"
@@ -325,18 +546,26 @@ def make_comm(cfg: HeatConfig, device, virtual_devices: Optional[int] = None):
 
 
 def _initial_shards(cfg: HeatConfig, T0, comm):
-    """(owned shards, start_step): explicit T0 > checkpoint (host arrays,
-    each shard's block copied over) > each shard's block of the IC built
-    on its device."""
+    """(owned shards, start_step): explicit T0 > checkpoint (a world of
+    several ranks: this rank's shard file at the agreed step, unless a
+    newer global file exists; host arrays, each shard's block copied over)
+    > each shard's block of the IC built on its device."""
     from ..grid import initial_condition_device
 
-    T0_host, start_step = load_or_init(cfg, T0, default_ic=False)
     blocks = [comm.mesh.block(rank, cfg.n) for rank in comm.ranks]
+    dt = torch_dtype(cfg.dtype)
+    if T0 is None and cfg.checkpoint_every and _saves_shards(comm):
+        saved = resume_from_shards(cfg)
+        if saved is not None:
+            by_start = dict(saved[0])
+            return [torch.tensor(by_start[tuple(b.start for b in blk)],
+                                 device=dev).to(dt)
+                    for dev, blk in zip(comm.devices, blocks)], saved[1]
+    T0_host, start_step = load_or_init(cfg, T0, default_ic=False)
     if T0_host is None:
         return [initial_condition_device(cfg, dev, blk)
                 for dev, blk in zip(comm.devices, blocks)], start_step
     T0_host = np.asarray(T0_host)
-    dt = torch_dtype(cfg.dtype)
     return [torch.tensor(T0_host[blk], device=dev).to(dt)
             for dev, blk in zip(comm.devices, blocks)], start_step
 
@@ -380,20 +609,9 @@ def _announce(cfg: HeatConfig, comm) -> None:
 def solve(cfg: HeatConfig, T0: Optional[np.ndarray] = None, device=None,
           comm=None, virtual_devices: Optional[int] = None,
           **_) -> SolveResult:
-    if cfg.exchange == "overlap":
-        raise NotImplementedError(
-            "exchange='overlap' (the interior stepping on one stream while "
-            "the halo exchange flies) is not ported yet: ROADMAP.md §1 item "
-            "2, the overlap exchange; use --exchange indep")
     comm = comm or make_comm(cfg, device, virtual_devices)
     mesh = comm.mesh
     validate_divisible(cfg.n, mesh)
-    if cfg.checkpoint_every and mesh.size > 1 and isinstance(comm, DistComm):
-        raise NotImplementedError(
-            "checkpoints of a multi-process sharded run (per-rank shard "
-            "files) are not ported yet: ROADMAP.md §1 item 2, shard "
-            "checkpoints; run the shards in one process (--virtual-devices "
-            "N) to checkpoint")
     kf = fuse_depth_sharded(cfg, mesh.shape)
     padded_shape = [cfg.n // s + 2 * kf for s in mesh.shape]
     _announce(cfg, comm)

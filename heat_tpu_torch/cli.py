@@ -69,7 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--exchange", choices=["seq", "indep", "overlap"],
                      help="halo exchange formulation: indep (seq, the "
                           "reference's other form with the same bytes, "
-                          "runs it too); overlap is not ported yet")
+                          "runs it too), or overlap (the interior steps "
+                          "while the halo flies, then the rim regions; "
+                          "needs the stencil kernel)")
     run.add_argument("--mesh", type=_parse_mesh,
                      help="mesh of shards, e.g. 2x2 (sharded backend)")
     run.add_argument("--virtual-devices", type=int, metavar="N",
@@ -197,9 +199,17 @@ def build_parser() -> argparse.ArgumentParser:
              "world on this machine (the reference's 'mpirun -np N', "
              "fortran/mpi+cuda/makefile:1-2)")
     launch.add_argument("-n", "--processes", type=int, default=2)
+    launch.add_argument("--max-restarts", type=int, default=1, metavar="K",
+                        help="after a worker dies, stop the world, validate "
+                             "and quarantine the checkpoints, and relaunch "
+                             "it to resume, up to K times with exponential "
+                             "backoff (default 1; 0 disables). A failure "
+                             "within 30 s with no checkpoint gets one more "
+                             "try outside this budget")
     launch.add_argument("--deadline", type=float, metavar="S", default=3600.0,
-                        help="wall-clock limit in seconds; at the deadline "
-                             "every worker is stopped and launch exits 124")
+                        help="wall-clock limit of each attempt in seconds; "
+                             "at the deadline every worker is stopped and "
+                             "launch exits 124, never restarted")
     launch.add_argument("cmd", nargs=argparse.REMAINDER,
                         help="worker arguments, e.g.: -- run --backend "
                              "sharded --comm staged")
@@ -419,23 +429,47 @@ def cmd_serve(args) -> int:
     return 0 if ok == summary["requests"] else 1
 
 
+def _launch_ckpt_dir(cmd) -> Optional[str]:
+    """The workers' checkpoint directory as the supervisor sees it, or
+    None when they write no checkpoints."""
+    if "--checkpoint-every" not in cmd and "--checkpoint-dir" not in cmd:
+        return None
+    if "--checkpoint-dir" in cmd:
+        i = cmd.index("--checkpoint-dir")
+        if i + 1 < len(cmd):
+            return cmd[i + 1]
+    return HeatConfig.checkpoint_dir
+
+
 def cmd_launch(args) -> int:
     """Spawn N local workers joined into one ``torch.distributed`` world:
     torchrun (``torch.distributed.run --standalone``) run in this process,
-    with a deadline.
+    with a deadline per attempt, under a restart supervisor.
 
     Each worker runs the same command (SPMD) with the torchrun variables
     (the rendezvous of MPI_Init, fortran/mpi+cuda/heat.F90:60-62); rank 0
     alone prints results. When a worker dies torchrun stops the others (a
-    peer blocked in a collective never returns) and its exit code is
-    launch's; at the deadline every worker is stopped and launch exits 124.
+    peer blocked in a collective never returns). The supervisor then
+    validates the checkpoint directory (``checkpoint.scan_resume_step``,
+    which quarantines corrupt files) and relaunches the world to resume,
+    up to ``--max-restarts`` times with exponential backoff, printing a
+    ``launch: restart {json}`` record per attempt; the workers get
+    ``HEAT_TPU_RESTART=<attempt>``, so restart-gated injected faults do not
+    fire again. Each attempt is one torchrun with ``--max-restarts=0``:
+    torchrun's own restarts would skip the quarantine and the records. A
+    deadline (rc 124) is a budget, never restarted; otherwise the last
+    attempt's failed worker's exit code is launch's.
     """
     import os
     import signal
+    import time
 
     from torch.distributed.elastic.multiprocessing.errors import \
         ChildFailedError
     from torch.distributed.run import parse_args, run
+
+    from .runtime import checkpoint
+    from .runtime.faults import RESTART_ENV_VAR
 
     cmd = list(args.cmd)
     if cmd and cmd[0] == "--":
@@ -448,9 +482,7 @@ def cmd_launch(args) -> int:
     if args.processes < 1:
         print("launch: -n must be >= 1", file=sys.stderr)
         return 2
-    root = str(Path(__file__).resolve().parent.parent)
-    os.environ["PYTHONPATH"] = (root + os.pathsep
-                                + os.environ.get("PYTHONPATH", ""))
+    ckpt_dir = _launch_ckpt_dir(cmd)
 
     class Deadline(Exception):
         pass
@@ -458,27 +490,74 @@ def cmd_launch(args) -> int:
     def expire(*_):
         raise Deadline
 
-    # the exception unwinds torchrun's agent, whose shutdown stops the
-    # workers
-    old = signal.signal(signal.SIGALRM, expire)
-    signal.setitimer(signal.ITIMER_REAL, args.deadline)
+    def attempt(restart: int):
+        """One torchrun world: (rc, elapsed_s, reason)."""
+        os.environ[RESTART_ENV_VAR] = str(restart)
+        t0 = time.monotonic()
+        # the exception unwinds torchrun's agent, whose shutdown stops the
+        # workers
+        old = signal.signal(signal.SIGALRM, expire)
+        signal.setitimer(signal.ITIMER_REAL, args.deadline)
+        try:
+            run(parse_args(["--standalone",
+                            f"--nproc-per-node={args.processes}",
+                            "--max-restarts=0", "--monitor-interval=0.1",
+                            "-m", "heat_tpu_torch", *cmd]))
+            return 0, time.monotonic() - t0, None
+        except Deadline:
+            print(f"launch: deadline {args.deadline:g}s exceeded, the "
+                  f"workers were stopped", file=sys.stderr)
+            return 124, time.monotonic() - t0, "deadline"
+        except ChildFailedError as e:
+            rank, failure = e.get_first_failure()
+            reason = f"worker {rank} exited rc={failure.exitcode}"
+            print(f"launch: {reason}", file=sys.stderr)
+            return (failure.exitcode if failure.exitcode > 0 else 1,
+                    time.monotonic() - t0, reason)
+        finally:
+            signal.setitimer(signal.ITIMER_REAL, 0)
+            signal.signal(signal.SIGALRM, old)
+
+    # the workers' environment, set once: they import this package even
+    # where it is only on the launcher's path; restored on return
+    saved = dict(os.environ)
+    root = str(Path(__file__).resolve().parent.parent)
+    os.environ["PYTHONPATH"] = root + os.pathsep + saved.get("PYTHONPATH", "")
+    backoff_base = float(os.environ.get("HEAT_TPU_RESTART_BACKOFF_S", "0.5"))
+    restarts = 0
+    startup_retry_used = False
     try:
-        run(parse_args(["--standalone", f"--nproc-per-node={args.processes}",
-                        "--monitor-interval=0.1", "-m", "heat_tpu_torch",
-                        *cmd]))
-    except Deadline:
-        print(f"launch: deadline {args.deadline:g}s exceeded, the workers "
-              f"were stopped", file=sys.stderr)
-        return 124
-    except ChildFailedError as e:
-        rank, failure = e.get_first_failure()
-        print(f"launch: worker {rank} exited rc={failure.exitcode}",
-              file=sys.stderr)
-        return failure.exitcode if failure.exitcode > 0 else 1
+        while True:
+            rc, elapsed, reason = attempt(restarts)
+            if rc == 0 or reason == "deadline":
+                return rc
+            resume_step = (checkpoint.scan_resume_step(
+                ckpt_dir, nprocs=args.processes) if ckpt_dir else None)
+            if resume_step is None and elapsed < 30 and not startup_retry_used:
+                # a start-up failure (a port race, the environment): one
+                # clean retry on a fresh port, outside the budget
+                startup_retry_used = True
+                print("launch: startup failure, retrying once on a fresh "
+                      "port", file=sys.stderr)
+                continue
+            if restarts >= args.max_restarts:
+                if args.max_restarts > 0:
+                    print(f"launch: giving up after {restarts} restart(s) "
+                          f"(--max-restarts {args.max_restarts})",
+                          file=sys.stderr)
+                return rc
+            restarts += 1
+            backoff = min(backoff_base * 2 ** (restarts - 1), 30.0)
+            rec = {"event": "launch_restart", "attempt": restarts,
+                   "max_restarts": args.max_restarts, "reason": reason,
+                   "rc": rc, "elapsed_s": round(elapsed, 3),
+                   "resume_step": resume_step, "backoff_s": backoff}
+            print("launch: restart " + json.dumps(rec), file=sys.stderr,
+                  flush=True)
+            time.sleep(backoff)
     finally:
-        signal.setitimer(signal.ITIMER_REAL, 0)
-        signal.signal(signal.SIGALRM, old)
-    return 0
+        os.environ.clear()
+        os.environ.update(saved)
 
 
 def cmd_info(_args) -> int:

@@ -15,7 +15,7 @@ replaced by a Hopper tile and depth:
   every compiled tile on the card;
 - ``bench3d`` / ``bench3d_rolled [TZ,TY,TX,k ...]``,
   ``bench3d_rolled_var {f32|fma} [...]``: L1 / L2 at 512^3 f32; the tile
-  ``256,32,32`` is the streamed design ``ftcs3d`` ships (256-row segments of
+  ``256,32,32`` is the streamed design ``ftcs3d`` ships (segments of up to 256 rows of
   a 32x32 (mid, col) tile), ``16,16,32`` and ``8,16,64`` are output tiles
   of its earlier band design (``bench3d`` with no config times both at
   k=8);

@@ -15,7 +15,8 @@
 //   s     = ((((row+1 + row-1) + mid+1) + mid-1) + col-1) + col+1  ORDER_L1
 //   lap   = fma(-6, c, s)          the compiled body contracts s - 6*c
 //   c'    = fma(maskr, lap, c)     and the masked update           UPD_LAP
-// on 32 x 32 (mid, col) output tiles and 256-row segments, one thread per
+// on 32 x 32 (mid, col) output tiles and segments of up to 256 rows (sized
+// so that the blocks fill whole waves of the card), one thread per
 // 4 cells of the tile and its halo (576 threads at k = 8). The kernel lab
 // (lab3d.cu) compiles the same instances as its first tile, beside
 // stencil3d.cuh's in-place band body (this kernel's earlier design), which

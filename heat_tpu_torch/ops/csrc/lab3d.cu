@@ -19,7 +19,7 @@
 //   L2 fma        ORDER_L2, UPD_DECAY
 // the forms the interpret-mode Pallas bodies compute (their compiled bodies
 // contract s - 6c, the update and the hoisted decay into fmas). Each is
-// compiled at three Hopper tiles: the streamed design's 256-row segments of
+// compiled at three Hopper tiles: the streamed design's segments of up to 256 rows of
 // 32 x 32 (mid, col) tiles (the shipped configuration, at each depth 1..8),
 // and the band design's 16 x 16 x 32 and 8 x 16 x 64 output tiles; the
 // last fits up to 7 steps (at 8 its band needs 245760 bytes, over the

@@ -7,11 +7,14 @@
 // engine's lane kernel (per-lane r, side and countdown, select-kept updates
 // rounded every step, fused partials), one body for both.
 //
-// Design. A block owns a TY x TX (mid, col) output tile and a segment of LZ
+// Design. A block owns a TY x TX (mid, col) output tile and a segment of lz
 // rows. It streams the rows of its input region, R = (TY+2k) x (TX+2k)
 // cells per plane, through the block once, from k rows before the segment
 // to k rows after it: the redundant halo is in-plane only, and the rows
-// cost (LZ+2k)/LZ. The k steps run as a wavefront: when input plane p has
+// cost (lz+2k)/lz. The solo launch sizes lz (8 to LZ rows, stream3_lz) so
+// that the blocks fill whole waves of the card: a field with few tiles (a
+// thin rim region of the sharded backend's overlap exchange) gets short
+// segments and enough blocks. The k steps run as a wavefront: when input plane p has
 // arrived, step 1 computes plane p-1, step 2 plane p-2, ..., step k plane
 // p-k, which is the output.
 //
@@ -341,37 +344,74 @@ __device__ __forceinline__ void stream3_body(Cells& cells,
 }
 
 // The solo kernel: k masked steps of one field (ftcs3d.cu, lab3d.cu), on
-// TY x TX tiles and LZ-row segments.
-template <typename T, int ORDER, int UPD, int K, int LZ, int TY, int TX>
+// TY x TX tiles and lz-row segments.
+template <typename T, int ORDER, int UPD, int K, int TY, int TX>
 __global__ void __launch_bounds__(Stream<K, TY, TX>::NT,
                                   Stream<K, TY, TX>::MINB)
 ftcs3d_stream_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t m,
-                     int64_t mid, int64_t n, float r, Bounds b) {
+                     int64_t mid, int64_t n, float r, int lz, Bounds b) {
   SoloCells<ORDER, UPD> cells(r, b);
-  stream3_body<T, K, TY, TX>(cells, in, out, m, mid, n, LZ, TY, TX,
+  stream3_body<T, K, TY, TX>(cells, in, out, m, mid, n, lz, TY, TX,
                              blockIdx.x, blockIdx.y, blockIdx.z);
+}
+
+// The segment rows of a solo pass: a block holds its SM's place for all its
+// lz + 2K planes, so a grid of W waves of `slots` blocks takes about
+// W * (lz + 2K) plane-times; the lz of min(8, m)..min(lzmax, m) that makes
+// that least (the longest of equals), as stream2_lz and lanes3d choose
+// theirs. 0 where every lz needs over 65535 segments.
+template <int K>
+int stream3_lz(int64_t m, int64_t tiles, int64_t slots, int lzmax) {
+  const int lo = m < 8 ? (int)m : 8;
+  const int hi = m < lzmax ? (int)m : lzmax;
+  int64_t best = -1;
+  int lz = 0;
+  for (int l = lo; l <= hi; ++l) {
+    const int64_t segs = (m + l - 1) / l;
+    if (segs > 65535) continue;
+    const int64_t cost = (tiles * segs + slots - 1) / slots * (l + 2 * K);
+    if (best < 0 || cost <= best) best = cost, lz = l;
+  }
+  return lz;
 }
 
 template <typename T, int ORDER, int UPD, int K, int LZ, int TY, int TX>
 int launch_stream_k(const Args& a) {
   using S = Stream<K, TY, TX>;
   if (S::SMEM > (size_t)SMEM_LIMIT || (a.mid + TY - 1) / TY > 65535 ||
-      (a.m + LZ - 1) / LZ > 65535 || (a.n + TX - 1) / TX > 2147483647)
+      (a.n + TX - 1) / TX > 2147483647)
     return (int)cudaErrorInvalidValue;
-  auto kernel = ftcs3d_stream_kernel<T, ORDER, UPD, K, LZ, TY, TX>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)((a.n + TX - 1) / TX), (unsigned)((a.mid + TY - 1) / TY),
-            (unsigned)((a.m + LZ - 1) / LZ));
+  auto kernel = ftcs3d_stream_kernel<T, ORDER, UPD, K, TY, TX>;
+  // (per device: shards of one process may sit on several cards)
+  if (cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM))
+    return (int)e;
+  // blocks of this instance resident on the card at once, asked once
+  static int64_t slots = 0;
+  if (slots < 1) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+    if (cudaError_t e = cudaDeviceGetAttribute(
+            &sms, cudaDevAttrMultiProcessorCount, dev))
+      return (int)e;
+    if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, S::NT, S::SMEM))
+      return (int)e;
+    if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+    slots = (int64_t)sms * per_sm;
+  }
+  const int64_t gx = (a.n + TX - 1) / TX, gy = (a.mid + TY - 1) / TY;
+  const int lz = stream3_lz<K>(a.m, gx * gy, slots, LZ);
+  if (lz < 1) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)((a.m + lz - 1) / lz));
   kernel<<<grid, S::NT, S::SMEM, a.stream>>>(static_cast<const T*>(a.in),
                                              static_cast<T*>(a.out), a.m,
-                                             a.mid, a.n, a.r, a.b);
+                                             a.mid, a.n, a.r, lz, a.b);
   return (int)cudaGetLastError();
 }
 
-// The streaming kernel at run-time depth a.k (1..KMAX), LZ rows per block
-// segment and a TY x TX (mid, col) output tile.
+// The streaming kernel at run-time depth a.k (1..KMAX), up to LZ rows per
+// block segment and a TY x TX (mid, col) output tile.
 template <typename T, int ORDER, int UPD, int LZ, int TY, int TX>
 int launch_stream(const Args& a) {
   switch (a.k) {

@@ -125,7 +125,7 @@ _SOURCES = {2: "lab2d", 3: "lab3d"}
 # to 16 steps, and 256 wide (four warps of 2-cell threads) at 17..32; the
 # band tiles
 # (csrc/stencil2d.cuh) ping-pong two f32 bands. In 3D the streamed tile
-# (csrc/stencil3d_stream.cuh) is 256-row segments of a 32 x 32 (mid, col)
+# (csrc/stencil3d_stream.cuh) is segments of up to 256 rows (sized to fill whole waves) of a 32 x 32 (mid, col)
 # output tile; the band (csrc/stencil3d.cuh) is updated in place
 STREAM_2D = (256, 128)
 # the depths csrc/lab2d.cu compiles the streamed tile at (an instance per

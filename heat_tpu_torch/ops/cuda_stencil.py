@@ -268,16 +268,17 @@ def _pass(T: torch.Tensor, r: float, ksteps: int, bounds, out=None,
 
 def _multistep(T: torch.Tensor, r: float, ksteps: int, bounds=None,
                out: Optional[torch.Tensor] = None,
-               plain: bool = False) -> torch.Tensor:
-    """``ksteps`` fused steps in the reference's passes (``pass_schedule``;
-    each pass boundary is a bf16 rounding point). ``out``, when given,
-    receives the last pass — the caller's ping-pong buffer, so a one-pass
-    call allocates nothing."""
+               plain: bool = False, plan_shape=None) -> torch.Tensor:
+    """``ksteps`` fused steps in the reference's passes (``pass_schedule``
+    at ``plan_shape``, by default T's; each pass boundary is a bf16
+    rounding point). ``out``, when given, receives the last pass — the
+    caller's ping-pong buffer, so a one-pass call allocates nothing."""
     if bounds is None:
         bounds = _default_bounds(T.shape)
-    schedule = pass_schedule.passes(T.shape, T.dtype, ksteps)
+    plan_shape = tuple(T.shape if plan_shape is None else plan_shape)
+    schedule = pass_schedule.passes(plan_shape, T.dtype, ksteps)
     if schedule is None:
-        raise ValueError(f"no kernel plan for {tuple(T.shape)} {T.dtype} "
+        raise ValueError(f"no kernel plan for {plan_shape} {T.dtype} "
                          f"(gate on kernel_available)")
     for i, k in enumerate(schedule):
         T = _pass(T, r, k, bounds, plain=plain,
@@ -287,17 +288,24 @@ def _multistep(T: torch.Tensor, r: float, ksteps: int, bounds=None,
 
 def ftcs_multistep_bounded_cuda(T: torch.Tensor, r: float, ksteps: int,
                                 bounds: Sequence[int], *,
+                                out: Optional[torch.Tensor] = None,
+                                plan_shape: Optional[Sequence[int]] = None,
                                 plain: bool = False) -> torch.Tensor:
     """``ksteps`` fused FTCS steps freezing cells at or beyond ``bounds``
     (``lo, hi`` per axis); the caller owns a discard margin >= ksteps on
-    every side ``bounds`` leaves unfrozen."""
-    if not kernel_available(T.shape, T.dtype):
-        raise ValueError(f"no stencil kernel for {tuple(T.shape)} {T.dtype}")
+    every side ``bounds`` leaves unfrozen. ``out`` receives the last
+    pass; ``plan_shape`` names the shape whose pass schedule the steps are
+    cut into (by default T's): a caller that steps a block inside a
+    larger array, and keeps only cells whose steps never reach past the
+    block, rounds where a call on the block alone would."""
+    plan_shape = tuple(T.shape if plan_shape is None else plan_shape)
+    if not kernel_available(plan_shape, T.dtype):
+        raise ValueError(f"no stencil kernel for {plan_shape} {T.dtype}")
     if len(bounds) != 2 * T.dim():
         raise ValueError(f"{T.dim()}D bounds are {2 * T.dim()} values, "
                          f"got {len(bounds)}")
     return _multistep(T, r, ksteps, bounds=tuple(int(b) for b in bounds),
-                      plain=plain)
+                      out=out, plain=plain, plan_shape=plan_shape)
 
 
 def ftcs_multistep_edges_cuda(T: torch.Tensor, r: float, ksteps: int, *,

@@ -22,11 +22,26 @@ the halo code (``parallel.halo``) is written once:
 A neighbour that is the shard itself (a periodic axis of size 1) gets a
 local copy, never a send to self. Each communicator counts the exchanges
 and the bytes its shards received (``stats``).
+
+An exchange is split in two halves so that work can run while it flies
+(``--exchange overlap``): ``post(axis, sends)`` starts it and returns its
+finish, which gives each shard's received slabs. On the card the halves
+leave the host free and order the card's streams: ``DistComm`` direct
+posts NCCL's sends and receives (NCCL's stream waits on the work enqueued
+before the post) and its finish makes the current stream wait; a staged
+exchange copies the send slabs to the host on a side stream (after an
+event on the field), so the host's gloo wait sits behind whatever the
+current stream runs meanwhile; ``LocalComm`` staged runs its round trips
+on a side stream, and its finish makes the current stream wait. Every
+tensor used across streams is recorded on the stream that uses it
+(``Tensor.record_stream``), so the caching allocator does not reuse its
+memory early. On the CPU a post does the whole exchange.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import functools
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -34,15 +49,24 @@ import torch.distributed as dist
 from .mesh import RankMesh
 
 Pair = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
+Finish = Callable[[], List[Pair]]
 
 
-def stage_to_host(t: torch.Tensor) -> torch.Tensor:
+def stage_to_host(t: torch.Tensor, non_blocking: bool = False) -> torch.Tensor:
     """A host copy of a slab: D2H into pinned memory from the card, a plain
-    copy on the CPU. Every staged slab goes through here."""
+    copy on the CPU. Every staged slab goes through here. With
+    ``non_blocking`` the D2H is only enqueued on the current stream."""
     pin = t.device.type == "cuda"
     host = torch.empty(t.shape, dtype=t.dtype, device="cpu", pin_memory=pin)
-    host.copy_(t)
+    host.copy_(t, non_blocking=non_blocking and pin)
     return host
+
+
+@functools.lru_cache(maxsize=None)
+def _side_stream(index: int) -> torch.cuda.Stream:
+    """The side stream of card ``index`` in this process, made on first
+    use."""
+    return torch.cuda.Stream(index)
 
 
 def _wire(t: torch.Tensor) -> torch.Tensor:
@@ -65,26 +89,50 @@ class LocalComm:
             self.devices = [device] * mesh.size
         self.stats = {"exchanges": 0, "bytes": 0}
 
-    def _move(self, slab: torch.Tensor, device) -> torch.Tensor:
+    def _move(self, slab: torch.Tensor, device, side) -> torch.Tensor:
+        """The slab on ``device``: itself where no copy is needed (direct,
+        same device), a round trip through host memory on ``side`` (staged
+        on the card), else a copy on the current streams."""
         self.stats["bytes"] += slab.numel() * slab.element_size()
-        if self.staged:
+        if not self.staged:
+            return slab if slab.device == device else slab.to(device)
+        if side is None or slab.device != device:
             return stage_to_host(slab).to(device)
-        return slab if slab.device == device else slab.to(device)
+        with torch.cuda.stream(side):
+            slab.record_stream(side)
+            got = stage_to_host(slab, non_blocking=True).to(device,
+                                                            non_blocking=True)
+        got.record_stream(torch.cuda.current_stream(device))
+        return got
 
-    def exchange(self, axis: int, sends: Sequence[Pair]) -> List[Pair]:
-        """``sends[i] = (send_lo, send_hi)`` of local shard i; returns each
-        shard's ``(from_prev, from_next)``: the previous neighbour's
-        ``send_hi`` and the next one's ``send_lo``, None at a global edge."""
+    def post(self, axis: int, sends: Sequence[Pair]) -> Finish:
+        """Start the exchange of ``axis``. ``sends[i] = (send_lo,
+        send_hi)`` of local shard i; the finish returns each shard's
+        ``(from_prev, from_next)``: the previous neighbour's ``send_hi``
+        and the next one's ``send_lo``, None at a global edge."""
+        sides = set()
         out = []
         for i, rank in enumerate(self.ranks):
+            dev = self.devices[i]
+            side = None
+            if self.staged and dev.type == "cuda":
+                side = _side_stream(dev.index)
+                if side not in sides:   # the sends are ready
+                    side.wait_stream(torch.cuda.current_stream(dev))
+                    sides.add(side)
             prev, nxt = self.mesh.neighbors(rank, axis)
-            out.append((None if prev is None
-                        else self._move(sends[prev][1], self.devices[i]),
-                        None if nxt is None
-                        else self._move(sends[nxt][0], self.devices[i])))
+            out.append(tuple(None if j is None
+                             else self._move(sends[j][k], dev, side)
+                             for j, k in ((prev, 1), (nxt, 0))))
         if axis == 0:
             self.stats["exchanges"] += 1
-        return out
+
+        def finish() -> List[Pair]:
+            for side in sides:
+                torch.cuda.current_stream(side.device).wait_stream(side)
+            return out
+
+        return finish
 
     def sync(self) -> None:
         for dev in sorted({d.index for d in self.devices if d.type == "cuda"}):
@@ -132,14 +180,41 @@ class DistComm:
     def rank(self) -> int:
         return self.ranks[0]
 
-    def exchange(self, axis: int, sends: Sequence[Pair]) -> List[Pair]:
+    def post(self, axis: int, sends: Sequence[Pair]) -> Finish:
+        """Start the exchange of ``axis`` (see ``LocalComm.post``): direct
+        posts the sends and receives now; staged enqueues the D2H of the
+        send slabs on a side stream and sends them over gloo at the
+        finish."""
+        dev = self.devices[0]
+        lo, hi = (s.contiguous() for s in sends[0])
+        if not self.staged:
+            return self._p2p(axis, lo, hi)
+        if dev.type != "cuda":
+            return self._p2p(axis, stage_to_host(lo), stage_to_host(hi))
+        side = _side_stream(dev.index)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for t in (lo, hi):
+                t.record_stream(side)
+            lo, hi = (stage_to_host(t, non_blocking=True) for t in (lo, hi))
+            staged = torch.cuda.Event()
+            staged.record(side)
+
+        def finish() -> List[Pair]:
+            staged.synchronize()
+            return self._p2p(axis, lo, hi)()
+
+        return finish
+
+    def _p2p(self, axis: int, lo: torch.Tensor, hi: torch.Tensor) -> Finish:
+        """Post this rank's sends (hi to next, lo to prev) and receives;
+        the finish waits for them and returns the received slabs on the
+        card."""
         rank = self.rank
         dev = self.devices[0]
         prev, nxt = self.mesh.neighbors(rank, axis)
-        lo, hi = (s.contiguous() for s in sends[0])
-        if self.staged:
-            lo, hi = stage_to_host(lo), stage_to_host(hi)
         gloo = self.group is self.host
+        pin = self.staged and dev.type == "cuda"
         ops, recvs = [], {}
         # sends in the order (hi to next, lo to prev), receives in the order
         # (from prev, from next): with two messages between one pair of
@@ -157,24 +232,31 @@ class DistComm:
                 recvs[key] = (like if self.staged or like.device == dev
                               else like.to(dev)).clone()
             else:
-                buf = torch.empty_like(like)
+                buf = torch.empty(like.shape, dtype=like.dtype,
+                                  device=like.device, pin_memory=pin)
                 recvs[key] = buf
                 ops.append(dist.P2POp(dist.irecv, _wire(buf) if gloo else buf,
                                       peer, self.group, tag))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-        out = []
-        for key in ("prev", "next"):
-            t = recvs[key]
-            if t is not None:
-                self.stats["bytes"] += t.numel() * t.element_size()
-                if t.device != dev:
-                    t = t.to(dev)
-            out.append(t)
+        reqs = dist.batch_isend_irecv(ops) if ops else []
         if axis == 0:
             self.stats["exchanges"] += 1
-        return [tuple(out)]
+
+        def finish() -> List[Pair]:
+            # on NCCL a wait makes the current stream wait; on gloo it
+            # blocks the host
+            for req in reqs:
+                req.wait()
+            out = []
+            for key in ("prev", "next"):
+                t = recvs[key]
+                if t is not None:
+                    self.stats["bytes"] += t.numel() * t.element_size()
+                    if t.device != dev:
+                        t = t.to(dev, non_blocking=pin)
+                out.append(t)
+            return [tuple(out)]
+
+        return finish
 
     def sync(self) -> None:
         dev = self.devices[0]

@@ -22,7 +22,7 @@ hold true diagonal-neighbour data, what fused multi-step updates read;
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -39,36 +39,48 @@ def _or_bc(recv, like: torch.Tensor, bc_value) -> torch.Tensor:
     return torch.full_like(like, bc_value) if recv is None else recv
 
 
+def post_axis(padded: Sequence[torch.Tensor], recvs: Dict[int, List[tuple]],
+              d: int, comm, bc_value, width: int = 1) -> Callable[[], list]:
+    """Start axis ``d``'s exchange of the indep form; returns its finish,
+    which gives ``[(from_prev, from_next) per local shard]``. The send
+    slabs span the full padded extent of the other axes, with the earlier
+    axes' received corners (``recvs[e]``, e < d) stitched in; a global
+    edge's slab holds ``bc_value``."""
+    nd = padded[0].dim()
+    w = width
+    lo_sl, hi_sl = slice(w, 2 * w), slice(-2 * w, -w)
+    sends = []
+    for i, p in enumerate(padded):
+        send_lo = p[_slab(nd, d, lo_sl)]
+        send_hi = p[_slab(nd, d, hi_sl)]
+        if d:
+            # corner forwarding: the earlier axes' margins of the send
+            # slab get those axes' fresh ghosts (what the sequential
+            # scheme reads from the written array)
+            send_lo, send_hi = send_lo.clone(), send_hi.clone()
+            for e in range(d):
+                ep, en = recvs[e][i]
+                send_lo[_slab(nd, e, slice(0, w))] = ep[_slab(nd, d, lo_sl)]
+                send_lo[_slab(nd, e, slice(-w, None))] = en[_slab(nd, d, lo_sl)]
+                send_hi[_slab(nd, e, slice(0, w))] = ep[_slab(nd, d, hi_sl)]
+                send_hi[_slab(nd, e, slice(-w, None))] = en[_slab(nd, d, hi_sl)]
+        sends.append((send_lo, send_hi))
+    finish = comm.post(d, sends)
+
+    def done() -> list:
+        return [(_or_bc(fp, lo, bc_value), _or_bc(fn, hi, bc_value))
+                for (lo, hi), (fp, fn) in zip(sends, finish())]
+
+    return done
+
+
 def halo_recvs(padded: Sequence[torch.Tensor], comm, bc_value,
                width: int = 1) -> Dict[int, List[tuple]]:
     """The receive half of the indep exchange: ``{d: [(from_prev,
-    from_next) per local shard]}``, each slab spanning the full padded
-    extent of the other axes with the earlier axes' corner data stitched
-    in; a global edge's slab holds ``bc_value``."""
-    nd = padded[0].dim()
-    w = width
+    from_next) per local shard]}``, axis by axis (``post_axis``)."""
     recvs: Dict[int, List[tuple]] = {}
     for d in range(len(comm.mesh.shape)):
-        lo_sl, hi_sl = slice(w, 2 * w), slice(-2 * w, -w)
-        sends = []
-        for i, p in enumerate(padded):
-            send_lo = p[_slab(nd, d, lo_sl)]
-            send_hi = p[_slab(nd, d, hi_sl)]
-            if d:
-                # corner forwarding: the earlier axes' margins of the send
-                # slab get those axes' fresh ghosts (what the sequential
-                # scheme reads from the written array)
-                send_lo, send_hi = send_lo.clone(), send_hi.clone()
-                for e in range(d):
-                    ep, en = recvs[e][i]
-                    send_lo[_slab(nd, e, slice(0, w))] = ep[_slab(nd, d, lo_sl)]
-                    send_lo[_slab(nd, e, slice(-w, None))] = en[_slab(nd, d, lo_sl)]
-                    send_hi[_slab(nd, e, slice(0, w))] = ep[_slab(nd, d, hi_sl)]
-                    send_hi[_slab(nd, e, slice(-w, None))] = en[_slab(nd, d, hi_sl)]
-            sends.append((send_lo, send_hi))
-        got = comm.exchange(d, sends)
-        recvs[d] = [(_or_bc(fp, lo, bc_value), _or_bc(fn, hi, bc_value))
-                    for (lo, hi), (fp, fn) in zip(sends, got)]
+        recvs[d] = post_axis(padded, recvs, d, comm, bc_value, width)()
     return recvs
 
 

@@ -7,7 +7,7 @@ mode, as heat_tpu's own tests run them. Same inputs (numpy, seeded), bytes
 compared. r=0.2 and r=0.1 are the cases that show the single-rounding
 update: at r=0.25 the product is exact and any rounding order agrees.
 The kernel itself is compared with the plain version on the card by
-``chip_smoke.py`` (and by the ``cuda``-marked test at the end).
+``chip_smoke.py`` and by ``tests/test_torch_card.py``.
 """
 
 import jax.numpy as jnp
@@ -173,18 +173,3 @@ def test_wrappers_refuse_other_devices_and_depths():
     assert not cs.kernel_available((8, 8, 8), torch.float64)
     assert not cs.kernel_available((8,), torch.float32)
 
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py runs the full matrix)")
-    for dtype in (torch.float32, torch.bfloat16):
-        T = torch.rand(1000, 4099, generator=torch.Generator().manual_seed(0))
-        T = (1 + T).to(dtype).cuda()
-        for k in (1, 7, 16, 32):
-            got = cs.ftcs_multistep_edges_cuda(T, 0.2, k)
-            want = cs.ftcs_multistep_edges_cuda(T, 0.2, k, plain=True)
-            assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
-                                        else torch.int32),
-                               want.view(torch.int16 if dtype == torch.bfloat16
-                                         else torch.int32))

@@ -7,8 +7,8 @@ interpret mode, as heat_tpu's own tests run it. Same inputs (numpy,
 seeded), bytes compared. r = 1/6 and 0.15 are where the K3 body's two
 fused multiply-adds show: ``s - 6*band`` and the masked update each round
 once, and every other form differs in the last bit there. The kernel itself
-is compared with the plain version on the card by ``chip_smoke.py`` (and by
-the ``cuda``-marked test at the end).
+is compared with the plain version on the card by ``chip_smoke.py`` and by
+``tests/test_torch_card.py``.
 """
 
 import jax.numpy as jnp
@@ -183,16 +183,3 @@ def test_pass_bound_3d():
     assert dm.pass_bound_s(4096**2, 4, 16) == dm.pass_bound_s(4096**2, 4, 16,
                                                               ndim=2)
 
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card_3d():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py runs the full matrix)")
-    for dtype in (torch.float32, torch.bfloat16):
-        T = torch.rand(67, 45, 129, generator=torch.Generator().manual_seed(0))
-        T = (1 + T).to(dtype).cuda()
-        for k in (1, 4, 8):
-            got = cs.ftcs_multistep_edges_cuda(T, 1 / 6, k)
-            want = cs.ftcs_multistep_edges_cuda(T, 1 / 6, k, plain=True)
-            view = torch.int16 if dtype == torch.bfloat16 else torch.int32
-            assert torch.equal(got.view(view), want.view(view))

@@ -11,7 +11,7 @@ takes ``bounds``. The fields are uniform on [0, 2): with neighbours much
 smaller than a cell, ``m*s`` is small beside ``decay*c`` and a rounding of
 the 3D decay constant shows (on [1, 2) it hides). The kernels themselves
 are compared with the plain versions on the card by ``chip_smoke.py`` and
-the ``cuda``-marked test at the end.
+``tests/test_torch_card.py``.
 """
 
 import importlib.util
@@ -530,24 +530,3 @@ def test_ops_counts():
     assert cl.ops_per_cell_step("lab_thin2d_variant", "bf16native") == 7
     assert cl.ops_per_cell_step("lab_2d_coltiled_rolled", "bf16fma") == 6
 
-
-@pytest.mark.cuda
-def test_kernels_match_plain_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    for (name, _, variant, _) in _PAIRS:
-        nd = _ndim(name)
-        T, logical = _field(nd, seed=4)
-        blocks = cl.BLOCKS_2D if nd == 2 else cl.BLOCKS_3D
-        for dtype in ("float32", "bfloat16"):
-            Tp = torch.from_numpy(T).to(_TORCH[dtype]).cuda()
-            kw = dict(_geometry(name), logical=logical)
-            if variant is not None:
-                kw["variant"] = variant
-            fn = getattr(cl, name)
-            k = _DEPTHS[nd][-1]
-            for block in blocks[:1] if nd == 3 else blocks:
-                got = fn(Tp, 0.15, k, block=block, **kw)
-                want = fn(Tp, 0.15, k, plain=True, **kw)
-                torch.cuda.synchronize()
-                assert _ndiff(got.cpu(), want.cpu()) == 0, (name, variant)

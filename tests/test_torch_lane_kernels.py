@@ -328,20 +328,3 @@ def test_f64_takes_two_roundings():
     want = step_ghost_np(f[0, 1:-1, 1:-1], 0.2, 1.0)
     np.testing.assert_array_equal(out[0, 1:-1, 1:-1].numpy(), want)
 
-
-@pytest.mark.cuda
-def test_kernels_match_plain_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA card on this host (run on the card with -m cuda)")
-    for nd, B in ((2, 12), (2, 256), (3, 8), (3, 64)):
-        for dtype in ("float32", "bfloat16"):
-            for k in (1, 16, 37):
-                f, r, n, rem = _case(nd, B, k, seed=k)
-                args = [torch.from_numpy(a).cuda() for a in (r, n, rem)]
-                T = torch.from_numpy(f).to(_TORCH[dtype]).cuda()
-                got = cl.lane_multistep(T, *args, k, 1)
-                want = cl.lane_multistep(T, *args, k, 1, plain=True)
-                _assert_same([x.float().cpu().numpy() if x.is_floating_point()
-                              else x.cpu().numpy() for x in got],
-                             want[0].float().cpu().numpy(),
-                             want[1].cpu().numpy(), want[2].cpu().numpy())

@@ -70,6 +70,12 @@ _CONFIGS = [
                               "torch", "--exchange", "seq"]),
     ("24 0.25 0.05 2.0 7 1", ["--comm", "staged", "--mesh", "2x1", "--bc",
                               "edges", "--parity-order"]),
+    ("24 0.2 0.05 2.0 13 1", ["--comm", "direct", "--mesh", "2x1", "--bc",
+                              "edges", "--dtype", "bfloat16", "--local-kernel",
+                              "cuda", "--exchange", "overlap"]),
+    ("16 0.15 0.05 2.0 9 1", ["--comm", "staged", "--ndim", "3", "--mesh",
+                              "1x2x1", "--bc", "ghost", "--local-kernel",
+                              "cuda", "--exchange", "overlap"]),
 ]
 
 
@@ -116,10 +122,16 @@ def _same_files(a: Path, b: Path) -> None:
 def test_world_runs_configs_like_one_process(tmp_path):
     world = tmp_path / "world"
     _dirs(world, _CONFIGS)
+    ck = len(_CONFIGS)
+    # a checkpointed run (shard files, one per rank and step), then the
+    # same run again in its own directory, resuming from those files
+    ckpt = ["--checkpoint-every", "5", "--async-io", "off",
+            "--checkpoint-dir", str(world / str(ck) / "ckpt")]
     argv = json.dumps([_COMMON + args for _, args in _CONFIGS]
-                      + [_COMMON + ["--checkpoint-every", "5"]])
-    (world / str(len(_CONFIGS))).mkdir()
-    (world / str(len(_CONFIGS)) / "input.dat").write_text(_CONFIGS[0][0])
+                      + [_COMMON + ckpt] * 2)
+    for i in (ck, ck + 1):
+        (world / str(i)).mkdir()
+        (world / str(i) / "input.dat").write_text(_CONFIGS[0][0])
     worker = tmp_path / "worker.py"
     worker.write_text(_WORKER)
     proc = subprocess.run(
@@ -127,11 +139,9 @@ def test_world_runs_configs_like_one_process(tmp_path):
          "--nproc-per-node=2", str(worker), argv, str(world)],
         env=_env(tmp_path), capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, (proc.stdout, proc.stderr)
-    out, err = proc.stdout, proc.stderr
+    out = proc.stdout
     rcs = json.loads(out.split("RCS ")[-1])
-    # the last: a checkpointed run of several ranks is refused, by name
-    assert rcs == [0] * len(_CONFIGS) + [2]
-    assert "shard checkpoints" in err
+    assert rcs == [0] * (len(_CONFIGS) + 2)
     recs = [json.loads(line) for line in out.splitlines()
             if line.startswith("{")]
     local = _in_process(tmp_path / "local", _CONFIGS)
@@ -139,6 +149,28 @@ def test_world_runs_configs_like_one_process(tmp_path):
         _same_files(world / str(i), tmp_path / "local" / str(i))
         assert rec["gsum"] == want["gsum"] and rec["mesh"] == want["mesh"]
         assert rec["kf"] == want["kf"]
+    # the checkpointed world: each rank's shard file holds its block of
+    # the one-process run's global checkpoint; the resumed run (from step
+    # 10 of 13) writes the one-process run's files
+    one = tmp_path / "one"
+    _in_process(one, [(_CONFIGS[0][0], ["--checkpoint-every", "5"])])
+    assert "resumed from shard checkpoints at step 10" in out
+    for step in (5, 10):
+        with np.load(one / "0" / "checkpoints"
+                     / f"heat_step{step:08d}.npz") as z:
+            whole = z["T"]
+        for proc_ in (0, 1):
+            name = f"heat_shards_step{step:08d}.proc{proc_:04d}.npz"
+            with np.load(world / str(ck) / "ckpt" / name) as z:
+                assert int(z["step"]) == step
+                start = tuple(z["shard0_start"])
+                data = z["shard0_data"]
+                assert "shard1_data" not in z
+            blk = tuple(slice(s, s + e) for s, e in zip(start, data.shape))
+            assert data.tobytes() == whole[blk].tobytes()
+    _same_files(world / str(ck), one / "0")
+    _same_files(world / str(ck + 1), one / "0")
+    assert recs[ck]["gsum"] == recs[ck + 1]["gsum"]
     # the kernel run: the reference's per-shard files of its pallas run
     ref = tmp_path / "ref"
     cfg = ref_config.HeatConfig(n=24, sigma=0.2, ntime=13, bc="ghost", ic="hat",
@@ -172,9 +204,10 @@ def test_launch_worker_failure_propagates(tmp_path):
     """A worker that dies takes the world down: the survivor, blocked in
     the exchange, is stopped, and launch returns the dead worker's code."""
     (tmp_path / "input.dat").write_text("24 0.2 0.05 2.0 100000 0\n")
-    out = _launch(tmp_path, "-n", "2", "--", "run", "--backend", "sharded",
-                  "--device", "cpu", "--comm", "staged", "--heartbeat-every",
-                  "1", "--inject", "crash@3:proc=1")
+    out = _launch(tmp_path, "-n", "2", "--max-restarts", "0", "--", "run",
+                  "--backend", "sharded", "--device", "cpu", "--comm",
+                  "staged", "--heartbeat-every", "1", "--inject",
+                  "crash@3:proc=1")
     assert out.returncode == 43, (out.stdout, out.stderr)
     assert "worker 1 exited rc=43" in out.stderr
 
@@ -201,3 +234,66 @@ def test_direct_refuses_ranks_sharing_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="--comm staged.*--virtual-devices"):
         port_dist.init_distributed(torch.device("cuda"), "direct")
+
+
+def _reference_restart_keys() -> list:
+    """The keys of heat_tpu's ``launch_restart`` record, read from its
+    supervisor's source (``heat_tpu/cli.py``) without running it."""
+    import ast
+
+    tree = ast.parse((_REPO / "heat_tpu" / "cli.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Dict) and any(
+                isinstance(v, ast.Constant) and v.value == "launch_restart"
+                for v in node.values):
+            return [k.value for k in node.keys]
+    raise AssertionError("no launch_restart record in heat_tpu/cli.py")
+
+
+def test_launch_restarts_a_crashed_world(tmp_path):
+    """A worker crashed at the 24-step boundary (before that boundary's
+    checkpoint) is restarted once; the world resumes from the shard files
+    of step 16 and writes the uninterrupted world's files and sum."""
+    args = ["--", *_COMMON, "--comm", "staged", "--mesh", "2x1",
+            "--checkpoint-every", "8", "--async-io", "off"]
+    runs = {}
+    for key, extra in (("clean", []), ("crash", ["--inject", "crash@20:proc=1"])):
+        where = tmp_path / key
+        where.mkdir()
+        (where / "input.dat").write_text("24 0.2 0.05 2.0 40 1\n")
+        runs[key] = subprocess.run(
+            [sys.executable, "-m", "heat_tpu_torch", "launch", "-n", "2",
+             "--max-restarts", "2", *args, *extra],
+            cwd=where, env=_env(tmp_path, HEAT_TPU_RESTART_BACKOFF_S="0.05"),
+            capture_output=True, text=True, timeout=240)
+        assert runs[key].returncode == 0, (runs[key].stdout, runs[key].stderr)
+    _same_files(tmp_path / "crash", tmp_path / "clean")
+    gsum = [json.loads(runs[k].stdout.strip().splitlines()[-1])["gsum"]
+            for k in ("clean", "crash")]
+    assert gsum[0] == gsum[1]
+    err = runs["crash"].stderr
+    assert "launch: worker 1 exited rc=43" in err
+    recs = [json.loads(line.split("launch: restart ", 1)[1])
+            for line in err.splitlines() if line.startswith("launch: restart ")]
+    assert len(recs) == 1
+    assert list(recs[0]) == _reference_restart_keys()
+    assert recs[0]["event"] == "launch_restart" and recs[0]["attempt"] == 1
+    assert recs[0]["resume_step"] == 16 and recs[0]["rc"] == 43
+    assert "resumed from shard checkpoints at step 16" in runs["crash"].stdout
+    assert "launch_restart" not in runs["clean"].stderr
+
+
+def test_launch_gives_up_after_the_budget(tmp_path):
+    """A crash in every incarnation spends the budget: launch keeps the
+    worker's exit code, after one restart record per attempt."""
+    (tmp_path / "input.dat").write_text("24 0.2 0.05 2.0 40 1\n")
+    out = subprocess.run(
+        [sys.executable, "-m", "heat_tpu_torch", "launch", "-n", "2",
+         "--max-restarts", "1", "--", *_COMMON, "--comm", "staged",
+         "--checkpoint-every", "8", "--async-io", "off", "--inject",
+         "crash@20:proc=1:restart=-1"],
+        cwd=tmp_path, env=_env(tmp_path, HEAT_TPU_RESTART_BACKOFF_S="0.05"),
+        capture_output=True, text=True, timeout=240)
+    assert out.returncode == 43, (out.stdout, out.stderr)
+    assert out.stderr.count("launch: restart ") == 1
+    assert "giving up after 1 restart(s)" in out.stderr

@@ -418,37 +418,6 @@ def test_policy_pop_order_is_the_reference(policy):
     assert got == want and not tq and tq.pop() is None
 
 
-@pytest.mark.cuda
-def test_serve_on_the_card_matches_the_plain_body():
-    """On the card the lane kernels serve the lane matrix to the bytes of
-    the plain lane body run on the same card."""
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA card on this host (run on the card with -m cuda)")
-    from heat_tpu_torch.ops import cuda_lanes
-
-    reqs = (matrix_requests(2, "float32", ("ghost", "edges"))
-            + matrix_requests(2, "bfloat16", ("edges", "ghost"))
-            + matrix_requests(3, "float32", ("ghost", "edges")))
-    out = {}
-    for kernel in ("cuda", "torch"):
-        cuda_lanes.reset_launches()
-        eng = Engine(ServeConfig(lanes=2, chunk=4, buckets=(12,),
-                                 lane_kernel=kernel, emit_records=False,
-                                 keep_fields=True), device="cuda")
-        ids = [eng.submit(HeatConfig(**r)) for r in reqs]
-        recs = {r["id"]: r for r in eng.results()}
-        assert all(recs[i]["status"] == "ok" for i in ids)
-        assert (min(cuda_lanes.launches.values()) > 0) == (kernel == "cuda")
-        # the scheduler's count of the chunks' passes = the wrappers' count
-        summary = eng.summary()
-        assert summary["lane_passes"] == {
-            k: v for k, v in cuda_lanes.launches.items() if v}
-        assert (sum(summary["lane_passes_by_bucket"].values())
-                == sum(cuda_lanes.launches.values()))
-        out[kernel] = [recs[i]["T"].tobytes() for i in ids]
-    assert out["cuda"] == out["torch"]
-
-
 _VALIDATOR_CASES = [
     ("parse_dispatch_depth", ("on",)), ("parse_dispatch_depth", (" OFF ",)),
     ("parse_dispatch_depth", ("3",)), ("parse_dispatch_depth", ("0",)),

@@ -235,11 +235,14 @@ def test_effective_chunk_matches_reference(shape, dtype):
 
 
 def test_refusals():
-    """No path falls back quietly: overlap raises, an f64 cuda local
-    kernel raises, a mesh larger than the shards given raises."""
+    """No path falls back quietly: overlap without the stencil kernel (the
+    torch local kernel, or f64) raises, an f64 cuda local kernel raises, a
+    mesh larger than the shards given raises."""
     _, cfg = _pair(2, dtype="float32")
-    with pytest.raises(NotImplementedError, match="overlap"):
-        solve(cfg.with_(exchange="overlap"), device="cpu")
+    for kw in (dict(local_kernel="torch"), dict(dtype="float64"),
+               dict(dtype="float64", local_kernel="cuda")):
+        with pytest.raises(ValueError, match="overlap"):
+            _quiet(solve, cfg.with_(exchange="overlap", **kw), device="cpu")
     with pytest.raises(ValueError, match="local_kernel='cuda'"):
         _quiet(solve, cfg.with_(dtype="float64", local_kernel="cuda"),
                device="cpu")
