@@ -129,7 +129,36 @@ a checkout of the repository, it exits non-zero and prints no result):
    launches by bucket, and each bf16 twin's mean gap from its f32 request
    beside the gaps that a wrong sigma or initial condition makes in f32
    (a measurement: bf16 lanes round every step and stagnate, see
-   phase_serve);
+   phase_serve); the numerics observatory is on in every serve run (the
+   default);
+5b. serving semantics at phase 5's arguments, through the same CLI entry
+   point (each run's launch counts and fault plans reset just before it):
+   a steady population from ``default_rng(1)`` — 24 ``until=steady``
+   requests (20 2D, sides 128-1024, f32 and bf16; 4 3D, sides 64-256;
+   sine and hat ICs, edges and ghost BCs), each ``tol`` picked so that
+   the closed-form admission prediction lands between 25% and 75% of
+   ntime, and 4 fixed-step twins — served with ``--serve-lane-kernel
+   cuda`` and again with ``torch`` (the plain versions, on the card):
+   every status, ``exit``, ``steps_done``, ``predicted_steps``,
+   ``steady_state`` record, ``numerics_violation`` record and npz byte
+   equal; every stats row the observatory read equal (resid, tmin, tmax,
+   the countdown) but heat (a sum), held within 1e-5 relative; launches
+   equal to the dispatched chunks' passes; per request the predicted
+   against the actual retirement step, ``steps_saved``, the wall, the
+   served cell-steps/s on the steps done, and (once more under
+   ``torch.profiler``, npz byte-equal) the card's busy share; then a
+   fault population from ``default_rng(2)`` (four 2D, two 3D f32
+   requests) on the kernels: ``--serve-on-nan rollback`` with
+   ``lane-nan`` in one 2D and one 3D request at dispatch depths 2 and
+   off: 2 rollbacks, every npz byte-equal to the clean run, launches
+   equal to the chunks' passes (rollback adds no kernel and no copy); a
+   sigma-9 request quarantined after 2 rollbacks, its lane-mate
+   byte-equal; ``perturb`` under ``--numerics-guard quarantine``: the
+   request fails with the numerics message, the others byte-equal;
+   ``Engine.start()`` with one request, then a burst of 7: at least one
+   lane-tier growth, every field byte-equal to the offline ``run()``;
+   ``--fetch-watchdog 2 --inject fetch-hang@3:ms=10000``: the watchdog
+   fails the hung group, serve exits 1 well inside the hang;
 6. the kernel lab's candidates L1-L5 (``lab2d``, ``lab3d``): every
    (kernel, variant, dtype) against its plain version on the card, bytes,
    at the JAX lab's check shapes, depths 1 and the deepest its TPU geometry
@@ -1245,14 +1274,17 @@ def serve_population(path: Path) -> list:
     return reqs
 
 
-def cli_serve(reqfile: Path, out_dir: Path, *extra):
+def cli_serve_rows(reqfile: Path, out_dir: Path, *extra, echo=True):
     """One ``serve`` through the CLI entry point, the lane launch counts
-    zeroed just before and read just after. Returns (rc, records, summary,
-    launches by kernel, wall seconds)."""
+    zeroed just before and read just after (and the fault plans' firing
+    state reset). Returns (rc, every JSON row printed, summary, launches by
+    kernel, wall seconds)."""
     from heat_tpu_torch import cli
     from heat_tpu_torch.ops import cuda_lanes as cl
+    from heat_tpu_torch.runtime import faults
 
     buf = io.StringIO()
+    faults.reset()
     cl.reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -1261,11 +1293,22 @@ def cli_serve(reqfile: Path, out_dir: Path, *extra):
     wall = time.perf_counter() - t0
     launches = dict(cl.launches)
     lines = buf.getvalue().splitlines()
-    records = [json.loads(x) for x in lines if x.startswith("{")
-               and json.loads(x).get("event") == "serve_request"]
+    rows = [json.loads(x) for x in lines if x.startswith("{")]
     summary = json.loads(lines[-1])
-    print("".join(f"    | {x}\n" for x in lines
-                  if not x.startswith('{"bc"')), end="")
+    if echo:
+        print("".join(f"    | {x}\n" for x in lines
+                      if not x.startswith('{"bc"')
+                      and not x.startswith('{"event": "steady_state"')),
+              end="")
+    return rc, rows, summary, launches, wall
+
+
+def cli_serve(reqfile: Path, out_dir: Path, *extra):
+    """``cli_serve_rows`` with the ``serve_request`` records only. Returns
+    (rc, records, summary, launches by kernel, wall seconds)."""
+    rc, rows, summary, launches, wall = cli_serve_rows(reqfile, out_dir,
+                                                       *extra)
+    records = [r for r in rows if r.get("event") == "serve_request"]
     return rc, records, summary, launches, wall
 
 
@@ -1413,7 +1456,7 @@ def phase_serve(smi):
 
 
 def profiled_serve(reqfile: Path, out_dir: Path, wall: float, ids: list,
-                   ref_dir: Path):
+                   ref_dir: Path, label: str = "[phase 5]"):
     """The kernel-body serve once more under ``torch.profiler``: the card's
     busy time by kernel (the unprofiled run's wall is the denominator of the
     busy share, since profiling slows the host) and the host's heaviest
@@ -1424,7 +1467,7 @@ def profiled_serve(reqfile: Path, out_dir: Path, wall: float, ids: list,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    print("[phase 5] the same file once more under torch.profiler")
+    print(f"{label} the same file once more under torch.profiler")
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
         prof.start()
@@ -1484,6 +1527,369 @@ def profiled_serve(reqfile: Path, out_dir: Path, wall: float, ids: list,
                 profiled_wall_s=pwall, by_kernel=by_kernel,
                 device=[(key, t / 1e6, count) for t, key, count in device[:6]])
 
+
+
+def tol_for(cfg, frac: float) -> float:
+    """The steady tolerance whose closed-form admission prediction
+    (``convergence.predict_admission_steps``) is ``frac * ntime`` steps."""
+    import math
+
+    from heat_tpu_torch.grid import ic_envelope
+    from heat_tpu_torch.runtime import convergence
+
+    lam = math.exp(convergence.closed_form_log_rate(cfg))
+    lo, hi = ic_envelope(cfg)
+    r0 = (1 - lam) * max(abs(hi), abs(lo), abs(hi - lo))
+    return r0 * lam ** (frac * cfg.ntime)
+
+
+def steady_population(path: Path) -> list:
+    """Phase 5b's steady population, written to ``path``: 24 until=steady
+    requests from ``default_rng(1)`` (20 2D, sides 128-1024; 4 3D, sides
+    64-256; f32 and bf16 in 2D, sine and hat ICs, edges and ghost BCs in
+    turn), each ``tol`` picked so that the admission prediction lands
+    between 25% and 75% of ``ntime``, and 4 fixed-step twins."""
+    import numpy as np
+
+    from heat_tpu_torch import HeatConfig
+    from heat_tpu_torch.runtime import convergence
+
+    rng = np.random.default_rng(1)
+    reqs = []
+    for i in range(24):
+        three = i >= 20
+        r = dict(id=f"steady-{i:02d}", ndim=3 if three else 2,
+                 n=int(rng.integers(64, 257) if three
+                       else rng.integers(128, 1025)),
+                 ntime=int(rng.integers(48, 161) if three
+                           else rng.integers(300, 1801)),
+                 dtype="bfloat16" if i % 3 == 2 and not three else "float32",
+                 sigma=float(rng.choice(LANE_R[3 if three else 2])),
+                 ic=("sine", "hat")[i % 2], bc=("edges", "ghost")[(i // 2) % 2],
+                 bc_value=1.0)
+        cfg = HeatConfig(**{k: v for k, v in r.items() if k != "id"})
+        frac = float(rng.uniform(0.3, 0.7))
+        r.update(until="steady", tol=tol_for(cfg, frac))
+        pred = convergence.predict_admission_steps(cfg, r["tol"])
+        check(pred is not None
+              and 0.25 * cfg.ntime <= pred <= 0.75 * cfg.ntime,
+              f"{r['id']}: predicted {pred} of {cfg.ntime} steps")
+        reqs.append(r)
+    for i in range(4):
+        twin = {k: v for k, v in reqs[5 * i].items() if k not in ("until",
+                                                                  "tol")}
+        reqs.append(dict(twin, id=f"fixed-{i}"))
+    path.write_text("".join(json.dumps(r) + "\n" for r in reqs))
+    return reqs
+
+
+def chaos_population(path: Path) -> list:
+    """Phase 5b's fault population (``default_rng(2)``): four 2D f32
+    requests and two 3D f32 requests, fixed-step."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    reqs = []
+    for i in range(6):
+        three = i >= 4
+        reqs.append(dict(id=f"chaos-{i}", ndim=3 if three else 2,
+                         n=int(rng.integers(64, 129) if three
+                               else rng.integers(128, 401)),
+                         ntime=int(rng.integers(48, 97) if three
+                                   else rng.integers(300, 601)),
+                         dtype="float32",
+                         sigma=float(rng.choice(LANE_R[3 if three else 2])),
+                         ic=ICS[i % 4], bc=("edges", "ghost")[i % 2],
+                         bc_value=1.0))
+    path.write_text("".join(json.dumps(r) + "\n" for r in reqs))
+    return reqs
+
+
+def numerics_calls():
+    """Record every ``NumericsObservatory.observe`` call of the runs inside
+    the context: (request id, resid, tmin, tmax, heat, remaining)."""
+    from heat_tpu_torch.runtime import numerics
+
+    calls = []
+    orig = numerics.NumericsObservatory.observe
+
+    def spy(self, req_id, resid, tmin, tmax, heat, remaining):
+        calls.append((req_id, resid, tmin, tmax, heat, remaining))
+        return orig(self, req_id, resid, tmin, tmax, heat, remaining)
+
+    @contextlib.contextmanager
+    def ctx():
+        numerics.NumericsObservatory.observe = spy
+        try:
+            yield calls
+        finally:
+            numerics.NumericsObservatory.observe = orig
+
+    return ctx()
+
+
+def events_of(rows, kind):
+    return sorted((json.dumps(r, sort_keys=True) for r in rows
+                   if r.get("event") == kind))
+
+
+def launches_are_the_chunks(what, launches, summary):
+    """The wrappers' launch counts equal the passes of the dispatched
+    chunks (no lane kernel beyond the chunks), and a chunk is at most
+    ``len(passes(nd, 16))`` launches of its kernel."""
+    from heat_tpu_torch.ops import cuda_lanes as cl
+
+    passes = summary["lane_passes"]
+    check(launches == {k: passes.get(k, 0) for k in launches},
+          f"{what}: lane launches {launches} != the chunks' passes {passes}")
+    for name, nd in (("lanes2d", 2), ("lanes3d", 3)):
+        chunks = summary["lane_chunks"].get(name, 0)
+        most = len(cl.passes(nd, int(SERVE_ARGS[3])))
+        check(launches[name] <= most * chunks,
+              f"{what}: {name} took over {most} launches a chunk")
+    return {name: launches[name] / max(1, summary["lane_chunks"].get(name, 0))
+            for name in launches}
+
+
+def numerics_ab(serve, pairs: int = 1):
+    """Phase 5's file again with ``--numerics off`` and on, ``pairs``
+    times in turns (off, on, then on, off, ...; phase 5's first run was
+    on): the same boundary fetches and npz bytes, and every wall on one
+    card."""
+    reqfile = WORK / "requests.jsonl"
+    ids = [json.loads(x)["id"] for x in reqfile.read_text().splitlines()]
+    walls = {"on": [serve["wall_s"]], "off": []}
+    waits = {serve["summary"]["boundary_waits"]}
+    for i in range(pairs):
+        for mode in (("off", "on") if i % 2 == 0 else ("on", "off")):
+            rc, recs, summary, _, wall = cli_serve(
+                reqfile, WORK / f"serve-n{mode}", "--numerics", mode)
+            check(rc == 0 and all(r["status"] == "ok" for r in recs),
+                  f"--numerics {mode} serve failed")
+            check(not npz_differ(ids, WORK / "serve-cuda",
+                                 WORK / f"serve-n{mode}"),
+                  f"--numerics {mode} npz differ from phase 5's")
+            waits.add(summary["boundary_waits"])
+            walls[mode].append(wall)
+    check(len(waits) == 1, f"boundary fetches differ on/off: {waits}")
+    print(f"[phase 5b] phase 5's file, numerics on (phase 5's run first): "
+          + ", ".join(f"{w:.3f}" for w in walls["on"]) + " s; off: "
+          + ", ".join(f"{w:.3f}" for w in walls["off"])
+          + f" s of wall; {waits.pop()} boundary fetches each, npz "
+          f"byte-equal")
+    return walls
+
+
+def phase_serve_semantics(smi, serve=None):
+    """Phase 5b: serving semantics on the card at phase 5's SERVE_ARGS (see
+    the module docstring). ``serve``: phase 5's result, for the numerics
+    on/off comparison on its file."""
+    from heat_tpu_torch import HeatConfig
+    from heat_tpu_torch.serve import Engine, ServeConfig
+
+    t_phase = time.perf_counter()
+    out = {}
+    if serve is not None:
+        out["numerics_walls"] = numerics_ab(serve)
+    # --- the steady population, on the kernels and on the plain versions
+    reqfile = WORK / "steady.jsonl"
+    reqs = steady_population(reqfile)
+    ids = [r["id"] for r in reqs]
+    by_id = {r["id"]: r for r in reqs}
+    runs = {}
+    for body in ("cuda", "torch"):
+        with numerics_calls() as calls:
+            rc, rows, summary, launches, wall = cli_serve_rows(
+                reqfile, WORK / f"steady-{body}", "--serve-lane-kernel", body,
+                echo=False)
+        recs = {r["id"]: r for r in rows if r.get("event") == "serve_request"}
+        check(rc == 0 and len(recs) == len(reqs)
+              and all(r["status"] == "ok" for r in recs.values()),
+              f"steady population on {body}: rc {rc}, statuses "
+              f"{sorted({r['status'] for r in recs.values()})}")
+        runs[body] = dict(rows=rows, recs=recs, summary=summary,
+                          launches=launches, wall=wall, calls=list(calls))
+    k, t = runs["cuda"], runs["torch"]
+    check(not any(t["launches"].values()), f"torch body launched "
+                                           f"{t['launches']}")
+    per_chunk = launches_are_the_chunks("steady population", k["launches"],
+                                        k["summary"])
+    for rid in ids:
+        a, b = k["recs"][rid], t["recs"][rid]
+        check((a["status"], a["exit"], a["steps_done"], a["predicted_steps"])
+              == (b["status"], b["exit"], b["steps_done"],
+                  b["predicted_steps"]),
+              f"{rid}: kernels {a['exit']}@{a['steps_done']} vs plain "
+              f"{b['exit']}@{b['steps_done']}")
+    ndiff = npz_differ(ids, WORK / "steady-cuda", WORK / "steady-torch")
+    check(not ndiff, f"steady npz differ between kernels and plain: {ndiff}")
+    st_k, st_t = (events_of(x["rows"], "steady_state") for x in (k, t))
+    check(st_k == st_t, "steady_state events differ between the kernels "
+                        "and the plain versions")
+    vk, vt = (events_of(x["rows"], "numerics_violation") for x in (k, t))
+    if vk != vt:
+        for line in sorted(set(vk) ^ set(vt)):
+            print(f"  numerics_violation in one run only: {line}")
+    check(vk == vt, "numerics_violation (heat-jump) events differ between "
+                    "the kernels and the plain versions")
+    # the fused stats rows the observatory read: resid/tmin/tmax (order-free
+    # reductions) and the countdown equal, heat (a sum) within 1e-5
+    check(len(k["calls"]) == len(t["calls"]),
+          f"{len(k['calls'])} vs {len(t['calls'])} observed boundaries")
+    heat_rel = 0.0
+    for a, b in zip(sorted(k["calls"], key=lambda c: (c[0], -c[5])),
+                    sorted(t["calls"], key=lambda c: (c[0], -c[5]))):
+        check(a[:4] == b[:4] and a[5] == b[5],
+              f"observed stats differ: {a} vs {b}")
+        rel = abs(a[4] - b[4]) / max(abs(b[4]), 1e-30)
+        heat_rel = max(heat_rel, rel)
+    check(heat_rel <= 1e-5, f"heat differs by {heat_rel:g} relative")
+    done = sum(by_id[r]["n"] ** by_id[r]["ndim"] * k["recs"][r]["steps_done"]
+               for r in ids)
+    saved = k["summary"]["steps_saved"]
+    exits = [r for r in ids if k["recs"][r]["exit"] == "steady"]
+    print(f"[phase 5b] steady population: {len(reqs)} requests, "
+          f"{len(exits)} steady exits, steps_saved {saved}, "
+          f"{len(st_k)} steady_state records, {len(vk)} violations; "
+          f"kernels {k['wall']:.3f} s ({done / k['wall']:.6g} cell-steps/s "
+          f"on the steps done), plain {t['wall']:.3f} s; "
+          f"{len(k['calls'])} observed boundaries, heat max rel "
+          f"{heat_rel:.3g}; launches {k['launches']} "
+          f"({', '.join(f'{n} {v:.3f}' for n, v in per_chunk.items())} a "
+          f"chunk) on {smi}")
+    for rid in ids:
+        a = k["recs"][rid]
+        print(f"    {rid} {by_id[rid]['n']}^{by_id[rid]['ndim']} "
+              f"{by_id[rid]['dtype']} {by_id[rid]['ic']} {by_id[rid]['bc']}: "
+              f"predicted {a['predicted_steps']}, retired {a['exit']} at "
+              f"{a['steps_done']} of {a['ntime']}")
+    check(saved > 0 and exits, "no steady exit in the steady population")
+    profile = profiled_serve(reqfile, WORK / "steady-profiled", k["wall"],
+                             ids, WORK / "steady-cuda", label="[phase 5b]")
+    out["steady"] = dict(requests=len(reqs), steady_exits=len(exits),
+                         steps_saved=saved, wall_s=k["wall"],
+                         plain_wall_s=t["wall"],
+                         cell_steps_per_s=done / k["wall"],
+                         heat_rel=heat_rel, profile=profile,
+                         launches_per_chunk=per_chunk)
+
+    # --- rollback: lane-nan into one 2D and one 3D request, depths 0 and 2
+    chaos = WORK / "chaos.jsonl"
+    creqs = chaos_population(chaos)
+    cids = [r["id"] for r in creqs]
+    rc, recs, summary, launches, _ = cli_serve(chaos, WORK / "chaos-clean")
+    check(rc == 0 and all(r["status"] == "ok" for r in recs),
+          "clean chaos run failed")
+    clean_pc = launches_are_the_chunks("clean", launches, summary)
+    spec = "lane-nan@100:req=chaos-1,lane-nan@20:req=chaos-4"
+    for depth in ("2", "off"):
+        rc, recs, summary, launches, _ = cli_serve(
+            chaos, WORK / f"chaos-rb-{depth}", "--serve-on-nan", "rollback",
+            "--inject", spec, "--dispatch-depth", depth)
+        check(rc == 0 and all(r["status"] == "ok" for r in recs),
+              f"rollback run (depth {depth}) did not heal every request")
+        check(summary["rollbacks"] == 2, f"depth {depth}: "
+                                         f"{summary['rollbacks']} rollbacks")
+        ndiff = npz_differ(cids, WORK / "chaos-clean",
+                           WORK / f"chaos-rb-{depth}")
+        check(not ndiff, f"rollback (depth {depth}) npz differ: {ndiff}")
+        rb_pc = launches_are_the_chunks(f"rollback depth {depth}", launches,
+                                        summary)
+        print(f"[phase 5b] rollback depth {depth}: {summary['rollbacks']} "
+              f"rollbacks, {len(cids)} of {len(cids)} npz byte-equal to the "
+              f"clean run; launches a chunk {rb_pc} (clean {clean_pc})")
+    boom = WORK / "boom.jsonl"
+    # a sigma-9 request in chaos-2's bucket group, beside chaos-2
+    boom.write_text(json.dumps(dict(creqs[2], id="boom", sigma=9.0,
+                                    ic="hat")) + "\n"
+                    + json.dumps(creqs[2]) + "\n")
+    rc, recs, summary, launches, _ = cli_serve(boom, WORK / "chaos-boom",
+                                               "--serve-on-nan", "rollback")
+    rb = {r["id"]: r for r in recs}
+    check(rc == 1 and rb["boom"]["status"] == "nonfinite"
+          and "after 2 rollbacks (deterministic blow-up)" in rb["boom"]["error"]
+          and summary["rollbacks"] == 2 and summary["lanes_quarantined"] == 1,
+          f"sigma-9 request: {rb['boom']}")
+    check(rb[creqs[2]["id"]]["status"] == "ok"
+          and not npz_differ([creqs[2]["id"]], WORK / "chaos-clean",
+                             WORK / "chaos-boom"),
+          "the sigma-9 request's lane-mate differs from the clean run")
+    launches_are_the_chunks("sigma-9", launches, summary)
+    print(f"[phase 5b] sigma-9 request quarantined after "
+          f"{summary['rollbacks']} rollbacks; its lane-mate byte-equal")
+
+    # --- perturb under --numerics-guard quarantine
+    rc, rows, summary, launches, _ = cli_serve_rows(
+        chaos, WORK / "chaos-perturb", "--numerics-guard", "quarantine",
+        "--inject", "perturb@64:req=chaos-2")
+    recs = {r["id"]: r for r in rows if r.get("event") == "serve_request"}
+    bad = recs["chaos-2"]
+    check(rc == 1 and bad["status"] == "nonfinite"
+          and bad["error"].startswith("numerics: max-principle violation"),
+          f"perturbed request: {bad}")
+    others = [i for i in cids if i != "chaos-2"]
+    check(all(recs[i]["status"] == "ok" for i in others)
+          and not npz_differ(others, WORK / "chaos-clean",
+                             WORK / "chaos-perturb"),
+          "a request beside the perturbed one differs from the clean run")
+    print(f"[phase 5b] perturb: chaos-2 quarantined ({bad['error'][:60]}...),"
+          f" the other {len(others)} byte-equal to the clean run")
+
+    # --- online growth: one request, then a burst of 7, through start()
+    grow = [dict(n=250, ntime=20000, ic="hat", bc="ghost")] + [
+        dict(n=100 + 20 * i, ntime=300 + 50 * i, ic=ICS[i % 4], bc="ghost")
+        for i in range(7)]
+    scfg = ServeConfig(lanes=8, chunk=16, buckets=(256, 512, 1024),
+                       emit_records=False, keep_fields=True)
+    eng = Engine(scfg, device="cuda")
+    t0 = time.perf_counter()
+    eng.start()
+    try:
+        gids = [eng.submit(HeatConfig(**grow[0]), request_id="grow-0")]
+        t_wait = time.perf_counter()
+        while (eng.poll("grow-0")["status"] == "queued"
+               and time.perf_counter() - t_wait < 120):
+            time.sleep(0.001)
+        gids += [eng.submit(HeatConfig(**g), request_id=f"grow-{i + 1}")
+                 for i, g in enumerate(grow[1:])]
+        grecs = [eng.wait(i, timeout=300) for i in gids]
+    finally:
+        check(eng.shutdown(timeout=300), "online engine did not drain")
+    gwall = time.perf_counter() - t0
+    check(eng.loop_error is None and all(r and r["status"] == "ok"
+                                         for r in grecs),
+          f"online run: {eng.loop_error}, {[r and r['status'] for r in grecs]}")
+    off = Engine(scfg, device="cuda")
+    for i, g in zip(gids, grow):
+        off.submit(HeatConfig(**g), request_id=i)
+    orecs = {r["id"]: r for r in off.results()}
+    same = all(eng._by_id[i]["T"].tobytes() == orecs[i]["T"].tobytes()
+               for i in gids)
+    print(f"[phase 5b] online: {len(gids)} requests through start() in "
+          f"{gwall:.3f} s, lane_grows {eng.lane_grows}, fields byte-equal "
+          f"to the offline run: {same}")
+    check(eng.lane_grows >= 1, "the online engine never grew its lane tier")
+    check(same, "online fields differ from the offline run()")
+    out["online"] = dict(lane_grows=eng.lane_grows, wall_s=gwall)
+
+    # --- fetch-hang trips the watchdog
+    rc, recs, summary, _, hwall = cli_serve(
+        chaos, WORK / "chaos-hang", "--fetch-watchdog", "2", "--inject",
+        "fetch-hang@3:ms=10000")
+    errs = [r for r in recs if r["status"] == "error"]
+    check(rc == 1 and summary["watchdog_fired"] == 1 and errs
+          and all("fetch-watchdog" in r["error"] for r in errs)
+          and all(r["status"] in ("ok", "error") for r in recs),
+          f"fetch-hang: rc {rc}, watchdog {summary['watchdog_fired']}, "
+          f"{[(r['id'], r['status']) for r in recs]}")
+    check(hwall < 10.0, f"fetch-hang serve took {hwall:.3f} s: it waited "
+                        f"for the hang")
+    print(f"[phase 5b] fetch-hang: watchdog fired after 2 s, {len(errs)} "
+          f"request(s) of the hung group failed cleanly, serve exited rc "
+          f"{rc} in {hwall:.3f} s")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[phase 5b] done in {out['phase_s']:.1f} s")
+    return out
 
 
 def nan_bits_equal_cells(a, b):
@@ -2512,6 +2918,7 @@ def main() -> int:
         runs = phase_main_path(smi)
         phase_oracle()
         serve = phase_serve(smi)
+        phase_serve_semantics(smi, serve)
         lab_errs = phase_lab_compare()
         lab_rows, lab_launches = phase_lab(smi)
         shard = phase_sharded(smi)

@@ -127,9 +127,10 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--requests", metavar="FILE.jsonl", required=True,
                        help="JSON Lines: one request object per line, keys "
                             "= HeatConfig physics fields (n, ntime, sigma, "
-                            "nu, dom_len, ndim, dtype, ic, bc, bc_value) + "
-                            "optional id, deadline_ms, tenant, class; '#' "
-                            "lines are comments")
+                            "nu, dom_len, ndim, dtype, ic, bc, bc_value, "
+                            "inject) + optional id, deadline_ms, tenant, "
+                            "class, until (steps|steady), tol; '#' lines "
+                            "are comments")
     serve.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                        help="where the lanes live (default cuda)")
     serve.add_argument("--lanes", type=int, default=4,
@@ -159,6 +160,18 @@ def build_parser() -> argparse.ArgumentParser:
                             "force it (same bytes). An f64 bucket under "
                             "'cuda' degrades to torch as a structured "
                             "lane_kernel_fallback record, never an error")
+    serve.add_argument("--serve-on-nan", dest="serve_on_nan",
+                       choices=["fail", "rollback"], default="fail",
+                       help="per-lane non-finite response (every chunk "
+                            "boundary carries a device-computed isfinite "
+                            "bit per lane): 'fail' (default) quarantines "
+                            "the request — structured 'nonfinite' record, "
+                            "lane freed, co-scheduled lanes untouched; "
+                            "'rollback' restores that lane's last "
+                            "verified-finite boundary snapshot and "
+                            "re-steps it alone (transient poison recovers "
+                            "bit-identically; deterministic blow-ups "
+                            "quarantine after 2 retries)")
     serve.add_argument("--serve-deadline", dest="serve_deadline",
                        type=float, metavar="MS",
                        help="engine-default per-request wall budget in ms "
@@ -176,6 +189,18 @@ def build_parser() -> argparse.ArgumentParser:
                        help="boundary-fetch watchdog: a chunk-boundary wait "
                             "exceeding this fails that bucket group's "
                             "requests cleanly (default 600; 0 = off)")
+    serve.add_argument("--inject", metavar="SPEC",
+                       help="engine-scoped deterministic fault injection "
+                            "(runtime/faults.py grammar) incl. the "
+                            "serve kinds: lane-nan@N[:req=ID] poisons a "
+                            "lane's field once its request has run N "
+                            "steps (no req= poisons every request); "
+                            "perturb@N[:req=ID][:eps=E] adds a finite bump "
+                            "instead; fetch-hang[@N]:ms=M hangs the Nth "
+                            "boundary fetch M ms (watchdog exercise); "
+                            "engine-kill@N kills the process at the Nth "
+                            "boundary. Per-request specs ride each "
+                            "request's own 'inject' key")
     serve.add_argument("--policy", choices=["fifo", "edf", "fair"],
                        default="fifo",
                        help="admission ordering: fifo (default, submit "
@@ -190,6 +215,31 @@ def build_parser() -> argparse.ArgumentParser:
                        metavar="N",
                        help="per-tenant admission sub-quota: one tenant may "
                             "hold at most N queued requests")
+    serve.add_argument("--numerics", default="on", metavar="on|off",
+                       help="numerics observatory (runtime/numerics.py): "
+                            "per-lane residual EWMAs, discrete-maximum-"
+                            "principle + heat-jump detectors, steady-"
+                            "state records — fed from the four per-lane "
+                            "stats the lane kernels fuse into the boundary "
+                            "vector (no extra device pass or transfer). "
+                            "'off' = A/B baseline (stats still ride the "
+                            "boundary; host ingestion off) (default on)")
+    serve.add_argument("--steady-tol", dest="steady_tol", type=float,
+                       default=1e-12, metavar="TOL",
+                       help="residual-EWMA threshold below which a lane "
+                            "with steps remaining emits one steady_state "
+                            "record (interior max|dT| per mini-step), and "
+                            "— for until=steady requests without their "
+                            "own tol — the default tolerance at which the "
+                            "lane RETIRES early with exit=steady "
+                            "(default 1e-12)")
+    serve.add_argument("--numerics-guard", dest="numerics_guard",
+                       choices=["warn", "quarantine"], default="warn",
+                       help="what a numerics_violation does: 'warn' = "
+                            "structured record only; 'quarantine' = also "
+                            "fail the request and free its lane (the "
+                            "nonfinite quarantine path — co-scheduled "
+                            "lanes untouched) (default warn)")
     serve.add_argument("--json", action="store_true",
                        help="also print the summary as one JSON line")
 
@@ -375,13 +425,23 @@ def _serve_report(summary: dict, ok: int, args) -> None:
                  + f", {summary['boundary_waits']} boundary wait(s) totaling "
                  f"{summary['boundary_wait_s']:.3f}s, est. device idle "
                  f"{summary['device_idle_s']:.3f}s")
-    if any(summary[k] for k in ("lanes_quarantined", "deadline_misses",
-                                "shed", "watchdog_fired")):
+    if any(summary[k] for k in ("lanes_quarantined", "rollbacks",
+                                "deadline_misses", "shed", "watchdog_fired")):
         master_print(f"fault domains: "
                      f"{summary['lanes_quarantined']} quarantined, "
+                     f"{summary['rollbacks']} rollback(s), "
                      f"{summary['deadline_misses']} deadline miss(es), "
                      f"{summary['shed']} shed, "
                      f"{summary['watchdog_fired']} watchdog timeout(s)")
+    if summary.get("numerics"):
+        master_print(f"numerics: {summary.get('steady_lanes', 0)} steady "
+                     f"lane(s), {summary.get('numerics_violations', 0)} "
+                     f"violation(s) (guard "
+                     f"{summary.get('numerics_guard', 'warn')})")
+    if summary.get("steady_exits"):
+        master_print(f"semantic scheduling: {summary['steady_exits']} "
+                     f"steady exit(s), {summary.get('steps_saved', 0)} "
+                     f"step(s) saved")
     if args.json:
         master_print(json.dumps(summary, sort_keys=True))
 
@@ -393,7 +453,8 @@ def cmd_serve(args) -> int:
     the exit code is 0 only when every request served cleanly (a rejected
     or failed request is that request's record AND a nonzero exit)."""
     from .backends import resolve_device
-    from .config import (parse_dispatch_depth, parse_tenant_weights)
+    from .config import (parse_dispatch_depth, parse_on_off,
+                         parse_tenant_weights)
     from .serve import ServeConfig, serve_requests
 
     path = Path(args.requests)
@@ -411,6 +472,7 @@ def cmd_serve(args) -> int:
                            buckets=buckets, out_dir=args.out_dir,
                            dispatch_depth=parse_dispatch_depth(
                                args.dispatch_depth),
+                           on_nan=args.serve_on_nan,
                            lane_kernel=args.serve_lane_kernel,
                            deadline_ms=args.serve_deadline,
                            max_queue=args.max_queue,
@@ -419,7 +481,11 @@ def cmd_serve(args) -> int:
                            policy=args.policy,
                            tenant_weights=parse_tenant_weights(
                                args.tenant_weights or ""),
-                           tenant_quota=args.tenant_quota)
+                           tenant_quota=args.tenant_quota,
+                           inject=args.inject or "",
+                           numerics=parse_on_off(args.numerics, "--numerics"),
+                           steady_tol=args.steady_tol,
+                           numerics_guard=args.numerics_guard)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -427,14 +427,18 @@ def compiled_lanes3d_geometry(dtype, L: int, m: int,
 
 def _launch_passes(lib, fn, label: str, fields, spare, r, n, rem, rem_out,
                    boundary, ksteps: int, bc_lo: int, count: bool,
-                   depth: int = 0):
+                   depth: int = 0, keep=None):
     """The chunk's kernel passes through ``fn`` (``passes()``' depths, up to
     ``depth`` steps a launch), ping-ponging ``fields`` and ``spare``;
-    returns the post-chunk stack. Adds one to ``launches[label]`` per
-    launch where ``count``."""
+    returns the post-chunk stack. With a third stack ``keep``, the input is
+    kept: the first pass reads ``fields`` and writes ``spare``, the later
+    passes ping-pong ``spare`` and ``keep``, and ``fields`` is never
+    written (every kernel takes distinct in and out stacks, so this costs
+    no copy). Adds one to ``launches[label]`` per launch where ``count``."""
     nd = fields.dim() - 1
     L, m = fields.shape[0], fields.shape[1]
     src, dst = fields, spare
+    other = fields if keep is None else keep
     offset = 0
     schedule = passes(nd, ksteps, depth)
     with torch.cuda.device(fields.device):
@@ -454,7 +458,7 @@ def _launch_passes(lib, fn, label: str, fields, spare, r, n, rem, rem_out,
             if count:
                 launches[label] += 1
             offset += k
-            src, dst = dst, src
+            src, dst = dst, (other if i == 0 else src)
     return src
 
 
@@ -481,15 +485,17 @@ def _check_lane_vectors(fields, r, n, rem, rem_out, boundary) -> None:
 def lane_chunk(fields: torch.Tensor, spare: torch.Tensor, r: torch.Tensor,
                n: torch.Tensor, rem: torch.Tensor, rem_out: torch.Tensor,
                boundary: torch.Tensor, ksteps: int, bc_lo: int, *,
-               plain: bool = False) -> torch.Tensor:
+               plain: bool = False, keep=None) -> torch.Tensor:
     """One serving chunk of ``ksteps`` steps over the lane stack: the
     engine's entry. Writes ``rem_out`` = max(rem - ksteps, 0) and the
     ``(6, L)`` ``boundary`` vector, and returns the post-chunk stack —
     ``fields`` or ``spare``: the passes ping-pong between the two
     preallocated stacks, so both are the caller's scratch (a chunk of
-    three or more passes overwrites ``fields``). On a CUDA tensor the
-    kernel runs, on a CPU tensor (or with ``plain=True``) the plain
-    version."""
+    three or more passes overwrites ``fields``). Given a third stack
+    ``keep`` (keep-input mode), ``fields`` is only read: the passes
+    ping-pong ``spare`` and ``keep``, and the post-chunk stack is one of
+    those two. On a CUDA tensor the kernel runs, on a CPU tensor (or with
+    ``plain=True``) the plain version (which never writes ``fields``)."""
     nd = fields.dim() - 1
     if nd not in _KERNELS:
         raise ValueError(f"lane stacks are (L,)+(m,)*nd with nd 2 or 3, got "
@@ -501,6 +507,12 @@ def lane_chunk(fields: torch.Tensor, spare: torch.Tensor, r: torch.Tensor,
             or spare.data_ptr() == fields.data_ptr()):
         raise ValueError("spare must be a distinct stack of fields' shape, "
                          "dtype and device")
+    if keep is not None and (
+            keep.shape != fields.shape or keep.dtype != fields.dtype
+            or keep.device != fields.device
+            or keep.data_ptr() in (fields.data_ptr(), spare.data_ptr())):
+        raise ValueError("keep must be a third distinct stack of fields' "
+                         "shape, dtype and device")
     _check_lane_vectors(fields, r, n, rem, rem_out, boundary)
     if plain or fields.device.type == "cpu":
         out, finite, stats = _PLAIN[nd](fields, r, n, rem, ksteps, bc_lo)
@@ -514,12 +526,13 @@ def lane_chunk(fields: torch.Tensor, spare: torch.Tensor, r: torch.Tensor,
     if fields.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"the lane kernels take float32/bfloat16 stacks, got "
                          f"{fields.dtype} (gate on lane_kernel_available)")
-    if not (fields.is_contiguous() and spare.is_contiguous()):
+    if not (fields.is_contiguous() and spare.is_contiguous()
+            and (keep is None or keep.is_contiguous())):
         raise ValueError("lane stacks must be contiguous")
     name = _KERNELS[nd]
     lib, fn = _kernel_fn(name)
     return _launch_passes(lib, fn, name, fields, spare, r, n, rem, rem_out,
-                          boundary, ksteps, bc_lo, count=True)
+                          boundary, ksteps, bc_lo, count=True, keep=keep)
 
 
 def lane_multistep(fields: torch.Tensor, r: torch.Tensor, n: torch.Tensor,
@@ -536,8 +549,9 @@ def lane_multistep(fields: torch.Tensor, r: torch.Tensor, n: torch.Tensor,
     L = fields.shape[0]
     boundary = torch.empty((K_BOUNDARY, L), dtype=torch.int32,
                            device=fields.device)
-    # the caller's stack is an input: the passes ping-pong between two
-    # scratch stacks of their own
-    out = lane_chunk(fields.clone(), torch.empty_like(fields), r, n, rem,
-                     torch.empty_like(rem), boundary, ksteps, bc_lo)
+    # the caller's stack is an input: keep-input passes never write it
+    fields = fields.contiguous()
+    out = lane_chunk(fields, torch.empty_like(fields), r, n, rem,
+                     torch.empty_like(rem), boundary, ksteps, bc_lo,
+                     keep=torch.empty_like(fields))
     return out, boundary[1] != 0, boundary[2:K_BOUNDARY].view(torch.float32)

@@ -13,10 +13,17 @@ rank, :64-70): ``torch.cuda.set_device(LOCAL_RANK % device_count)``. The
 default group is NCCL for a ``direct`` exchange on the card and gloo
 otherwise; ``host_group`` is a gloo group for everything that goes through
 host memory (the staged exchange, the gather of the field, the flags).
+
+A joined process leaves its groups at exit (``atexit``, the reference's
+``mpi_finalize``): a gloo group still alive when the interpreter tears down
+destroys its threads while they are joinable, and the rank then dies of
+``std::terminate`` (SIGABRT) after its work is done, at random, failing
+the whole world under ``torchrun``.
 """
 
 from __future__ import annotations
 
+import atexit
 import os
 from typing import Optional
 
@@ -68,7 +75,18 @@ def init_distributed(device, comm: str = "direct") -> Optional[torch.device]:
     dist.init_process_group(backend=backend, rank=rank, world_size=world)
     _HOST_GROUP = (dist.new_group(backend="gloo") if backend != "gloo"
                    else dist.group.WORLD)
+    atexit.register(leave_world)
     return device
+
+
+def leave_world() -> None:
+    """Destroy this process's groups (every one, the default group last);
+    a no-op when none is joined. Registered at exit by
+    ``init_distributed``."""
+    global _HOST_GROUP
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _HOST_GROUP = None
 
 
 def host_group():

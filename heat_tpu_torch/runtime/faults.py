@@ -16,8 +16,37 @@ retry, NaN rollback) is a tested subsystem:
                                ``async_io.SnapshotWriter`` retries)
 - ``sink-slow:ms=M``         — every checkpoint write sleeps M ms first
 
-The grammar and the solve-scope semantics are ``heat_tpu.runtime.faults``'s;
-its serving and fleet kinds come with the slices that port those layers.
+Serve-scoped kinds (the serving engine's per-lane fault domains,
+``serve/scheduler.py``; the solo drive loop ignores them):
+
+- ``lane-nan@N[:req=ID]``    — poison one cell of a serving lane's field
+                               with NaN once that lane's request has
+                               completed >= N steps (fire-once per
+                               request). In a request's own ``inject`` the
+                               fault targets that request; in the engine's
+                               spec (``serve --inject``) ``req=ID`` selects
+                               one request id, no ``req=`` poisons every
+                               request. Pairs with ``--serve-on-nan``.
+- ``perturb@N[:req=ID][:eps=E]`` — add a finite bump ``eps`` (default
+                               1e3) to one cell of a serving lane's field
+                               once its request has completed >= N steps
+                               (fire-once per request, ``req=`` as for
+                               lane-nan): the field stays finite, so the
+                               finite bit holds, but the maximum-principle
+                               witnesses leave their envelope. Pairs with
+                               ``--numerics-guard``.
+- ``fetch-hang[@N]:ms=M``    — the first boundary fetch (the Nth with
+                               ``@N``) sleeps M ms inside the watched
+                               fetch: a wedged-device analog for the
+                               boundary-fetch watchdog (fire-once).
+- ``engine-kill@N``          — SIGKILL the serve process once the engine
+                               has processed >= N chunk boundaries (every
+                               runner counts): the hard-death analog.
+
+The grammar and the semantics of these kinds are
+``heat_tpu.runtime.faults``'s; its other serve kinds (the engine
+checkpoint's and the solve cache's) and its fleet kinds come with the
+slices that port those layers.
 
 Specs come from ``--inject`` (``HeatConfig.inject``) or the
 ``HEAT_TPU_FAULTS`` env var; multiple faults are comma-separated, e.g.
@@ -52,7 +81,7 @@ RESTART_ENV_VAR = "HEAT_TPU_RESTART"
 CRASH_RC = 43
 
 _KINDS = ("crash", "nan", "ckpt-corrupt", "ckpt-truncate", "sink-error",
-          "sink-slow")
+          "sink-slow", "lane-nan", "fetch-hang", "perturb", "engine-kill")
 
 
 @dataclasses.dataclass
@@ -61,8 +90,12 @@ class Fault:
     step: Optional[int] = None  # fires at the first boundary/step >= this
     proc: Optional[int] = None  # None = every process
     times: int = 1              # sink-error: how many writes fail
-    ms: float = 0.0             # sink-slow: delay
+    ms: float = 0.0             # sink-slow / fetch-hang: delay
     restart: int = 0            # incarnation filter (-1 = every incarnation)
+    req: Optional[str] = None   # lane-nan/perturb: target request id
+                                # (None = all)
+    eps: float = 1e3            # perturb: added to one cell (finite, big
+                                # enough to escape any envelope tolerance)
     fired: bool = False
 
 
@@ -106,15 +139,19 @@ def parse_spec(spec: str) -> List[Fault]:
                 raise ValueError(f"bad step {step_s!r} in fault {entry!r}")
         for kv in filter(None, tail.split(":")):
             key, eq, val = kv.partition("=")
-            if not eq or key not in ("proc", "times", "ms", "restart"):
+            if not eq or key not in ("proc", "times", "ms", "restart",
+                                     "req", "eps"):
                 raise ValueError(
                     f"bad fault param {kv!r} in {entry!r}; keys are "
-                    f"proc=, times=, ms=, restart=")
+                    f"proc=, times=, ms=, restart=, req=, eps=")
             try:
-                setattr(f, key, float(val) if key == "ms" else int(val))
+                setattr(f, key, val if key == "req"
+                        else float(val) if key in ("ms", "eps")
+                        else int(val))
             except ValueError:
                 raise ValueError(f"bad value {val!r} for {key} in {entry!r}")
-        if f.kind in ("crash", "nan") and f.step is None:
+        if (f.kind in ("crash", "nan", "lane-nan", "perturb", "engine-kill")
+                and f.step is None):
             raise ValueError(f"fault {entry!r} needs a step: '{f.kind}@N'")
         faults.append(f)
     return faults
@@ -160,6 +197,48 @@ class FaultPlan:
                              f"(spec {self.spec!r})")
                 T = _inject_nan(T)
         return T
+
+    # --- serve-scoped faults (serve/scheduler.py lane fault domains) ------
+    def lane_nan_steps(self, req_id: str) -> List[int]:
+        """The step thresholds at which ``req_id``'s serving lane is
+        poisoned with NaN. The fire-once state of lane-nan is per request
+        and lives in the scheduler (plans are cached per spec string, so
+        two requests sharing one spec must not share a fired flag)."""
+        return sorted(f.step for f in self._live("lane-nan")
+                      if f.req is None or f.req == req_id)
+
+    def perturb_events(self, req_id: str) -> List[tuple]:
+        """``(step, eps)`` thresholds at which ``req_id``'s serving lane is
+        perturbed; the scheduler owns the fire-once state, as for
+        ``lane_nan_steps``."""
+        return sorted((f.step, f.eps) for f in self._live("perturb")
+                      if f.req is None or f.req == req_id)
+
+    def maybe_fetch_hang(self, fetch_index: int) -> None:
+        """Called inside the watched boundary fetch: the first live
+        fetch-hang whose ``@N`` the fetch counter has reached sleeps ``ms``
+        and is spent (fire-once)."""
+        for f in self._live("fetch-hang"):
+            if not f.fired and fetch_index >= (f.step or 0):
+                f.fired = True
+                master_print(f"fault: injected {f.ms:.0f} ms hang on "
+                             f"boundary fetch {fetch_index} "
+                             f"(spec {self.spec!r})")
+                time.sleep(f.ms / 1000.0)
+
+    def maybe_engine_kill(self, boundary: int) -> None:
+        """Called once per processed chunk boundary (the engine-wide
+        count): SIGKILL this process once the count reaches ``@N``, so not
+        even interpreter-level clean-up runs."""
+        import signal
+
+        for f in self._live("engine-kill"):
+            if not f.fired and boundary >= f.step:
+                f.fired = True
+                print(f"fault: injected engine SIGKILL at boundary "
+                      f"{boundary} (spec {self.spec!r})",
+                      file=sys.stderr, flush=True)
+                os.kill(os.getpid(), signal.SIGKILL)
 
     # --- checkpoint-sink faults (runtime.checkpoint.save) -----------------
     def sink_fault(self, step: int) -> None:

@@ -1,12 +1,15 @@
 """Multi-tenant serving engine: continuous batching over stacked lanes.
 
-The port of ``heat_tpu.serve`` (offline drain over packed lanes):
+The port of ``heat_tpu.serve`` (packed lanes, offline drain and the online
+loop):
 
 - ``engine.py``    — the device half: up to L same-bucket grids stacked into
   one ``(L, B+2, ...)`` tensor with per-lane scalars, stepped by the
   hand-written lane kernels (``ops/cuda_lanes``) or their plain version.
 - ``scheduler.py`` — the host half: admission queue, shape bucketing and
-  dispatch-ahead continuous batching with per-lane fault domains.
+  dispatch-ahead continuous batching with per-lane fault domains
+  (quarantine, rollback), the numerics observatory's verdicts, steady
+  exits, and the online loop with lane-tier growth.
 - ``api.py``       — the request JSONL contract and the ``serve`` entry
   point.
 - ``policy.py``    — admission ordering (fifo | edf | fair).

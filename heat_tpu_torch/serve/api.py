@@ -13,9 +13,11 @@ the same-named ``HeatConfig`` fields (``config.config_from_request``):
 optional per-request wall budget from submission (overrides the engine
 default ``--serve-deadline``); ``tenant`` and ``class``
 (``config.SLO_CLASSES``: interactive | standard | batch) are the fields the
-fair-share/EDF policies and the per-tenant quota key on; ``until``/``tol``
-are validated as the reference validates them (``until=steady`` is then
-rejected by the engine: not served by this port yet). Everything else
+fair-share/EDF policies and the per-tenant quota key on; ``until``
+(``steps`` | ``steady``) and ``tol`` pick the completion semantics
+(``until=steady`` retires once the lane's residual EWMA passes ``tol``,
+default ``--steady-tol``, with ``ntime`` as the hard cap); ``inject`` is a
+per-request fault spec (``runtime/faults.py``). Everything else
 defaults to the ``HeatConfig`` defaults. Unknown keys are a per-request
 rejection (typos must not silently serve different physics). The engine
 pads each request up to the smallest configured bucket side and serves
@@ -23,7 +25,9 @@ same-bucket requests as stacked lanes under dispatch-ahead continuous
 batching (scheduler.py / engine.py); execution knobs — ``--lanes``,
 ``--chunk``, ``--buckets``, ``--dispatch-depth``, ``--max-queue``,
 ``--fetch-watchdog``, ``--policy``, ``--tenant-weights``,
-``--tenant-quota`` — are engine policy, never request payload.
+``--tenant-quota``, ``--serve-on-nan``, ``--numerics``, ``--steady-tol``,
+``--numerics-guard``, ``--inject`` — are engine policy, never request
+payload.
 
 The copy of ``heat_tpu.serve.api`` (the HTTP gateway that shares
 ``parse_request_obj`` there is not ported yet).

@@ -38,6 +38,17 @@ chunk ping-pongs between two preallocated stacks, and each chunk's
 boundary vector is a fresh tensor that lives until its fetch. A finished
 lane is cloned on the card and copied the same way (``lane_snapshot``),
 so only the writer thread waits for its bytes.
+
+Restorable stacks (``keep_input=True``, the scheduler's
+``--serve-on-nan rollback``): the reference keeps each chunk's undonated
+input stack as the previous boundary's snapshot. Here a chunk of three or
+more passes would overwrite its input, so a keep-input engine runs each
+chunk in keep-input mode (``cuda_lanes.lane_chunk(keep=...)``: the first
+pass reads the live stack, the later ones ping-pong two fresh stacks from
+the caching allocator) and never writes a stack after its chunk: the
+post-chunk stack IS that boundary's snapshot (``snapshot_stack``), with no
+copy on the dispatch path. A stack is freed once no chunk in flight and
+no lane's last good state holds it.
 """
 
 from __future__ import annotations
@@ -174,7 +185,10 @@ def make_lane_advance(key: BucketKey, kernel: str):
     remaining, k)`` runs ``k`` masked steps over every lane and returns
     ``(fields, spare, remaining, boundary)`` — the post-chunk stack, the
     other stack (the next chunk's scratch), the post-chunk remaining counts
-    and the ``(K_BOUNDARY, L)`` boundary vector.
+    and the ``(K_BOUNDARY, L)`` boundary vector. With ``keep=`` a third
+    stack, ``fields`` is only read (``cuda_lanes.lane_chunk``'s keep-input
+    mode) and the returned scratch is whichever of ``spare``/``keep`` the
+    chunk did not end in.
 
     ``kernel`` picks the body: ``"cuda"`` — the hand-written lane kernels
     (on CPU tensors, as every wrapper of the port, their plain version);
@@ -186,13 +200,15 @@ def make_lane_advance(key: BucketKey, kernel: str):
     bc_lo = _BC_LO[key.bc]
     plain = kernel == "torch"
 
-    def advance(fields, spare, r, n, remaining, k: int):
+    def advance(fields, spare, r, n, remaining, k: int, keep=None):
         rem_out = torch.empty_like(remaining)
         boundary = torch.empty((K_BOUNDARY, fields.shape[0]),
                                dtype=torch.int32, device=fields.device)
         out = cuda_lanes.lane_chunk(fields, spare, r, n, remaining, rem_out,
-                                    boundary, k, bc_lo, plain=plain)
-        return out, (spare if out is fields else fields), rem_out, boundary
+                                    boundary, k, bc_lo, plain=plain,
+                                    keep=keep)
+        other = fields if keep is None else keep
+        return out, (spare if out is other else other), rem_out, boundary
 
     return advance
 
@@ -261,10 +277,12 @@ class LaneEngine:
     ``resolve_lane_kernel`` does: the lane kernels on the card where the
     bucket has one.
     Nothing is compiled per bucket: the kernels are built once per
-    checkout (``ops/_build``); ``compile_s`` is what loading them took."""
+    checkout (``ops/_build``); ``compile_s`` is what loading them took.
+    ``keep_input`` makes every post-chunk stack a stable boundary snapshot
+    (see the module docstring)."""
 
     def __init__(self, key: BucketKey, lanes: int, chunk: int,
-                 kernel: str = "auto", device=None):
+                 kernel: str = "auto", device=None, keep_input: bool = False):
         from ..backends import resolve_device
 
         if key.bc not in _BC_LO:
@@ -287,11 +305,13 @@ class LaneEngine:
         self.lanes = lanes
         self.chunk = chunk
         self.kernel = kernel
+        self.keep_input = keep_input
         self.tail = tail_size(chunk)
         dt = torch_dtype(key.dtype)
         shape = (lanes,) + key.padded_shape
         self._fields = torch.zeros(shape, dtype=dt, device=self.device)
-        self._spare = torch.empty_like(self._fields)
+        # keep-input engines take each chunk's two stacks fresh instead
+        self._spare = None if keep_input else torch.empty_like(self._fields)
         self._r = torch.zeros(lanes, dtype=_acc_dtype(dt), device=self.device)
         self._n = torch.ones(lanes, dtype=torch.int32, device=self.device)
         self._rem = torch.zeros(lanes, dtype=torch.int32, device=self.device)
@@ -342,37 +362,94 @@ class LaneEngine:
         fence. The handle stays valid under later dispatches: each chunk
         writes a boundary vector of its own."""
         k = self.chunk if k is None else k
-        self._fields, self._spare, self._rem, boundary = self._advance(
-            self._fields, self._spare, self._r, self._n, self._rem, k)
+        if self.keep_input:
+            # two fresh stacks from the caching allocator: the live stack
+            # is only read, and stays the previous boundary's snapshot
+            self._fields, _, self._rem, boundary = self._advance(
+                self._fields, torch.empty_like(self._fields), self._r,
+                self._n, self._rem, k, keep=torch.empty_like(self._fields))
+        else:
+            self._fields, self._spare, self._rem, boundary = self._advance(
+                self._fields, self._spare, self._r, self._n, self._rem, k)
         return d2h_async(boundary)
 
-    def fetch_remaining(self, handle, timeout_s: Optional[float] = None
-                        ) -> np.ndarray:
+    def fetch_remaining(self, handle, timeout_s: Optional[float] = None,
+                        plan=None, fetch_index: int = 0) -> np.ndarray:
         """The boundary D2H (``fetch_boundary``): row 0 remaining steps,
-        row 1 finite bits, rows 2-5 the bitcast numerics stats."""
-        return fetch_boundary(handle, timeout_s=timeout_s)
+        row 1 finite bits, rows 2-5 the bitcast numerics stats. ``plan``
+        is the active fault plan: ``fetch-hang`` sleeps inside the
+        watched fetch."""
+        return fetch_boundary(handle, timeout_s=timeout_s, plan=plan,
+                              fetch_index=fetch_index)
 
     def remaining(self) -> np.ndarray:
         return host_fetch(self._rem)
 
     # --- per-lane fault domains -------------------------------------------
+    def _chaos_stack(self) -> torch.Tensor:
+        """The stack a chaos write may land in: the live stack, or in a
+        keep-input engine a fresh copy of it (the live stack is the newest
+        chunk's boundary snapshot, which a lane's rollback may restore
+        from; a fault written there would be restored too). Only the chaos
+        paths pay for that copy."""
+        if self.keep_input:
+            self._fields = self._fields.clone()
+        return self._fields
+
     def poison_lane(self, lane: int, n: int) -> None:
-        """Chaos only: flip the centre cell of ``lane``'s request region to
-        NaN, enqueued after the chunks already in flight. The quarantine
-        tests call it; nothing on the serving path does."""
-        self._fields[(lane,) + (1 + n // 2,) * self.key.ndim] = float("nan")
+        """Chaos only (``lane-nan``): flip the centre cell of ``lane``'s
+        request region to NaN, enqueued after the chunks already in
+        flight; never reached without an active fault plan."""
+        self._chaos_stack()[(lane,) + (1 + n // 2,) * self.key.ndim] = \
+            float("nan")
+
+    def perturb_lane(self, lane: int, n: int, eps: float) -> None:
+        """Chaos only (``perturb``): add a finite bump ``eps`` (in the
+        stack's dtype) to the centre cell of ``lane``'s request region —
+        the finite bit holds, but the maximum-principle witnesses leave
+        their envelope; never reached without an active fault plan."""
+        f = self._chaos_stack()
+        idx = (lane,) + (1 + n // 2,) * self.key.ndim
+        f[idx] = f[idx] + torch.tensor(eps, dtype=f.dtype, device=f.device)
+
+    def snapshot_stack(self) -> torch.Tensor:
+        """The post-chunk lane stack as a restorable boundary snapshot: a
+        lane judged finite at that boundary can later be restored from its
+        row. The live stack itself, with no copy: in a keep-input engine no
+        later chunk writes it (a ping-pong engine's next chunks would, so
+        it has no snapshots)."""
+        if not self.keep_input:
+            raise RuntimeError("boundary snapshots need a keep_input engine")
+        return self._fields
+
+    def restore_lane(self, lane: int, buf: torch.Tensor, r: float, n: int,
+                     steps: int) -> None:
+        """Roll ONE lane back to a verified-finite boundary: its whole lane
+        buffer from ``buf`` (a snapshot's row, on the card; no H2D) and its
+        scalars; every other lane untouched. ``buf`` is only read, so the
+        same snapshot row survives a second rollback."""
+        self._fields[lane].copy_(buf)
+        self._r[lane] = float(r)
+        self._n[lane] = int(n)
+        self._rem[lane] = int(steps)
 
 
-def fetch_boundary(handle, timeout_s: Optional[float] = None) -> np.ndarray:
+def fetch_boundary(handle, timeout_s: Optional[float] = None, plan=None,
+                   fetch_index: int = 0) -> np.ndarray:
     """The ONE watchdogged boundary-D2H path: wait for a boundary handle's
     host copy, optionally under the ``bounded_call`` watchdog (a wedged
-    device becomes ``BoundedFetchTimeout``)."""
-    if timeout_s is None:
+    device becomes ``BoundedFetchTimeout``), with the ``fetch-hang`` fault
+    firing INSIDE the watched region either way."""
+    def fetch():
+        if plan is not None:
+            plan.maybe_fetch_hang(fetch_index)
         return host_fetch(handle)
+
+    if timeout_s is None:
+        return fetch()
     from ..runtime.async_io import bounded_call
 
-    return bounded_call(lambda: host_fetch(handle), timeout_s,
-                        "serve boundary fetch")
+    return bounded_call(fetch, timeout_s, "serve boundary fetch")
 
 
 def lane_state_from_reference(fields: np.ndarray, r, n, rem, key: BucketKey):

@@ -31,16 +31,30 @@ from ..config import SLO_CLASSES
 POLICIES = ("fifo", "edf", "fair")
 
 
-def _edf_key(req) -> Tuple[int, float, int]:
-    """(class priority, deadline, submit seq): classes strictly first,
-    earliest absolute deadline inside a class, FIFO among the rest
-    (deadline +inf). ``req.seq`` is the engine-wide submit counter, so the
-    ordering is total and deterministic. (The reference ranks until=steady
-    requests by their predicted finish between deadline and seq; the port
-    serves fixed-step requests only, whose rank there is +inf.)"""
+def _predicted_rank(req) -> float:
+    """Predicted-finish rank: an ``until=steady`` request with a
+    closed-form eigenmode ETA (``Request.predicted_steps``,
+    runtime/convergence.py) ranks by that predicted step count —
+    shortest-predicted-job-first among otherwise equal peers. Fixed-step
+    requests (and steady requests without a finite prediction) rank
+    ``+inf``, so classes first, earliest deadline, FIFO among undated
+    peers stay as they were."""
+    pred = getattr(req, "predicted_steps", None)
+    if getattr(req, "until", "steps") != "steady" or pred is None:
+        return math.inf
+    return float(pred)
+
+
+def _edf_key(req) -> Tuple[int, float, float, int]:
+    """(class priority, deadline, predicted finish, submit seq): classes
+    strictly first, earliest absolute deadline inside a class, then the
+    predicted-finish rank (``_predicted_rank``: +inf unless an until=steady
+    request carries an ETA), FIFO among the rest (deadline +inf).
+    ``req.seq`` is the engine-wide submit counter, so the ordering is
+    total and deterministic."""
     deadline = req.deadline_t if req.deadline_t is not None else math.inf
     return (SLO_CLASSES.get(req.slo_class, max(SLO_CLASSES.values())),
-            deadline, req.seq)
+            deadline, _predicted_rank(req), req.seq)
 
 
 class FifoQueue:
@@ -66,7 +80,7 @@ class EdfQueue:
     """Class-priority + earliest-deadline-first heap (see module doc)."""
 
     def __init__(self):
-        self._h: List[Tuple[Tuple[int, float, int], object]] = []
+        self._h: List[Tuple[Tuple[int, float, float, int], object]] = []
 
     def push(self, req) -> None:
         heapq.heappush(self._h, (_edf_key(req), req))
@@ -121,7 +135,14 @@ class FairShareQueue:
         _, tenant = min(live)
         req = heapq.heappop(self._tenants[tenant])[1]
         self._count -= 1
-        work = float(req.cfg.points * max(req.cfg.ntime, 1))
+        # fair share charges PREDICTED work where a prediction exists (an
+        # until=steady request is expected to stop early — billing nominal
+        # steps would under-schedule its tenant)
+        steps = req.cfg.ntime
+        pred = getattr(req, "predicted_steps", None)
+        if getattr(req, "until", "steps") == "steady" and pred is not None:
+            steps = min(steps, pred)
+        work = float(req.cfg.points * max(steps, 1))
         self._vtime[tenant] += work / self._weight(tenant)
         return req
 

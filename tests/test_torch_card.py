@@ -10,6 +10,7 @@ reference. On a host without a card every case skips.
 """
 
 import functools
+import math
 from unittest import mock
 
 import numpy as np
@@ -19,9 +20,11 @@ import torch
 from heat_tpu_torch import config
 from heat_tpu_torch.backends import sharded, solve
 from heat_tpu_torch.config import HeatConfig
+from heat_tpu_torch.grid import ic_envelope
 from heat_tpu_torch.ops import cuda_lab
 from heat_tpu_torch.ops import cuda_lanes
 from heat_tpu_torch.ops import cuda_stencil as cs
+from heat_tpu_torch.runtime import convergence, faults
 from heat_tpu_torch.serve import Engine, ServeConfig
 
 pytestmark = pytest.mark.cuda
@@ -188,6 +191,89 @@ def test_serve_on_the_card_matches_the_plain_body():
                 == sum(cuda_lanes.launches.values()))
         out[kernel] = [recs[i]["T"].tobytes() for i in ids]
     assert out["cuda"] == out["torch"]
+
+
+def _tol_for(cfg, frac):
+    """The steady tolerance whose closed-form admission prediction is
+    ``frac * ntime`` steps (``convergence.predict_admission_steps``)."""
+    lam = math.exp(convergence.closed_form_log_rate(cfg))
+    lo, hi = ic_envelope(cfg)
+    r0 = (1 - lam) * max(abs(hi), abs(lo), abs(hi - lo))
+    return r0 * lam ** (frac * cfg.ntime)
+
+
+def _serve_on_card(reqs, kernel, **kw):
+    """Drain ``reqs`` (dicts: HeatConfig fields plus id/until/tol) on the
+    card; returns (engine, records by id, the wrappers' launch counts)."""
+    faults.reset()
+    cuda_lanes.reset_launches()
+    eng = Engine(ServeConfig(lane_kernel=kernel, emit_records=False,
+                             keep_fields=True, **kw), device="cuda")
+    for r in reqs:
+        r = dict(r)
+        rid, until, tol = r.pop("id"), r.pop("until", None), r.pop("tol", None)
+        eng.submit(HeatConfig(**r), request_id=rid, until=until, tol=tol)
+    recs = {r["id"]: r for r in eng.results()}
+    return eng, recs, dict(cuda_lanes.launches)
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_steady_retirement_on_the_card_matches_the_plain_body(depth):
+    """until=steady on the lane kernels: the fused residual rows retire each
+    request at the same step, with the same bytes, as the plain lane body
+    on the same card; a fixed-step lane-mate is untouched."""
+    reqs = [dict(id="s2", n=40, ntime=400, ic="sine", bc="edges"),
+            dict(id="sb", n=30, ntime=300, ic="sine", bc="edges",
+                 dtype="bfloat16"),
+            dict(id="f2", n=33, ntime=70, ic="hat", bc="ghost"),
+            dict(id="s3", n=14, ntime=200, ndim=3, sigma=0.15, ic="hat",
+                 bc="edges")]
+    for r in reqs:
+        if r["id"].startswith("s"):
+            cfg = HeatConfig(**{k: v for k, v in r.items() if k != "id"})
+            r.update(until="steady", tol=_tol_for(cfg, 0.4))
+    kw = dict(lanes=2, chunk=16, buckets=(16, 48), dispatch_depth=depth)
+    got = {k: _serve_on_card(reqs, k, **kw) for k in ("cuda", "torch")}
+    eng, recs, launches = got["cuda"]
+    assert min(launches.values()) > 0
+    assert not any(got["torch"][2].values())
+    assert eng.steady_exits == got["torch"][0].steady_exits == 3
+    for rid, rec in recs.items():
+        other = got["torch"][1][rid]
+        assert rec["status"] == other["status"] == "ok"
+        assert (rec["exit"], rec["steps_done"]) == (other["exit"],
+                                                   other["steps_done"])
+        assert rec["T"].tobytes() == other["T"].tobytes(), rid
+        assert (rec["exit"] == "steady") == rid.startswith("s")
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_rollback_heals_on_the_card_like_the_plain_body(depth):
+    """--serve-on-nan rollback on the lane kernels (keep-input passes, a
+    restore from the snapshot row): the poisoned 2D and 3D lanes heal to the
+    clean run's bytes, as through the plain lane body, with one rollback
+    each and the same launches per chunk as the clean run."""
+    reqs = [dict(id="a", n=40, ntime=60, ic="hat", bc="ghost"),
+            dict(id="b", n=33, ntime=75, ic="hat_small", bc="edges"),
+            dict(id="c", n=14, ntime=40, ndim=3, sigma=0.15, ic="hat"),
+            dict(id="d", n=12, ntime=52, ndim=3, sigma=0.1, ic="hat_half",
+                 bc="ghost")]
+    kw = dict(lanes=2, chunk=16, buckets=(16, 48), dispatch_depth=depth)
+    clean = _serve_on_card(reqs, "cuda", **kw)
+    for kernel in ("cuda", "torch"):
+        eng, recs, launches = _serve_on_card(
+            reqs, kernel, on_nan="rollback",
+            inject="lane-nan@20:req=b,lane-nan@17:req=c", **kw)
+        assert eng.rollbacks == 2 and eng.lanes_quarantined == 0
+        for rid, rec in recs.items():
+            assert rec["status"] == "ok"
+            assert rec["T"].tobytes() == clean[1][rid]["T"].tobytes(), rid
+        if kernel == "cuda":
+            assert launches == eng.summary()["lane_passes"]
+            chunks = eng.summary()["lane_chunks"]
+            for name, nd in (("lanes2d", 2), ("lanes3d", 3)):
+                assert launches[name] <= len(cuda_lanes.passes(nd, 16)) * \
+                    chunks[name]
 
 
 @pytest.mark.parametrize("ndim", [2, 3])

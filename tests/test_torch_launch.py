@@ -297,3 +297,43 @@ def test_launch_gives_up_after_the_budget(tmp_path):
     assert out.returncode == 43, (out.stdout, out.stderr)
     assert out.stderr.count("launch: restart ") == 1
     assert "giving up after 1 restart(s)" in out.stderr
+
+
+_LEAVE = '''import atexit, os, sys
+import torch.distributed as dist
+from heat_tpu_torch.parallel.dist import init_distributed
+
+
+def report():
+    # registered before the join, so it runs after the port's own exit hook
+    with open(sys.argv[1], "w") as f:
+        f.write("joined-at-exit" if dist.is_initialized() else "left")
+
+
+atexit.register(report)
+init_distributed("cpu", "staged")
+assert dist.is_initialized() and dist.get_world_size() == 1
+'''
+
+
+def test_a_joined_rank_leaves_its_group_at_exit(tmp_path):
+    """A rank that exits with its gloo group alive tears the group's threads
+    down while they are joinable and dies of SIGABRT after its work is
+    done, at random (a torchrun world then fails). ``init_distributed``
+    destroys the group at exit: a hook that runs after it finds none."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    worker = tmp_path / "leave.py"
+    worker.write_text(_LEAVE)
+    env = {**os.environ, "PYTHONPATH": str(_REPO), "RANK": "0",
+           "WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port), "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run([sys.executable, str(worker),
+                           str(tmp_path / "out.txt")], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert (tmp_path / "out.txt").read_text() == "left"
+    port_dist.leave_world()     # a no-op in a process that joined nothing

@@ -245,6 +245,8 @@ def test_max_queue_and_tenant_quota_shed_overloaded():
 
 
 def test_rejects_periodic_oversize_and_steady():
+    """Periodic and oversize requests are rejected as records; an
+    ``until=steady`` request is served (as the reference serves it)."""
     eng = Engine(ServeConfig(buckets=(12,), emit_records=False), device="cpu")
     p = eng.submit(HeatConfig(n=8, ntime=2, bc="periodic"))
     big = eng.submit(HeatConfig(n=13, ntime=2))
@@ -253,10 +255,11 @@ def test_rejects_periodic_oversize_and_steady():
     recs = {r["id"]: r for r in eng.results()}
     assert recs[p]["error"].startswith("unsupported-bc")
     assert recs[big]["error"].startswith("bucket-overflow")
-    assert recs[steady]["error"].startswith("unsupported-until")
+    assert recs[steady]["status"] == "ok" and recs[steady]["error"] is None
+    assert recs[steady]["until"] == "steady"
     assert recs[ok]["status"] == "ok"
     s = eng.summary()
-    assert s["rejected"] == 3 and s["ok"] == 1 and s["requests"] == 4
+    assert s["rejected"] == 2 and s["ok"] == 2 and s["requests"] == 4
 
 
 def test_f64_under_cuda_kernel_falls_back_loudly(capsys):
