@@ -159,6 +159,35 @@ a checkout of the repository, it exits non-zero and prints no result):
    lane-tier growth, every field byte-equal to the offline ``run()``;
    ``--fetch-watchdog 2 --inject fetch-hang@3:ms=10000``: the watchdog
    fails the hung group, serve exits 1 well inside the hang;
+5c. the serving front, through ``python -m heat_tpu_torch serve`` at phase
+   5's arguments: (1) ``--listen 127.0.0.1:0 --cache on
+   --engine-ckpt-interval 64 --probe-interval 1`` in a process of its own,
+   phase 5's file POSTed to ``/v1/solve`` as one NDJSON stream: every
+   streamed record equal to phase 5's offline record but for the keys
+   that follow the wall clock or the arrival order (queue_wait_s, solve_s,
+   steps_per_s, trace_id, path, lane, usage.chunks, usage.lane_s), every
+   npz byte-equal to phase 5's, the default tenant's usage steps, chunks
+   and bytes on ``/v1/usage`` and ``/metrics`` equal to the records' sums,
+   ``/tracez`` a Chrome trace, ``/statusz`` answering, the memory
+   watermark's source ``device`` and non-zero; (2) the same file again
+   under new ids: every request a full cache hit, npz sha256 equal, no
+   chunk dispatched (so no lane launch), every probe ok, no 5xx; (3) a
+   fresh server with the cache off and ``--engine-ckpt-interval 64``,
+   ``POST /drainz?handoff=1`` once its first generation is published,
+   then ``serve --resume`` in a new process: every npz byte-equal to
+   phase 5's, every resumed record marked ``resumed``; the
+   ``ckpt-manifest-corrupt`` fault on a copy's handoff manifest: the
+   resume falls back one generation, byte-equal; ``cache-corrupt`` and
+   ``cache-stale`` on a cache holding one request's entry: quarantined,
+   recomputed byte-equal; (4) phase 5's file with the observatories at
+   the reference's defaults (``--prof on``, the ring on) and with
+   ``--prof off --trace-buffer 0``, two pairs in turns: walls, boundary
+   counts, npz byte-equal; (5) one run with ``--trace``: the ``trace``
+   subcommand's summary and the split of a chunk's host time (boundary
+   fetch, the scheduler's own work, device-idle gaps, writer jobs) from
+   the trace; (6) ``run --trace`` at 4096^2 f32 for 320 steps in 16-step
+   chunks: one chunk span per launch of ``ftcs2d`` (and the warm-up's in
+   the compile span);
 6. the kernel lab's candidates L1-L5 (``lab2d``, ``lab3d``): every
    (kernel, variant, dtype) against its plain version on the card, bytes,
    at the JAX lab's check shapes, depths 1 and the deepest its TPU geometry
@@ -1294,7 +1323,7 @@ def cli_serve_rows(reqfile: Path, out_dir: Path, *extra, echo=True):
     launches = dict(cl.launches)
     lines = buf.getvalue().splitlines()
     rows = [json.loads(x) for x in lines if x.startswith("{")]
-    summary = json.loads(lines[-1])
+    summary = rows[-1]     # the last JSON line (a --trace note follows it)
     if echo:
         print("".join(f"    | {x}\n" for x in lines
                       if not x.startswith('{"bc"')
@@ -1451,6 +1480,7 @@ def phase_serve(smi):
               f"{d:.6g}; planted faults in f32: "
               + ", ".join(f"{k} {v:.6g}" for k, v in planted.items()))
     return dict(launches=launches, by_bucket=by_bucket, summary=summary,
+                records=recs,
                 wall_s=wall, cell_steps_per_s=rate, oracle_errs=oracle_errs,
                 bf16_drift=drift, profile=profile)
 
@@ -1889,6 +1919,472 @@ def phase_serve_semantics(smi, serve=None):
           f"{rc} in {hwall:.3f} s")
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[phase 5b] done in {out['phase_s']:.1f} s")
+    return out
+
+
+# --- phase 5c: the serving front -------------------------------------------
+
+# the keys of a record that depend on wall time or on the order requests
+# arrive in (an online stream admits them one by one, so lanes and chunk
+# counts follow the arrivals), left out of the record comparison
+FRONT_VARYING = ("queue_wait_s", "solve_s", "steps_per_s", "trace_id",
+                 "path", "lane", "usage")
+USAGE_EXACT = ("steps", "bytes_written", "steps_saved", "cached")
+
+
+class Server:
+    """``python -m heat_tpu_torch serve --listen 127.0.0.1:0`` at phase 5's
+    arguments in a process of its own; a thread drains its output, so the
+    pipe never fills. Every call goes through ``call`` with a timeout, and
+    every status it answers is kept (a 5xx fails the phase)."""
+
+    def __init__(self, *args):
+        import threading
+
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "heat_tpu_torch", "serve", "--listen",
+             "127.0.0.1:0", *SERVE_ARGS, "--json", *args],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines, self.statuses = [], []
+        ready = threading.Event()
+
+        def drain():
+            for line in self.proc.stdout:
+                self.lines.append(line.rstrip("\n"))
+                if "gateway listening on http://" in line:
+                    ready.set()
+            ready.set()
+
+        self.reader = threading.Thread(target=drain, daemon=True)
+        self.reader.start()
+        ready.wait(180)
+        addr = next((x.split("http://")[1].split()[0] for x in self.lines
+                     if "gateway listening on http://" in x), None)
+        if addr is None:
+            self.stop()
+            check(False, "the gateway did not come up: "
+                         + "\n".join(self.lines[-20:]))
+        self.base = f"http://{addr}"
+
+    def call(self, path, data=None, timeout=600):
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(
+            f"{self.base}{path}", data=data,
+            method="POST" if data is not None else "GET")
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                st, body = r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            st, body = e.code, e.read().decode()
+        self.statuses.append((path, st))
+        check(st < 500, f"{path} answered {st}: {body[:500]}")
+        return st, body
+
+    def metrics(self) -> dict:
+        _, text = self.call("/metrics")
+        out = {}
+        for line in text.splitlines():
+            if line and not line.startswith("#"):
+                key, value = line.rsplit(" ", 1)
+                out[key] = float(value)
+        return out
+
+    def wait(self, timeout=600) -> int:
+        try:
+            rc = self.proc.wait(timeout)
+        finally:
+            self.stop()
+        self.reader.join(30)
+        return rc
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(60)
+
+    def records(self) -> list:
+        return [json.loads(x) for x in self.lines
+                if x.startswith('{"') and '"serve_request"' in x]
+
+
+def ndjson(body: str) -> list:
+    return [json.loads(x) for x in body.splitlines() if x.strip()]
+
+
+def sha256(path: Path) -> str:
+    import hashlib
+
+    return hashlib.sha256(path.read_bytes()).hexdigest()
+
+
+def records_agree(what, got: list, want: dict):
+    """Each record of ``got`` equal to ``want``'s of the same id on every key
+    but FRONT_VARYING, and on the exact usage keys."""
+    for r in got:
+        w = want[r["id"]]
+        for k in set(r) | set(w):
+            if k in FRONT_VARYING or k == "event":
+                continue
+            check(r.get(k) == w.get(k),
+                  f"{what}: {r['id']} {k} {r.get(k)!r} != {w.get(k)!r}")
+        for k in USAGE_EXACT:
+            check(r["usage"][k] == w["usage"][k],
+                  f"{what}: {r['id']} usage {k} {r['usage'][k]} != "
+                  f"{w['usage'][k]}")
+
+
+def in_process_serve(*argv):
+    """``cli.main(["serve", *argv, "--json", *SERVE_ARGS])`` in this
+    process with its output captured; returns (rc, rows, summary)."""
+    from heat_tpu_torch import cli
+    from heat_tpu_torch.runtime import faults
+
+    faults.reset()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["serve", *argv, "--json", *SERVE_ARGS])
+    lines = buf.getvalue().splitlines()
+    rows = [json.loads(x) for x in lines if x.startswith("{")]
+    print("".join(f"    | {x}\n" for x in lines if not x.startswith("{")),
+          end="")
+    return rc, rows, rows[-1]
+
+
+def trace_split(path: Path, busy_s):
+    """The host's time per chunk of one traced serve, from its trace file:
+    the engine's wall (the ``engine.run`` span), the chunks, and the
+    scheduler thread's boundary-fetch spans, the dispatch rows' device-idle
+    spans and the writer's jobs."""
+    chrome = json.loads(path.read_text())
+    evs = [e for e in chrome["traceEvents"] if e.get("ph") == "X"]
+
+    def total(pred):
+        sel = [e["dur"] for e in evs if pred(e)]
+        return sum(sel) / 1e6, len(sel)
+
+    wall, _ = total(lambda e: e["name"] == "engine.run")
+    fetch, nfetch = total(lambda e: e["name"] == "boundary-fetch")
+    idle, nidle = total(lambda e: e["name"] == "device-idle")
+    writer, nwrite = total(lambda e: e.get("cat") == "io")
+    chunks = sum(1 for e in evs if e.get("cat") == "chunk")
+    host = wall - fetch
+    split = dict(wall_s=wall, chunks=chunks, fetch_s=fetch, fetches=nfetch,
+                 idle_s=idle, idle_spans=nidle, writer_s=writer,
+                 writer_jobs=nwrite, host_s=host,
+                 ms_per_chunk=1e3 * wall / chunks,
+                 fetch_ms_per_chunk=1e3 * fetch / chunks,
+                 host_ms_per_chunk=1e3 * host / chunks,
+                 busy_share=(busy_s / wall if busy_s else None))
+    print(f"  trace split: {chunks} chunks in {wall:.3f} s of engine wall, "
+          f"{split['ms_per_chunk']:.4f} ms a chunk: boundary fetch "
+          f"{fetch:.3f} s ({split['fetch_ms_per_chunk']:.4f} ms a chunk, "
+          f"{nfetch} fetches), the scheduler's own host work "
+          f"{host:.3f} s ({split['host_ms_per_chunk']:.4f} ms a chunk: "
+          f"dispatch, judging, fills, numerics, records); device-idle gaps "
+          f"{idle:.3f} s in {nidle} spans; writer jobs {writer:.3f} s in "
+          f"{nwrite} (their own thread)"
+          + (f"; card busy {busy_s / wall:.1%} of the engine wall (phase "
+             f"5's profiled device seconds)" if busy_s else ""))
+    return split
+
+
+def phase_serving_front(smi, serve):
+    """Phase 5c: the serving front on the card (see the module docstring):
+    ``serve --listen`` with the cache, engine checkpoints and the prober;
+    the repeat from the cache; the handoff drain and ``serve --resume``;
+    the observatories' cost; the trace's split of a chunk's host time;
+    ``run --trace``."""
+    import numpy as np
+
+    from heat_tpu_torch.runtime import checkpoint as ckpt
+    from heat_tpu_torch.runtime import faults
+
+    t_phase = time.perf_counter()
+    reqfile = WORK / "requests.jsonl"
+    body = reqfile.read_text()
+    ids = [json.loads(x)["id"] for x in body.splitlines()]
+    ref_dir = WORK / "serve-cuda"
+    offline = {r["id"]: r for r in serve["records"]}
+    busy_s = (serve["profile"] or {}).get("busy_s")
+    out = {}
+
+    # 1. the gateway: the 56 requests as one NDJSON stream
+    o1, cache = WORK / "front-out", WORK / "front-cache"
+    print(f"[phase 5c] serve --listen {' '.join(SERVE_ARGS)} --cache on "
+          f"--engine-ckpt-interval 64 --probe-interval 1")
+    srv = Server("--out-dir", str(o1), "--cache", "on", "--cache-dir",
+                 str(cache), "--engine-ckpt-interval", "64",
+                 "--probe-interval", "1")
+    try:
+        t0 = time.perf_counter()
+        st, text = srv.call("/v1/solve", body.encode())
+        wall1 = time.perf_counter() - t0
+        check(st == 200, f"/v1/solve answered {st}")
+        recs = ndjson(text)
+        check(sorted(r["id"] for r in recs) == sorted(ids)
+              and all(r["status"] == "ok" for r in recs),
+              "not every streamed record ok")
+        records_agree("gateway", recs, offline)
+        ndiff = npz_differ(ids, o1, ref_dir)
+        check(not ndiff, f"gateway npz differ from phase 5's: {ndiff}")
+        m = srv.metrics()
+        _, usage = srv.call("/v1/usage")
+        usage = json.loads(usage)["tenants"]["default"]
+        for k in ("steps", "chunks", "bytes_written"):
+            want = sum(int(r["usage"][k]) for r in recs)
+            got_m = m[f'heat_tpu_usage_{k}_total{{tenant="default",'
+                      f'class="standard"}}']
+            check(usage[k] == want and got_m == want,
+                  f"usage {k}: /v1/usage {usage[k]}, /metrics {got_m}, "
+                  f"records {want}")
+        check(m['heat_tpu_usage_requests_total{tenant="default",'
+                'class="standard"}'] == len(ids), "usage requests")
+        check(m['heat_tpu_serve_requests_total{status="ok"}'] >= len(ids),
+              "/metrics ok requests")
+        _, tz = srv.call("/tracez")
+        chrome = json.loads(tz)
+        check(isinstance(chrome.get("traceEvents"), list)
+              and chrome["traceEvents"], "/tracez is no Chrome trace")
+        st, statusz = srv.call("/statusz")
+        check(st == 200 and statusz.startswith("heat_tpu_torch serving"),
+              "/statusz")
+        mem = {k: v for k, v in m.items()
+               if k.startswith("heat_tpu_mem_bytes_in_use")}
+        check(list(mem) == ['heat_tpu_mem_bytes_in_use{source="device"}']
+              and list(mem.values())[0] > 0,
+              f"memory watermark not from the device: {mem}")
+        gens = m["heat_tpu_engine_ckpt_generation"]
+        chunks1 = m["heat_tpu_serve_chunks_dispatched_total"]
+        print(f"  {len(recs)} streamed records ok, npz byte-equal to phase "
+              f"5's, in "
+              f"{wall1:.3f} s of wall (phase 5 offline {serve['wall_s']:.3f}"
+              f" s); usage steps {usage['steps']}, chunks "
+              f"{usage['chunks']}, bytes {usage['bytes_written']} reconcile "
+              f"with the records; device memory "
+              f"{list(mem.values())[0] / 2**20:.1f} MiB in use; "
+              f"{int(gens)} engine checkpoint generation(s); "
+              f"{len(chrome['traceEvents'])} events on /tracez")
+
+        # 2. the same file again: every request a full cache hit
+        again = "".join(json.dumps(dict(json.loads(x), id=json.loads(x)["id"]
+                                        + "-again")) + "\n"
+                        for x in body.splitlines())
+        t0 = time.perf_counter()
+        st, text = srv.call("/v1/solve", again.encode())
+        wall2 = time.perf_counter() - t0
+        recs2 = ndjson(text)
+        check(st == 200 and len(recs2) == len(ids)
+              and all(r["status"] == "ok" and r["cached"] for r in recs2),
+              "the repeat was not all full cache hits")
+        same = [i for i in ids
+                if sha256(o1 / f"{i}-again.npz") == sha256(o1 / f"{i}.npz")]
+        check(len(same) == len(ids), "cache replays differ in sha256")
+        m2 = srv.metrics()
+        check(m2["heat_tpu_serve_chunks_dispatched_total"] == chunks1,
+              f"the repeat dispatched chunks: {chunks1} -> "
+              f"{m2['heat_tpu_serve_chunks_dispatched_total']}")
+        hits = m2['heat_tpu_cache_hits_total{kind="full"}']
+        deadline = time.perf_counter() + 60
+        while m2['heat_tpu_probe_runs_total{result="pass"}'] < 1:
+            check(time.perf_counter() < deadline, "no probe within 60 s")
+            time.sleep(0.2)
+            m2 = srv.metrics()
+        passed = m2['heat_tpu_probe_runs_total{result="pass"}']
+        check(m2['heat_tpu_probe_runs_total{result="fail"}'] == 0
+              and passed >= 1, "a probe failed")
+        print(f"  the repeat: {len(recs2)} full cache hits (sha256 equal, no "
+              f"chunk dispatched, so no lane launch) in {wall2:.3f} s; "
+              f"{int(hits)} full hits in all (probes included); probes "
+              f"{int(passed)} pass / 0 fail")
+        srv.call("/drainz", b"")
+        rc = srv.wait()
+    finally:
+        srv.stop()
+    summary = json.loads(srv.lines[-1])
+    check(rc == 0, f"the gateway exited {rc}: " + "\n".join(srv.lines[-10:]))
+    check(summary["probe_fail"] == 0 and summary["probe_pass"] >= 1,
+          "probes in the final summary")
+    check(not [s for s in srv.statuses if s[1] >= 500], "a 5xx answered")
+    out.update(gateway_wall_s=wall1, repeat_wall_s=wall2,
+               probes=summary["probe_pass"], cache_hits=len(recs2),
+               generations=int(gens))
+
+    # 3. handoff: a fresh server, the cache off; /drainz?handoff=1 once its
+    # first engine checkpoint is published, then serve --resume elsewhere
+    ck, o3 = WORK / "front-ckpt", WORK / "front-out-handoff"
+    print("[phase 5c] handoff: serve --listen --engine-ckpt-interval 64, "
+          "/drainz?handoff=1 after the first generation, then serve "
+          "--resume in a new process")
+    srv = Server("--out-dir", str(o3), "--engine-ckpt-interval", "64",
+                 "--engine-ckpt-dir", str(ck))
+    try:
+        st, _ = srv.call("/v1/solve?wait=0", body.encode())
+        check(st == 202, f"/v1/solve?wait=0 answered {st}")
+        deadline = time.perf_counter() + 300
+        while srv.metrics()["heat_tpu_engine_ckpt_generation"] < 1:
+            check(time.perf_counter() < deadline and srv.proc.poll() is None,
+                  "no engine checkpoint within 300 s")
+            time.sleep(0.02)
+        st, text = srv.call("/drainz?handoff=1", b"")
+        check(st == 200 and json.loads(text)["handoff"], "handoff refused")
+        srv.wait()
+    finally:
+        srv.stop()
+    handoff_recs = srv.records()
+    man, path = ckpt.latest_engine_manifest(ck)
+    check(man is not None and man["reason"] == "handoff",
+          f"no handoff generation in {ck}")
+    inflight = [e["id"] for e in man["inflight"]]
+    gen = int(man["generation"])
+    check(inflight and gen >= 2, f"handoff generation {gen} holds "
+                                 f"{len(inflight)} lanes")
+    done_before = {r["id"] for r in handoff_recs if r["status"] == "ok"}
+    check(done_before == set(man["done"]),
+          "the manifest's done set is not the records'")
+    ck2 = WORK / "front-ckpt-corrupt"
+    shutil.copytree(ck, ck2)
+    proc = subprocess.run(
+        [sys.executable, "-m", "heat_tpu_torch", "serve", "--resume",
+         str(ck), "--out-dir", str(o3), "--json", *SERVE_ARGS],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"serve --resume exited {proc.returncode}: "
+                                f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    resumed = [json.loads(x) for x in proc.stdout.splitlines()
+               if x.startswith('{"') and '"serve_request"' in x]
+    check(sorted(r["id"] for r in resumed) == sorted(set(ids) - done_before)
+          and all(r["status"] == "ok" and r["resumed"] for r in resumed),
+          "the resumed records")
+    ndiff = npz_differ(ids, o3, ref_dir)
+    check(not ndiff, f"handoff + resume npz differ from phase 5's: {ndiff}")
+    print(f"  handoff at generation {gen}: {len(inflight)} lanes in flight, "
+          f"{len(man['queued'])} queued, {len(man['done'])} done; the "
+          f"resume finished {len(resumed)} (every in-flight record resumed), "
+          f"all {len(ids)} npz byte-equal to phase 5's")
+    # the ckpt-manifest-corrupt fault on the copy's handoff manifest: the
+    # resume quarantines it and falls back one generation
+    faults.FaultPlan(f"ckpt-manifest-corrupt@{gen}").damage_manifest(
+        ck2 / path.name, gen)
+    prev = json.loads((ck2 / f"engine_gen{gen - 1:08d}.json").read_text())
+    o4 = WORK / "front-out-fallback"
+    rc, rows, summ = in_process_serve("--resume", str(ck2), "--out-dir",
+                                      str(o4))
+    recs4 = [r for r in rows if r.get("event") == "serve_request"]
+    want4 = sorted(e["id"] for e in prev["inflight"] + prev["queued"])
+    check(rc == 0 and (ck2 / f"{path.name}.corrupt").exists()
+          and sorted(r["id"] for r in recs4) == want4,
+          f"the fallback resume (rc {rc})")
+    ndiff = npz_differ(want4, o4, ref_dir)
+    check(not ndiff, f"fallback resume npz differ: {ndiff}")
+    print(f"  ckpt-manifest-corrupt@{gen}: generation {gen} quarantined, "
+          f"the resume fell back to generation {gen - 1} and finished its "
+          f"{len(want4)} requests byte-equal to phase 5's")
+    # the cache faults on two of phase 5's requests, each in a cache dir
+    # that holds its full entry alone (the gateway's dir also holds the
+    # checkpoints' prefix entries): quarantined, recomputed byte-equal
+    from heat_tpu_torch import HeatConfig
+
+    small = sorted((r for r in serve["records"] if r["ndim"] == 2
+                    and r["dtype"] == "float32"),
+                   key=lambda r: r["n"] ** 2 * r["ntime"])[:2]
+    src = {json.loads(x)["id"]: json.loads(x) for x in body.splitlines()}
+    for kind, r in zip(("cache-corrupt", "cache-stale"), small):
+        req = src[r["id"]]
+        fp = ckpt.config_fingerprint(HeatConfig(**{
+            k: v for k, v in req.items() if k != "id"}))
+        one_cache = WORK / f"front-cache-{kind}"
+        one_cache.mkdir()
+        for f in cache.glob(f"{fp}-{req['ntime']:08d}.*"):
+            shutil.copy(f, one_cache / f.name)
+        check(len(list(one_cache.iterdir())) == 2, f"{kind}: no entry")
+        one = WORK / f"front-{kind}.jsonl"
+        one.write_text(json.dumps(dict(req, id=f"{r['id']}-{kind}")) + "\n")
+        o5 = WORK / f"front-out-{kind}"
+        rc, rows, summ = in_process_serve(
+            "--requests", str(one), "--out-dir", str(o5), "--cache", "on",
+            "--cache-dir", str(one_cache), "--inject", kind)
+        (rec,) = [x for x in rows if x.get("event") == "serve_request"]
+        check(rc == 0 and rec["status"] == "ok" and not rec["cached"]
+              and summ["cache"]["quarantined"] == 1,
+              f"{kind}: the entry was not quarantined and recomputed")
+        check((o5 / f"{rec['id']}.npz").read_bytes()
+              == (ref_dir / f"{r['id']}.npz").read_bytes(),
+              f"{kind}: the recomputed npz differs from phase 5's")
+        print(f"  {kind}: entry quarantined, {r['id']} recomputed "
+              f"byte-equal")
+
+    # 4. the observatories' cost: phase 5's file with the reference's
+    # defaults (--prof on, the ring on) and with both off, in turns
+    walls = {"on": [], "off": []}
+    waits = set()
+    for i in range(2):
+        for mode in (("on", "off") if i == 0 else ("off", "on")):
+            extra = () if mode == "on" else ("--prof", "off",
+                                             "--trace-buffer", "0")
+            rc, recs_ab, summ, _, wall = cli_serve(
+                reqfile, WORK / f"serve-obs-{mode}-{i}", *extra)
+            check(rc == 0 and all(r["status"] == "ok" for r in recs_ab),
+                  f"observatories {mode} serve failed")
+            check(not npz_differ(ids, WORK / f"serve-obs-{mode}-{i}",
+                                 ref_dir),
+                  f"observatories {mode} npz differ from phase 5's")
+            check(summ["prof"] is (mode == "on"), "--prof did not take")
+            waits.add(summ["boundary_waits"])
+            walls[mode].append(wall)
+            print(f"  observatories {mode}: {wall:.3f} s of wall, "
+                  f"{summ['boundary_waits']} boundaries"
+                  + (f", card busy {busy_s / wall:.1%} (phase 5's "
+                     f"profiled device seconds over this wall)"
+                     if busy_s else ""))
+    check(len(waits) == 1, f"boundary fetches differ on/off: {waits}")
+    out["obs_walls"] = walls
+
+    # 5. where a chunk's host time goes: one traced run of phase 5's file
+    tpath = WORK / "serve.trace.json"
+    rc, recs_t, summ, _, wall = cli_serve(
+        reqfile, WORK / "serve-traced", "--trace", str(tpath),
+        "--trace-buffer", "400000")
+    check(rc == 0 and tpath.exists(), "the traced serve")
+    check(not npz_differ(ids, WORK / "serve-traced", ref_dir),
+          "the traced serve's npz differ from phase 5's")
+    from heat_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(cli.main(["trace", str(tpath)]) == 0, "trace subcommand")
+    print("".join(f"    | {x}\n" for x in buf.getvalue().splitlines()),
+          end="")
+    split = trace_split(tpath, busy_s)
+    check(split["chunks"] == summ["chunks_dispatched"],
+          f"{split['chunks']} chunk spans != {summ['chunks_dispatched']} "
+          f"chunks dispatched")
+    out["split"] = split
+
+    # 6. run --trace: the chunk spans are the run's launch groups
+    tr = WORK / "run.trace.json"
+    ntime = 320
+    # a heartbeat every 16 steps makes each chunk one 16-step call: one
+    # launch group, one span
+    text, launches = cli_run(f"4096 0.25 0.05 2.0 {ntime} 0\n", "--dtype",
+                             "float32", "--heartbeat-every", "16", "--json",
+                             "--trace", str(tr))
+    evs = json.loads(tr.read_text())["traceEvents"]
+    spans = [e for e in evs if e.get("name", "").startswith("chunk @")]
+    timed, warm = expected_launches((4096, 4096), "float32", ntime)
+    (compile_span,) = [e for e in evs if e.get("name") == "compile"]
+    check(len(spans) == ntime // 16 and len(spans) == timed
+          and launches["ftcs2d"] == timed + warm,
+          f"run --trace: {len(spans)} chunk spans, {launches} launches "
+          f"(timed {timed} + warm-up {warm})")
+    print(f"[phase 5c] run --trace 4096^2 f32 x {ntime}: {len(spans)} chunk "
+          f"spans = {timed} timed launches of ftcs2d (+ {warm} in the "
+          f"compile span, sizes {compile_span['args']['sizes']}); "
+          f"{len(evs)} events")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[phase 5c] {out['phase_s']:.1f} s on {smi}")
     return out
 
 
@@ -2919,6 +3415,7 @@ def main() -> int:
         phase_oracle()
         serve = phase_serve(smi)
         phase_serve_semantics(smi, serve)
+        phase_serving_front(smi, serve)
         lab_errs = phase_lab_compare()
         lab_rows, lab_launches = phase_lab(smi)
         shard = phase_sharded(smi)

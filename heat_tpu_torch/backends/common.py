@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from ..config import HeatConfig
-from ..runtime import async_io, checkpoint, debug, faults
+from ..runtime import async_io, checkpoint, debug, faults, prof
+from ..runtime import trace as trace_mod
 from ..runtime.logging import master_print
 from ..runtime.timing import Timing, sync
 from ..utils import torch_dtype
@@ -126,19 +127,36 @@ def drive(
     remaining = cfg.ntime - start_step
     device = T_dev.device
 
+    # request-scoped tracing (runtime/trace.py): the solo path records
+    # into the process-global ring, so `run --trace` puts the warm-up, the
+    # chunk launches, checkpoint snapshots and the writer's D2H+publish
+    # spans on one timeline
+    tracer = trace_mod.get_tracer()
+    drv_track = tracer.thread_track("solve") if tracer.enabled else None
+
     compile_s = 0.0
     if remaining > 0:
         t_c0 = time.perf_counter()
-        for k in chunk_sizes(cfg, remaining):
+        sizes = chunk_sizes(cfg, remaining)
+        label = f"solve {cfg.backend} n{cfg.n}^{cfg.ndim} {cfg.dtype}"
+        for k in sizes:
+            tk = time.perf_counter()
             warm(T_dev.clone(), k)
-        ops.sync(T_dev)
+            ops.sync(T_dev)
+            # the compile observatory's tap: the port builds no program
+            # per size, so a warm-up (first launches, the library's load)
+            # is its one-time cost per (solve, k)
+            prof.compile_log().note(label, k, time.perf_counter() - tk)
         compile_s = time.perf_counter() - t_c0
+        if tracer.enabled:
+            tracer.complete("compile", drv_track, t_c0, cat="solve",
+                            args={"sizes": sizes})
 
     t0 = time.perf_counter()
     step = start_step
     async_on = cfg.use_async_io() and bool(cfg.checkpoint_every
                                            or cfg.check_numerics)
-    writer = (async_io.SnapshotWriter()
+    writer = (async_io.SnapshotWriter(tracer=tracer)
               if async_on and cfg.checkpoint_every else None)
     # pending boundary flag from the async numerics leg:
     # (device scalar, step, snapshot-or-None, deferred-checkpoint?)
@@ -168,9 +186,17 @@ def drive(
 
     def _submit_snapshot(T_snap, at_step: int) -> None:
         check = cfg.check_numerics
+        if tracer.enabled:
+            tracer.instant("checkpoint-snapshot", drv_track, cat="solve",
+                           args={"step": at_step})
+
         # the device-to-host copy lands in the writer thread; the writer
         # re-validates the snapshot it is about to persist
-        writer.submit(lambda: _persist(T_snap, at_step, check))
+        def job():
+            _persist(T_snap, at_step, check)
+
+        job._trace = (f"checkpoint @{at_step}", None)
+        writer.submit(job)
 
     def _try_rollback(bad_step: int) -> bool:
         """Restore the last verified-finite boundary after a flagged one;
@@ -217,8 +243,15 @@ def drive(
             while True:
                 while step < cfg.ntime:
                     k = min(chunk, cfg.ntime - step)
+                    t_ch = time.perf_counter() if tracer.enabled else 0.0
                     T_dev = advance(T_dev, k)
                     step += k
+                    if tracer.enabled:
+                        # dispatch-side span of one launch group: the
+                        # enqueue cost, not the device time (the loop
+                        # never fences)
+                        tracer.complete(f"chunk @{step}", drv_track, t_ch,
+                                        cat="solve", args={"k": k})
                     if plan is not None:
                         plan.maybe_crash(step)
                         T_dev = plan.maybe_nan(step, T_dev)
@@ -260,7 +293,11 @@ def drive(
                 if pending_flag is None or not _settle_pending():
                     break
                 # final boundary flagged and rolled back: resume stepping
+            t_sync = time.perf_counter() if tracer.enabled else 0.0
             ops.sync(T_dev)
+            if tracer.enabled:
+                tracer.complete("final-sync", drv_track, t_sync,
+                                cat="solve")
     except BaseException:
         # drain-on-exception: every queued snapshot still lands on disk (a
         # blow-up's last good boundary is exactly the state a resume
@@ -269,6 +306,10 @@ def drive(
             writer.drain(raise_errors=False)
         raise
     solve_s = time.perf_counter() - t0
+    if tracer.enabled:
+        tracer.complete("solve", drv_track, t0, t0 + solve_s, cat="solve",
+                        args={"steps": remaining, "n": cfg.n,
+                              "backend": cfg.backend})
     if writer is not None:
         # post-solve flush, deliberately OUTSIDE solve_s: the device has
         # finished stepping, so the remaining writes overlap nothing

@@ -10,10 +10,14 @@ default) unless ``--device cpu`` is given.
 
 Usage: ``python -m heat_tpu_torch run [--backend cuda] [--json]``,
 ``python -m heat_tpu_torch serve --requests FILE.jsonl [--json]`` (the
-serving engine: one ``<id>.npz`` per request with ``--out-dir``),
-``python -m heat_tpu_torch launch -n N -- run --backend sharded ...`` (N
-worker processes in one ``torch.distributed`` world, the reference's
-``mpirun -np N``) and ``python -m heat_tpu_torch info``.
+serving engine: one ``<id>.npz`` per request with ``--out-dir``; with
+``--listen HOST:PORT`` the online gateway, ``--resume DIR`` continues an
+engine checkpoint), ``python -m heat_tpu_torch trace FILE`` (a trace
+file's text summary), ``python -m heat_tpu_torch usage URL|FILE`` (the
+per-tenant usage ledger), ``python -m heat_tpu_torch launch -n N -- run
+--backend sharded ...`` (N worker processes in one ``torch.distributed``
+world, the reference's ``mpirun -np N``) and ``python -m heat_tpu_torch
+info``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Optional, Sequence
 
 from .config import VARIANTS, HeatConfig, parse_input, variant_config
 from .grid import coords, initial_condition
+from .runtime import trace as trace_mod
 from .runtime.logging import master_print
 
 
@@ -102,6 +107,18 @@ def build_parser() -> argparse.ArgumentParser:
                           "auto (default) = on")
     run.add_argument("--profile", dest="profile_dir", metavar="DIR",
                      help="write a torch.profiler trace of the solve to DIR")
+    run.add_argument("--trace", metavar="FILE",
+                     help="export the run's event timeline (warm-up, chunk "
+                          "launch groups, checkpoint snapshots, background-"
+                          "writer D2H+publish spans) as Chrome trace-event "
+                          "JSON viewable in Perfetto / chrome://tracing "
+                          "(HEAT_TPU_TRACE=FILE is the env spelling; "
+                          "HEAT_TPU_TRACE=off disables recording)")
+    run.add_argument("--trace-buffer", dest="trace_buffer", type=int,
+                     metavar="N",
+                     help="event-ring capacity (default "
+                          f"{trace_mod.DEFAULT_BUFFER}; 0 disables "
+                          "recording)")
     run.add_argument("--check-numerics", action="store_true",
                      help="detect NaN/Inf per chunk (debug)")
     run.add_argument("--on-nan", dest="on_nan", choices=["abort", "rollback"],
@@ -124,13 +141,26 @@ def build_parser() -> argparse.ArgumentParser:
         "serve",
         help="serving engine: drain a JSONL file of solve requests as "
              "continuously-batched stacked lanes on the card")
-    serve.add_argument("--requests", metavar="FILE.jsonl", required=True,
+    serve.add_argument("--requests", metavar="FILE.jsonl",
                        help="JSON Lines: one request object per line, keys "
                             "= HeatConfig physics fields (n, ntime, sigma, "
                             "nu, dom_len, ndim, dtype, ic, bc, bc_value, "
                             "inject) + optional id, deadline_ms, tenant, "
                             "class, until (steps|steady), tol; '#' lines "
-                            "are comments")
+                            "are comments. Optional with --listen (then "
+                            "it pre-loads the file before serving) or "
+                            "--resume")
+    serve.add_argument("--listen", metavar="HOST:PORT",
+                       help="run as a long-running online gateway instead "
+                            "of a one-shot drain: POST /v1/solve admits "
+                            "request lines into the running engine "
+                            "(streamed records back), GET /metrics, "
+                            "/healthz, /tracez, /statusz, /v1/usage, POST "
+                            "/drainz for graceful drain (?handoff=1: "
+                            "checkpoint and exit). Port 0 picks an "
+                            "ephemeral port (printed). The process runs "
+                            "until /drainz completes (or Ctrl-C, which "
+                            "drains)")
     serve.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                        help="where the lanes live (default cuda)")
     serve.add_argument("--lanes", type=int, default=4,
@@ -240,8 +270,128 @@ def build_parser() -> argparse.ArgumentParser:
                             "fail the request and free its lane (the "
                             "nonfinite quarantine path — co-scheduled "
                             "lanes untouched) (default warn)")
+    serve.add_argument("--trace", metavar="FILE",
+                       help="export the engine's event ring as Chrome "
+                            "trace-event JSON at drain: per-lane occupancy "
+                            "timelines, chunk pipelining, queue waits, "
+                            "boundary fetches, writer publishes, with flow "
+                            "arrows stitching each request's hops across "
+                            "threads. HEAT_TPU_TRACE=FILE is the env "
+                            "spelling; HEAT_TPU_TRACE=off disables "
+                            "recording (the flight recorder included)")
+    serve.add_argument("--trace-buffer", dest="trace_buffer", type=int,
+                       metavar="N",
+                       help="event-ring capacity (default "
+                            f"{trace_mod.DEFAULT_BUFFER}). The ring is the "
+                            "always-on flight recorder: even without "
+                            "--trace, the last N events are dumped to "
+                            "<out-dir>/flightrec-<ts>.trace.json when a "
+                            "watchdog fires, a lane quarantines after its "
+                            "rollback budget, a numerics violation fires "
+                            "or the scheduler loop crashes; 0 disables "
+                            "recording entirely")
+    serve.add_argument("--prof", default="on", metavar="on|off",
+                       help="cost observatory (runtime/prof.py): online "
+                            "per-bucket chunk-cost model, per-tenant usage "
+                            "ledger, memory watermarks + leak sentinel, "
+                            "SLO burn-rate monitor — fed from timestamps "
+                            "the scheduler already takes. 'off' = A/B "
+                            "baseline (records keep their usage stamps; "
+                            "aggregation off) (default on)")
+    serve.add_argument("--slo-targets", dest="slo_targets",
+                       metavar="CLASS=FRAC,...",
+                       help="per-class SLO targets for the burn-rate "
+                            "monitor, e.g. 'interactive=0.999,batch=0.8' "
+                            "(deadline-hit fraction; error budget = "
+                            "1 - target; defaults interactive=0.99, "
+                            "standard=0.95, batch=0.9)")
+    serve.add_argument("--mem-poll", dest="mem_poll", type=int,
+                       metavar="N",
+                       help="chunk boundaries between device-memory "
+                            "watermark samples (leak sentinel; default "
+                            "32, 0 = never sample)")
+    serve.add_argument("--probe-interval", dest="probe_interval",
+                       type=float, default=0.0, metavar="S",
+                       help="with --listen: submit a known-answer canary "
+                            "probe (sine-eigenmode request under the "
+                            "reserved '_probe' tenant, verified against "
+                            "its closed-form decay) through the real "
+                            "gateway every S seconds (serve/probe.py; "
+                            "0 = prober off, the default)")
+    serve.add_argument("--engine-ckpt-interval", dest="engine_ckpt_interval",
+                       type=int, default=0, metavar="N",
+                       help="engine-state checkpoint cadence: every N "
+                            "processed chunk boundaries the scheduler "
+                            "pauses dispatch at the next empty-pipeline "
+                            "cut and snapshots the whole engine — one "
+                            "on-card copy per occupied lane (D2H on the "
+                            "writer thread) plus a JSON manifest of lane "
+                            "occupancy, queued requests and usage "
+                            "partials, with a generation counter; a final "
+                            "checkpoint always lands at drain. 0 = off "
+                            "(default)")
+    serve.add_argument("--engine-ckpt-dir", dest="engine_ckpt_dir",
+                       metavar="DIR",
+                       help="where engine-state generations live "
+                            "(default: <--out-dir>/engine-ckpt, else "
+                            "./engine-ckpt)")
+    serve.add_argument("--cache", default="off", choices=["on", "off"],
+                       help="solve cache (serve/solvecache.py): a request "
+                            "whose physics fingerprint matches a finished "
+                            "result is served from disk byte for byte "
+                            "without a lane (billed cached, zero lane-"
+                            "seconds/steps); a match at a smaller step "
+                            "count seeds the lane and steps only the "
+                            "delta (steps_saved). Default off")
+    serve.add_argument("--cache-dir", dest="cache_dir", metavar="DIR",
+                       help="where cache entries live (default: "
+                            "<--out-dir>/solve-cache, else ./solve-cache)")
+    serve.add_argument("--cache-max-bytes", dest="cache_max_bytes",
+                       type=int, default=0, metavar="B",
+                       help="LRU budget for the cache dir: after each "
+                            "store, least-recently-hit entries are evicted "
+                            "until total bytes <= B (0 = unbounded, the "
+                            "default)")
+    serve.add_argument("--resume", metavar="DIR",
+                       help="crash-safe resume: before serving, rebuild "
+                            "the engine from the newest valid engine "
+                            "manifest in DIR — in-flight requests continue "
+                            "at their last checkpointed boundary (byte-"
+                            "equal to an uninterrupted run), queued "
+                            "requests re-queue in policy order, usage "
+                            "billing resumes from stamped partials; a "
+                            "corrupt manifest is quarantined loudly and "
+                            "discovery falls back one generation. "
+                            "--requests rows whose ids the manifest "
+                            "accounts for are skipped")
     serve.add_argument("--json", action="store_true",
                        help="also print the summary as one JSON line")
+
+    usage = sub.add_parser(
+        "usage",
+        help="per-tenant usage ledger: render lane-seconds / steps / "
+             "chunks / bytes-written per tenant and SLO class, from a "
+             "running gateway (GET /v1/usage) or from a saved stream of "
+             "serve_request JSON records")
+    usage.add_argument("source",
+                       help="gateway base URL (http://HOST:PORT — "
+                            "/v1/usage is fetched) or a file of "
+                            "serve_request JSON lines (the offline "
+                            "drain's stdout records)")
+    usage.add_argument("--json", action="store_true",
+                       help="print the raw ledger JSON instead of the "
+                            "table")
+
+    trc = sub.add_parser(
+        "trace",
+        help="render a text timeline summary from a trace file (a "
+             "--trace export, a flightrec-*.trace.json dump, or a saved "
+             "GET /tracez response): per-lane utilization, top "
+             "queue-wait requests, boundary-fetch/device-idle totals")
+    trc.add_argument("tracefile", help="Chrome trace-event JSON file")
+    trc.add_argument("--top", type=int, default=5,
+                     help="how many top queue-wait requests to list "
+                          "(default 5)")
 
     launch = sub.add_parser(
         "launch",
@@ -313,6 +463,13 @@ def cmd_run(args) -> int:
         cfg = variant_config(args.variant, cfg)
     cfg = _apply_overrides(cfg, args)
     _warn_if_unstable(cfg)
+    try:
+        trace_path, trace_cap = trace_mod.resolve_trace(args.trace,
+                                                        args.trace_buffer)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    tracer = trace_mod.configure(capacity=trace_cap)
 
     from .backends import resolve_device, solve
     from .ops import cuda_stencil
@@ -345,6 +502,11 @@ def cmd_run(args) -> int:
         return 2
     for line in res.timing.report_lines():
         master_print(line)
+    if trace_path:
+        tracer.export(trace_path)
+        master_print(f"wrote trace {trace_path} (open in Perfetto / "
+                     f"chrome://tracing; summary: python -m heat_tpu_torch "
+                     f"trace {trace_path})")
     if res.gsum is not None:
         master_print(f"Sum of Temperature: {res.gsum:.10g}")
 
@@ -434,32 +596,73 @@ def _serve_report(summary: dict, ok: int, args) -> None:
                      f"{summary['shed']} shed, "
                      f"{summary['watchdog_fired']} watchdog timeout(s)")
     if summary.get("numerics"):
+        probes = ("" if "probe_pass" not in summary else
+                  f"; probes {summary['probe_pass']} pass / "
+                  f"{summary['probe_fail']} fail")
         master_print(f"numerics: {summary.get('steady_lanes', 0)} steady "
                      f"lane(s), {summary.get('numerics_violations', 0)} "
                      f"violation(s) (guard "
-                     f"{summary.get('numerics_guard', 'warn')})")
+                     f"{summary.get('numerics_guard', 'warn')})" + probes)
     if summary.get("steady_exits"):
         master_print(f"semantic scheduling: {summary['steady_exits']} "
                      f"steady exit(s), {summary.get('steps_saved', 0)} "
                      f"step(s) saved")
+    cache = summary.get("cache")
+    if cache:
+        master_print(f"solve cache: {cache['hits_full']} full hit(s), "
+                     f"{cache['hits_prefix']} prefix hit(s), "
+                     f"{cache['misses']} miss(es), "
+                     f"{cache['entries']} entr(ies) / "
+                     f"{cache['bytes'] / 2**20:.2f} MiB on disk, "
+                     f"{cache['evictions']} evicted, "
+                     f"{cache['quarantined']} quarantined "
+                     f"({cache['dir']})")
+    cm = summary.get("cost_model") or []
+    if cm:
+        tops = sorted(cm, key=lambda e: -e["wall_s"])[:3]
+        more = f" (+{len(cm) - 3} more)" if len(cm) > 3 else ""
+        master_print("cost model: " + "; ".join(
+            f"{e['bucket']} xL{e['lanes']} d{e['depth']} "
+            f"[{e['kernel']}/{e['placement']}]: "
+            f"{e['ewma_s_per_lane_step'] or 0:.3e} s/lane-step "
+            f"({e['chunks']} chunks)" for e in tops) + more)
+    mem = summary.get("mem") or {}
+    if mem.get("samples"):
+        master_print(f"observatory: mem peak "
+                     f"{(mem.get('peak_bytes') or 0) / 2**20:.1f} MiB "
+                     f"({mem['source']}, {mem['samples']} sample(s), "
+                     f"{mem['warnings']} leak warning(s)); "
+                     f"{summary.get('flightrec_dumps', 0)} flight dump(s)")
     if args.json:
         master_print(json.dumps(summary, sort_keys=True))
 
 
 def cmd_serve(args) -> int:
-    """Drain a JSONL request file through the batched serving engine.
+    """Drain a JSONL request file through the batched serving engine — or,
+    with ``--listen``, run the long-lived online gateway over it.
 
-    Per-request structured records stream as JSON lines while lanes finish;
-    the exit code is 0 only when every request served cleanly (a rejected
-    or failed request is that request's record AND a nonzero exit)."""
+    Offline: per-request structured records stream as JSON lines while
+    lanes finish; the exit code is 0 only when every request served
+    cleanly (a rejected or failed request is that request's record AND a
+    nonzero exit). Online: the process serves HTTP until ``POST /drainz``
+    completes (or Ctrl-C, which drains), then prints the same summary
+    over everything it served. ``--resume DIR`` first rebuilds the engine
+    from its newest valid checkpoint, before any file row or HTTP
+    request."""
     from .backends import resolve_device
-    from .config import (parse_dispatch_depth, parse_on_off,
-                         parse_tenant_weights)
-    from .serve import ServeConfig, serve_requests
+    from .config import (parse_dispatch_depth, parse_listen, parse_on_off,
+                         parse_slo_targets, parse_tenant_weights)
+    from .serve import Engine, ServeConfig, serve_requests
 
-    path = Path(args.requests)
-    if not path.exists():
-        print(f"error: {path} not found", file=sys.stderr)
+    path = None
+    if args.requests is not None:
+        path = Path(args.requests)
+        if not path.exists():
+            print(f"error: {path} not found", file=sys.stderr)
+            return 2
+    elif args.listen is None and args.resume is None:
+        print("error: need --requests FILE.jsonl, --listen HOST:PORT, "
+              "--resume DIR, or a combination", file=sys.stderr)
         return 2
     try:
         device = resolve_device(args.device)
@@ -468,6 +671,9 @@ def cmd_serve(args) -> int:
         return 2
     try:
         buckets = tuple(int(b) for b in str(args.buckets).split(",") if b)
+        listen = parse_listen(args.listen) if args.listen else None
+        trace_path, trace_cap = trace_mod.resolve_trace(args.trace,
+                                                        args.trace_buffer)
         scfg = ServeConfig(lanes=args.lanes, chunk=args.chunk,
                            buckets=buckets, out_dir=args.out_dir,
                            dispatch_depth=parse_dispatch_depth(
@@ -478,21 +684,240 @@ def cmd_serve(args) -> int:
                            max_queue=args.max_queue,
                            fetch_timeout_s=(args.fetch_watchdog
                                             if args.fetch_watchdog else None),
+                           inject=args.inject or "",
                            policy=args.policy,
                            tenant_weights=parse_tenant_weights(
                                args.tenant_weights or ""),
                            tenant_quota=args.tenant_quota,
-                           inject=args.inject or "",
+                           trace=trace_path, trace_buffer=trace_cap,
+                           prof=parse_on_off(args.prof, "--prof"),
+                           slo_targets=parse_slo_targets(
+                               args.slo_targets or ""),
                            numerics=parse_on_off(args.numerics, "--numerics"),
                            steady_tol=args.steady_tol,
-                           numerics_guard=args.numerics_guard)
+                           numerics_guard=args.numerics_guard,
+                           engine_ckpt_interval=args.engine_ckpt_interval,
+                           engine_ckpt_dir=args.engine_ckpt_dir,
+                           cache=parse_on_off(args.cache, "--cache"),
+                           cache_dir=args.cache_dir,
+                           cache_max_bytes=args.cache_max_bytes,
+                           **({"mem_poll_every": args.mem_poll}
+                              if args.mem_poll is not None else {}))
+        if args.probe_interval < 0:
+            raise ValueError(f"--probe-interval must be >= 0, got "
+                             f"{args.probe_interval}")
+        if args.probe_interval and args.listen is None:
+            raise ValueError("--probe-interval needs --listen (the "
+                             "prober probes the HTTP gateway)")
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    records, summary = serve_requests(path, scfg, device=device)
-    ok = sum(1 for r in records if r["status"] == "ok")
+
+    eng = None
+    skip_ids = set()
+    if args.resume is not None:
+        # resume BEFORE any file rows or HTTP traffic: the manifest is the
+        # authority on every request it accounts for (mid-solve progress
+        # included); later submits only add new work
+        from .serve.resume import resume_engine
+
+        eng = Engine(scfg, device=device)
+        try:
+            skip_ids = resume_engine(eng, args.resume)
+        except (ValueError, OSError) as e:
+            print(f"error: --resume {args.resume} failed: {e}",
+                  file=sys.stderr)
+            return 2
+
+    trace_note = (f"wrote trace {scfg.trace} (open in Perfetto / "
+                  f"chrome://tracing; summary: python -m heat_tpu_torch "
+                  f"trace {scfg.trace})")
+    if listen is None:
+        if path is not None:
+            records, summary = serve_requests(path, scfg, engine=eng,
+                                              device=device,
+                                              skip_ids=skip_ids)
+        else:
+            records = eng.results()
+            summary = eng.summary()
+        ok = sum(1 for r in records if r["status"] == "ok")
+        _serve_report(summary, ok, args)
+        if scfg.trace:
+            master_print(trace_note)
+        return 0 if ok == summary["requests"] else 1
+
+    # --- online gateway mode ---------------------------------------------
+    from .serve import Gateway, load_requests, submit_parsed
+
+    eng = eng if eng is not None else Engine(scfg, device=device)
+    parse_failures = 0
+    if path is not None:
+        for row in load_requests(path):
+            if row.id is not None and row.id in skip_ids:
+                continue   # recovered (or finished) by --resume
+            if row.cfg is None:
+                parse_failures += 1
+                master_print(f"serve: rejected request line: {row.error}")
+            else:
+                submit_parsed(eng, row)
+    gw = Gateway(eng, listen[0], listen[1]).start()
+    master_print(f"gateway listening on http://{gw.address} — "
+                 f"POST /v1/solve (NDJSON), GET /v1/requests/<id>, "
+                 f"/healthz, /metrics, /tracez, /statusz, /v1/usage; "
+                 f"POST /drainz to drain (policy {scfg.policy}, device "
+                 f"{eng.device})")
+    prober = None
+    if args.probe_interval:
+        from .serve.probe import Prober
+
+        prober = Prober(f"http://{gw.address}",
+                        interval_s=args.probe_interval).start()
+        eng.prober = prober   # /metrics + /statusz read stats() here
+        master_print(f"prober armed: sine-eigenmode canary every "
+                     f"{args.probe_interval:g}s through the real gateway "
+                     f"path (tenant '_probe' — probe_result records; "
+                     f"/metrics heat_tpu_probe_*)")
+    try:
+        gw.wait_drained()
+    except KeyboardInterrupt:
+        master_print("gateway: interrupt — draining (in-flight lanes "
+                     "finish; Ctrl-C again to abandon)")
+        gw.request_drain()
+        gw.wait_drained()
+    if prober is not None:
+        prober.stop()
+        ps = prober.stats()
+        # the probe verdicts ride the end-of-serve summary
+        probe_counts = {"probe_pass": ps["passes"],
+                        "probe_fail": ps["fails"]}
+    else:
+        probe_counts = {}
+    summary = eng.summary()
+    summary.update(probe_counts)
+    summary["requests"] += parse_failures
+    if parse_failures:
+        summary["rejected"] = summary.get("rejected", 0) + parse_failures
+    ok = summary.get("ok", 0)
     _serve_report(summary, ok, args)
+    if scfg.trace:
+        master_print(trace_note)
+    gw.close()
+    if eng.loop_error is not None:
+        print(f"error: scheduler loop failed: {eng.loop_error}",
+              file=sys.stderr)
+        return 1
     return 0 if ok == summary["requests"] else 1
+
+
+def cmd_usage(args) -> int:
+    """Render the per-tenant usage ledger as a table (or raw JSON) from a
+    running gateway's ``GET /v1/usage`` or a saved stream of
+    ``serve_request`` JSON records — the offline form re-aggregates the
+    per-record usage stamps, so both sources reconcile by construction."""
+    src = str(args.source)
+    if src.startswith(("http://", "https://")):
+        import urllib.request
+
+        url = src.rstrip("/")
+        if not url.endswith("/v1/usage"):
+            url += "/v1/usage"
+        try:
+            with urllib.request.urlopen(url, timeout=30) as resp:
+                payload = json.loads(resp.read().decode())
+        except Exception as e:  # noqa: BLE001 — CLI boundary
+            print(f"error: GET {url} failed ({type(e).__name__}: {e})",
+                  file=sys.stderr)
+            return 2
+    else:
+        path = Path(src)
+        if not path.exists():
+            print(f"error: {src} is neither an http(s) URL nor a file",
+                  file=sys.stderr)
+            return 2
+        from .runtime.prof import UsageLedger, empty_usage
+
+        ledger = UsageLedger()
+        found = 0
+        for line in path.read_text().splitlines():
+            line = line.strip()
+            if not line.startswith("{"):
+                continue   # records interleave with human report lines
+            try:
+                d = json.loads(line)
+            except ValueError:
+                continue
+            if d.get("event") != "serve_request":
+                continue
+            found += 1
+            ledger.add(d.get("tenant") or "default",
+                       d.get("class") or "standard",
+                       d.get("status") or "?",
+                       d.get("usage") or empty_usage(),
+                       placement=d.get("placement"))
+        if not found:
+            print(f"error: no serve_request JSON records found in {src}",
+                  file=sys.stderr)
+            return 2
+        payload = ledger.snapshot()
+    if args.json:
+        print(json.dumps(payload, sort_keys=True))
+        return 0
+    hdr = (f"{'tenant':<20} {'class':<12} {'requests':>8} {'lane_s':>10} "
+           f"{'steps':>10} {'saved':>8} {'cached':>7} {'chunks':>8} "
+           f"{'MiB':>8}")
+    print(hdr)
+    print("-" * len(hdr))
+
+    def row(name, cls, c):
+        print(f"{name:<20} {cls:<12} {c['requests']:>8} "
+              f"{c['lane_s']:>10.3f} {c['steps']:>10} "
+              f"{c.get('steps_saved', 0):>8} {c.get('cached', 0):>7} "
+              f"{c['chunks']:>8} {c['bytes_written'] / 2**20:>8.2f}")
+
+    for tenant, t in sorted(payload["tenants"].items()):
+        for cls, c in sorted(t["classes"].items()):
+            row(tenant, cls, c)
+    print("-" * len(hdr))
+    row("TOTAL", "", payload["totals"])
+    return 0
+
+
+def cmd_trace(args) -> int:
+    """Text timeline summary of any trace file the port writes (``--trace``
+    exports, flight-recorder dumps, ``/tracez`` responses): per-lane
+    utilization, top queue-wait requests, boundary-fetch/device-idle wall,
+    notable fault instants."""
+    path = Path(args.tracefile)
+    if not path.exists():
+        print(f"error: {path} not found", file=sys.stderr)
+        return 2
+    try:
+        lines = trace_mod.summarize_file(path, top=args.top)
+    except (ValueError, KeyError, TypeError, AttributeError) as e:
+        print(f"error: {path} is not a Chrome trace-event JSON file "
+              f"({type(e).__name__}: {e})", file=sys.stderr)
+        return 2
+    for line in lines:
+        print(line)
+    if "flightrec" in path.name:
+        # a flight dump exists because something fired: name the likely
+        # trigger from the notable instants (a numerics violation explains
+        # any quarantine that followed it)
+        ev_line = next((ln for ln in lines if ln.startswith("events: ")),
+                       "")
+        for marker, label in (
+                ("numerics-violation", "numerics violation — the field "
+                 "is finite but un-physical (numerics_violation records "
+                 "carry the witnesses; TROUBLESHOOTING.md)"),
+                ("watchdog-fired", "boundary-fetch watchdog timeout"),
+                ("quarantine", "lane quarantine (nonfinite / rollback "
+                 "budget exhausted)"),
+                ("rollback", "NaN rollback")):
+            if marker in ev_line:
+                print(f"flight-dump triage: {marker} instant(s) present "
+                      f"— likely trigger: {label}")
+                break
+    return 0
 
 
 def _launch_ckpt_dir(cmd) -> Optional[str]:
@@ -659,6 +1084,7 @@ def cmd_info(_args) -> int:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     return {"run": cmd_run, "serve": cmd_serve, "launch": cmd_launch,
+            "usage": cmd_usage, "trace": cmd_trace,
             "info": cmd_info}[args.command](args)
 
 

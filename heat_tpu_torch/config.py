@@ -218,6 +218,12 @@ SLO_CLASSES = {"interactive": 0, "standard": 1, "batch": 2}
 DEFAULT_SLO_CLASS = "standard"
 DEFAULT_TENANT = "default"
 
+# Default per-class SLO targets (deadline-hit fraction) for the burn-rate
+# monitor (runtime/prof.py BurnMonitor): the error budget a class may spend
+# is 1 - target; override per engine with ``--slo-targets``
+# (parse_slo_targets below).
+SLO_TARGETS = {"interactive": 0.99, "standard": 0.95, "batch": 0.9}
+
 _TENANT_RE = re.compile(r"^[A-Za-z0-9._-]{1,64}$")
 
 
@@ -238,9 +244,7 @@ def validate_slo_fields(tenant, slo_class) -> Tuple[str, str]:
 
 
 # Completion semantics of a request: "steps" runs exactly ntime steps;
-# "steady" retires the lane once its residual passes a tolerance (the
-# reference's semantic scheduling; its engine support is not ported yet,
-# so the port's engine rejects such a request as a record).
+# "steady" retires the lane once its residual passes a tolerance.
 UNTIL_MODES = ("steps", "steady")
 DEFAULT_UNTIL = "steps"
 
@@ -267,6 +271,26 @@ def validate_until_fields(until, tol) -> Tuple[str, Optional[float]]:
     return until, tol
 
 
+def parse_listen(s) -> Tuple[str, int]:
+    """``--listen HOST:PORT`` grammar: ':0' / '0' pick an ephemeral port,
+    a bare port listens on 127.0.0.1 (the gateway is a front-end, not an
+    exposed-by-default service)."""
+    text = str(s).strip()
+    host, sep, port_s = text.rpartition(":")
+    if not sep:
+        host, port_s = "", text
+    host = host or "127.0.0.1"
+    try:
+        port = int(port_s)
+    except ValueError:
+        raise ValueError(
+            f"--listen must be HOST:PORT (port an integer), got {s!r}"
+        ) from None
+    if not 0 <= port <= 65535:
+        raise ValueError(f"--listen port must be in [0, 65535], got {port}")
+    return host, port
+
+
 def parse_tenant_weights(s) -> Tuple[Tuple[str, float], ...]:
     """``--tenant-weights a=4,b=1`` -> (("a", 4.0), ("b", 1.0)). Unlisted
     tenants weigh 1.0 (serve/policy.py FairShareQueue)."""
@@ -290,6 +314,39 @@ def parse_tenant_weights(s) -> Tuple[Tuple[str, float], ...]:
             raise ValueError(
                 f"--tenant-weights weight must be > 0, got {weight}")
         out.append((tenant, weight))
+    return tuple(out)
+
+
+def parse_slo_targets(s) -> Tuple[Tuple[str, float], ...]:
+    """``--slo-targets interactive=0.999,batch=0.8`` -> (("interactive",
+    0.999), ("batch", 0.8)). Classes must exist (SLO_CLASSES) and targets
+    lie strictly in (0, 1) — a target of 1.0 is a zero error budget and
+    every burn rate would be infinite; unlisted classes keep the
+    SLO_TARGETS defaults."""
+    out = []
+    for tok in str(s).split(","):
+        tok = tok.strip()
+        if not tok:
+            continue
+        name, sep, t = tok.partition("=")
+        if not sep:
+            raise ValueError(
+                f"--slo-targets entries must be CLASS=TARGET, got {tok!r}")
+        name = name.strip()
+        if name not in SLO_CLASSES:
+            raise ValueError(
+                f"--slo-targets class must be one of {sorted(SLO_CLASSES)}, "
+                f"got {name!r}")
+        try:
+            target = float(t)
+        except ValueError:
+            raise ValueError(
+                f"--slo-targets target must be a number, got {t!r}"
+            ) from None
+        if not 0.0 < target < 1.0:
+            raise ValueError(
+                f"--slo-targets target must be in (0, 1), got {target}")
+        out.append((name, target))
     return tuple(out)
 
 

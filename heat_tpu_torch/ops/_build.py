@@ -91,13 +91,20 @@ def build(name: str) -> Path:
     out.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
     (out / f"{name}.log").write_text(
         " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed to build {src.name} "
                            f"(rc={proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, so)  # atomic: a concurrent build never loads a torn file
+    # the compile observatory's tap: each build this process ran (a
+    # library found already built costs nothing and is not noted)
+    from ..runtime import prof
+
+    prof.compile_log().note(f"nvcc {name}", 0, seconds)
     return so
 
 

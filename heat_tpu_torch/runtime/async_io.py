@@ -112,7 +112,13 @@ class SnapshotWriter:
 
     def __init__(self, depth: int = DEFAULT_DEPTH,
                  retries: int = DEFAULT_RETRIES,
-                 retry_backoff_s: float = DEFAULT_RETRY_BACKOFF_S):
+                 retry_backoff_s: float = DEFAULT_RETRY_BACKOFF_S,
+                 tracer=None):
+        # ``tracer`` (runtime/trace.py, optional): each job becomes one
+        # span on the writer thread's track. Callers label jobs by setting
+        # a ``job._trace = (name, trace_id)`` attribute; unlabeled jobs
+        # trace as "io-job". No tracer (the default) costs nothing.
+        self._tracer = tracer
         self._q: "queue.Queue[Optional[Callable[[], None]]]" = queue.Queue(
             maxsize=max(1, depth))
         self._thread: Optional[threading.Thread] = None
@@ -168,6 +174,12 @@ class SnapshotWriter:
                 finally:
                     self.busy_s += time.perf_counter() - t0
                     self.completed += 1
+                    tr = self._tracer
+                    if tr is not None and tr.enabled:
+                        name, xid = getattr(job, "_trace",
+                                            ("io-job", None))
+                        tr.complete(name, tr.thread_track("writer"), t0,
+                                    cat="io", trace_id=xid)
             finally:
                 self._q.task_done()
 

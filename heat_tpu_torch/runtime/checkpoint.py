@@ -23,6 +23,12 @@ offered for resume; a torn, truncated, or bit-rotted file is renamed to
 ``*.corrupt`` and discovery falls back to the next-older step. A
 fingerprint mismatch is NOT corruption — the file is intact, it just
 belongs to different physics — so it raises instead of quarantining.
+
+The serving engine's checkpoints (``save_engine_field`` ...
+``next_engine_generation``) are the reference's engine manifests and lane
+field files, byte for byte: one generation is a JSON manifest naming one
+field file per lane in flight, published last; discovery quarantines a
+bad manifest and falls back one generation.
 """
 
 from __future__ import annotations
@@ -315,3 +321,146 @@ def load(path: Path, cfg: HeatConfig) -> Tuple[np.ndarray, int]:
     with np.load(path, allow_pickle=False) as z:
         _check_fingerprint(path, str(z["fingerprint"]), cfg)
         return _from_storage(z["T"]), int(z["step"])
+
+
+# --- engine-state manifests (serve/scheduler.py zero-downtime serving) -------
+# A generation = one consistent cut of the whole serving engine at an
+# empty-pipeline chunk boundary: one field .npz per in-flight lane plus ONE
+# JSON manifest naming them all. The manifest is the commit record — it is
+# submitted to the (FIFO) SnapshotWriter *after* every field job, so a
+# manifest that exists on disk proves its fields (and every result
+# writeback submitted before the cut) were durably published first. A kill
+# mid-generation leaves fields without a manifest; discovery simply falls
+# back to the previous generation.
+
+ENGINE_MANIFEST_KIND = "heat-tpu-engine-manifest"
+ENGINE_MANIFEST_VERSION = 1
+ENGINE_MANIFEST_FMT = "engine_gen{gen:08d}.json"
+ENGINE_FIELD_FMT = "engine_gen{gen:08d}__{rid}.npz"
+_ENGINE_MANIFEST_RE = re.compile(r"engine_gen(\d{8})\.json$")
+
+
+def save_engine_field(d, gen: int, rid: str, T: np.ndarray,
+                      fingerprint: str, remaining: int) -> Path:
+    """Persist one in-flight lane's field for generation ``gen`` (called
+    from the snapshot-writer thread). Same atomic-publish discipline as
+    ``save``: temp name outside every discovery glob, then rename. The
+    file is the reference's, a bf16 field under its ``'<V2'`` header."""
+    d = Path(d)
+    d.mkdir(parents=True, exist_ok=True)
+    path = d / ENGINE_FIELD_FMT.format(gen=gen, rid=rid)
+    tmp = d / (path.name + ".tmp")
+    with open(tmp, "wb") as f:
+        savez_compressed(f, T=_to_storage(T), remaining=int(remaining),
+                         fingerprint=fingerprint)
+    tmp.rename(path)
+    return path
+
+
+def load_engine_field(d, gen: int, rid: str,
+                      fingerprint: str) -> Tuple[np.ndarray, int]:
+    """Read one lane field back, as stored (a bf16 field as its ``V2``
+    bits, which the lane loader installs as they are); the fingerprint
+    cross-check mirrors ``load`` — resuming a lane onto different physics
+    must be loud."""
+    path = Path(d) / ENGINE_FIELD_FMT.format(gen=gen, rid=rid)
+    with np.load(path, allow_pickle=False) as z:
+        fp = str(z["fingerprint"])
+        if fp != fingerprint:
+            raise ValueError(
+                f"engine field {path} was written for a different physics "
+                f"config (fingerprint {fp} != {fingerprint})")
+        return z["T"], int(z["remaining"])
+
+
+def save_engine_manifest(d, gen: int, manifest: dict, plan=None) -> Path:
+    """Atomically publish generation ``gen``'s manifest (the commit
+    record — write this LAST). ``plan`` is the active FaultPlan, so
+    ``ckpt-manifest-corrupt@N`` bitrot lands post-publish exactly like
+    ``damage_checkpoint`` does for solve checkpoints."""
+    d = Path(d)
+    d.mkdir(parents=True, exist_ok=True)
+    path = d / ENGINE_MANIFEST_FMT.format(gen=gen)
+    tmp = d / (path.name + ".tmp")
+    tmp.write_text(json.dumps(manifest, sort_keys=True))
+    tmp.rename(path)
+    if plan is not None:
+        plan.damage_manifest(path, gen)
+    return path
+
+
+def validate_engine_manifest(path: Path):
+    """(manifest, None) when the generation is restorable, else
+    (None, reason). Restorable means: the JSON parses, identifies itself,
+    and every in-flight entry's field file exists, loads, is finite, and
+    carries the fingerprint the manifest claims for it. Any failure is
+    one verdict — quarantine the manifest and fall back a generation
+    (unlike solve checkpoints there is no intact-file-wrong-config case
+    here: the manifest itself stamped the fingerprints)."""
+    try:
+        man = json.loads(Path(path).read_text())
+    except Exception as e:  # torn write, bitrot, not JSON
+        return None, f"unreadable ({type(e).__name__}: {e})"
+    if not isinstance(man, dict) or man.get("kind") != ENGINE_MANIFEST_KIND:
+        return None, "not an engine manifest"
+    if man.get("version") != ENGINE_MANIFEST_VERSION:
+        return None, f"unsupported manifest version {man.get('version')!r}"
+    try:
+        gen = int(man["generation"])
+        inflight = man["inflight"]
+        man["queued"]
+    except Exception as e:
+        return None, f"missing keys ({type(e).__name__}: {e})"
+    d = Path(path).parent
+    for e in inflight:
+        try:
+            rid, fp = str(e["id"]), str(e["fingerprint"])
+        except Exception as exc:
+            return None, f"bad inflight entry ({type(exc).__name__}: {exc})"
+        fpath = d / ENGINE_FIELD_FMT.format(gen=gen, rid=rid)
+        try:
+            with np.load(fpath, allow_pickle=False) as z:
+                if str(z["fingerprint"]) != fp:
+                    return None, (f"field {fpath.name} fingerprint "
+                                  f"mismatch (manifest says {fp})")
+                if not _finite(z["T"]):
+                    return None, f"field {fpath.name} non-finite"
+                int(z["remaining"])
+        except Exception as exc:
+            return None, (f"field {fpath.name} unreadable "
+                          f"({type(exc).__name__}: {exc})")
+    return man, None
+
+
+def latest_engine_manifest(d):
+    """Newest VALID engine manifest in ``d`` as ``(manifest, path)``, or
+    ``(None, None)``. A bad candidate is quarantined (``*.corrupt``) with
+    a loud master_print and discovery falls back one generation — the
+    solve-checkpoint contract lifted to the whole engine."""
+    d = Path(d)
+    if not d.is_dir():
+        return None, None
+    cands = sorted(p for p in d.iterdir() if _ENGINE_MANIFEST_RE.match(p.name))
+    for p in reversed(cands):
+        man, reason = validate_engine_manifest(p)
+        if man is not None:
+            return man, p
+        quarantine(p, reason)
+        master_print(f"engine resume: manifest {p.name} rejected "
+                     f"({reason}) — falling back one generation")
+    return None, None
+
+
+def next_engine_generation(d) -> int:
+    """First unused generation number in ``d`` (1-based). Counts
+    quarantined manifests too, so a resumed engine never re-publishes a
+    generation number an autopsy file already claims."""
+    d = Path(d)
+    if not d.is_dir():
+        return 1
+    best = 0
+    for p in d.iterdir():
+        m = re.match(r"engine_gen(\d{8})\.json", p.name)
+        if m:
+            best = max(best, int(m.group(1)))
+    return best + 1

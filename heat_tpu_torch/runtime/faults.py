@@ -41,12 +41,32 @@ Serve-scoped kinds (the serving engine's per-lane fault domains,
                                boundary-fetch watchdog (fire-once).
 - ``engine-kill@N``          — SIGKILL the serve process once the engine
                                has processed >= N chunk boundaries (every
-                               runner counts): the hard-death analog.
+                               runner counts): the hard-death analog
+                               that ``serve --resume`` recovers from.
+- ``ckpt-manifest-corrupt@N`` — scribble over the engine-state manifest
+                               published at generation >= N (no ``@N`` =
+                               the first one). The resume loader must
+                               quarantine it and fall back one
+                               generation loudly.
+
+Solve-cache kinds (``serve/solvecache.py``; ignored wherever the cache is
+off):
+
+- ``cache-corrupt[@N]``      — xor-scribble 64 bytes at the midpoint of
+                               the consulted cache entry's npz on the
+                               Nth cache consult (no ``@N`` = the first).
+                               The consult's sha256 check must
+                               quarantine it to ``*.corrupt`` and fall
+                               back to recompute — never serve it.
+- ``cache-stale``            — rewrite the consulted entry's sidecar
+                               fingerprint to a different physics hash
+                               (a mis-filed entry analog). The consult's
+                               fingerprint check must quarantine and
+                               recompute (fire-once).
 
 The grammar and the semantics of these kinds are
-``heat_tpu.runtime.faults``'s; its other serve kinds (the engine
-checkpoint's and the solve cache's) and its fleet kinds come with the
-slices that port those layers.
+``heat_tpu.runtime.faults``'s; its fleet kinds come with the slice that
+ports the fleet.
 
 Specs come from ``--inject`` (``HeatConfig.inject``) or the
 ``HEAT_TPU_FAULTS`` env var; multiple faults are comma-separated, e.g.
@@ -81,7 +101,8 @@ RESTART_ENV_VAR = "HEAT_TPU_RESTART"
 CRASH_RC = 43
 
 _KINDS = ("crash", "nan", "ckpt-corrupt", "ckpt-truncate", "sink-error",
-          "sink-slow", "lane-nan", "fetch-hang", "perturb", "engine-kill")
+          "sink-slow", "lane-nan", "fetch-hang", "perturb", "engine-kill",
+          "ckpt-manifest-corrupt", "cache-corrupt", "cache-stale")
 
 
 @dataclasses.dataclass
@@ -276,6 +297,63 @@ class FaultPlan:
                 path.write_bytes(data[:len(data) // 2])
                 master_print(f"fault: truncated checkpoint {path.name} "
                              f"(spec {self.spec!r})")
+
+
+    def damage_cache(self, cache_dir, fingerprint: str,
+                     consult: int) -> None:
+        """Called at the top of every solve-cache consult
+        (serve/solvecache.py) with the consult counter: cache-corrupt
+        xor-scribbles the consulted fingerprint's npz entry (sha256
+        mismatch — bitrot analog), cache-stale rewrites its sidecar
+        fingerprint (a mis-filed entry analog). Both fire-once; the
+        consult's validation must quarantine the damage, never serve
+        it."""
+        d = Path(cache_dir)
+        for f in self._live("cache-corrupt"):
+            if f.fired or consult < (f.step or 1):
+                continue
+            for p in sorted(d.glob(f"{fingerprint}-*.npz")):
+                f.fired = True
+                data = bytearray(p.read_bytes())
+                mid = len(data) // 2
+                for i in range(mid, min(mid + 64, len(data))):
+                    data[i] ^= 0xFF
+                p.write_bytes(bytes(data))
+                master_print(f"fault: corrupted cache entry {p.name} "
+                             f"(spec {self.spec!r})")
+                break
+        for f in self._live("cache-stale"):
+            if f.fired or consult < (f.step or 1):
+                continue
+            for p in sorted(d.glob(f"{fingerprint}-*.json")):
+                f.fired = True
+                try:
+                    import json as _json
+
+                    meta = _json.loads(p.read_text())
+                except ValueError:
+                    meta = {}
+                meta["fingerprint"] = "0" * 16
+                p.write_text(_json.dumps(meta, sort_keys=True) + "\n")
+                master_print(f"fault: staled cache sidecar {p.name} "
+                             f"(spec {self.spec!r})")
+                break
+
+    def damage_manifest(self, path: Path, generation: int) -> None:
+        """Called after an engine-state manifest is published
+        (runtime.checkpoint.save_engine_manifest): xor-scribble 64 bytes
+        at the midpoint — JSON turns to garbage, the resume loader's
+        validate step must quarantine it and fall back one generation."""
+        for f in self._live("ckpt-manifest-corrupt"):
+            if not f.fired and (f.step is None or generation >= f.step):
+                f.fired = True
+                data = bytearray(path.read_bytes())
+                mid = len(data) // 2
+                for i in range(mid, min(mid + 64, len(data))):
+                    data[i] ^= 0xFF
+                path.write_bytes(bytes(data))
+                master_print(f"fault: corrupted engine manifest "
+                             f"{path.name} (spec {self.spec!r})")
 
 
 def _inject_nan(T):

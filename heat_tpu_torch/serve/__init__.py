@@ -13,11 +13,30 @@ loop):
 - ``api.py``       — the request JSONL contract and the ``serve`` entry
   point.
 - ``policy.py``    — admission ordering (fifo | edf | fair).
+- ``gateway.py``   — the online HTTP front door (``serve --listen``):
+  streaming NDJSON solves, drain and handoff, ``/metrics``, ``/tracez``,
+  ``/statusz``, ``/v1/usage``.
+- ``probe.py``     — the known-answer canary prober.
+- ``resume.py``    — rebuild an engine from its checkpoint manifest.
+- ``solvecache.py`` — the content-addressed solve cache.
 """
 
 from .api import (ParsedRequest, load_requests,  # noqa: F401
                   parse_request_obj, serve_requests, submit_parsed)
 from .engine import (BucketKey, LaneEngine, lane_buffer,  # noqa: F401
                      lane_tier, tail_size)
+from .resume import resume_engine  # noqa: F401
 from .scheduler import (TERMINAL_STATUSES, Engine,  # noqa: F401
                         Request, ServeConfig)
+from .solvecache import SolveCache  # noqa: F401
+
+
+def __getattr__(name):
+    # the gateway imports lazily: the offline drain does not load the
+    # HTTP stack it never uses
+    if name in ("Gateway", "render_metrics", "render_statusz",
+                "usage_payload"):
+        from . import gateway
+
+        return getattr(gateway, name)
+    raise AttributeError(name)

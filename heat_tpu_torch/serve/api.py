@@ -1,4 +1,5 @@
-"""Request contract (JSONL file) and the offline ``serve`` entry point.
+"""Request contract (JSONL file + HTTP body lines) and the offline
+``serve`` entry point.
 
 A requests file is JSON Lines: one JSON object per line, blank lines and
 ``#`` comment lines ignored. Each object is a solve request; keys map to
@@ -29,8 +30,10 @@ batching (scheduler.py / engine.py); execution knobs — ``--lanes``,
 ``--numerics-guard``, ``--inject`` — are engine policy, never request
 payload.
 
-The copy of ``heat_tpu.serve.api`` (the HTTP gateway that shares
-``parse_request_obj`` there is not ported yet).
+The copy of ``heat_tpu.serve.api``. The HTTP gateway (serve/gateway.py)
+POSTs the exact same line format to ``/v1/solve``; both front doors parse
+through ``parse_request_obj`` so a request means one thing no matter how
+it arrives.
 """
 
 from __future__ import annotations
@@ -119,16 +122,22 @@ def submit_parsed(eng: Engine, row: ParsedRequest) -> str:
 
 def serve_requests(path, scfg: Optional[ServeConfig] = None,
                    engine: Optional[Engine] = None,
-                   device=None) -> Tuple[List[dict], dict]:
+                   device=None, skip_ids=()) -> Tuple[List[dict], dict]:
     """Serve every request in a JSONL file; returns (records, summary).
 
     Parse failures become status='rejected' records alongside the engine's
     own admission rejections, so the records cover every input line. The
-    engine runs on ``device`` (default: the card)."""
+    engine runs on ``device`` (default: the card). ``skip_ids`` (``serve
+    --resume``) names requests already recovered from — or finished
+    before — an engine-state checkpoint; matching file rows are not
+    re-submitted."""
     scfg = scfg if scfg is not None else ServeConfig()
     eng = engine or Engine(scfg, device=device)
+    skip_ids = frozenset(skip_ids)
     parse_failures = []
     for i, row in enumerate(load_requests(path)):
+        if row.id is not None and row.id in skip_ids:
+            continue
         if row.cfg is None:
             rec = {"id": row.id or f"line-{i}", "status": "rejected",
                    "error": row.error}

@@ -218,7 +218,8 @@ def make_lane_loader(key: BucketKey):
     in place and on the stack's device — fill the lane buffer with
     ``bc_value``, copy the request field into its corner, set the lane's
     scalars. Every write is enqueued behind the chunks in flight (a host
-    field goes through pinned memory, never a synchronous copy)."""
+    field goes through pinned memory, never a synchronous copy). A host
+    ``V2`` array holds bf16 bits and is installed bit for bit."""
     nd = key.ndim
 
     def load(fields, r, n, remaining, lane: int, field, r_new: float,
@@ -227,7 +228,14 @@ def make_lane_loader(key: BucketKey):
         buf.fill_(bc_value)
         corner = buf[(slice(1, 1 + n_new),) * nd]
         if isinstance(field, np.ndarray):
-            field = torch.from_numpy(np.ascontiguousarray(field))
+            field = np.ascontiguousarray(field)
+            if field.dtype.kind == "V" and field.dtype.itemsize == 2:
+                # bf16 bits as stored (a checkpoint field, a cache entry):
+                # installed as they are, no rounding
+                field = torch.from_numpy(field.view(np.int16)).view(
+                    torch.bfloat16)
+            else:
+                field = torch.from_numpy(field)
             if buf.device.type == "cuda":
                 field = field.pin_memory()
         corner.copy_(field, non_blocking=True)

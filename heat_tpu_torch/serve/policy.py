@@ -17,6 +17,10 @@ stops caring about ordering, the queue decides who is admitted next.
 
 Thread-safety contract: queue objects are NOT internally locked — every
 push/pop happens under the engine's one lock (scheduler.py).
+
+The Prometheus-shaped ``Histogram`` the gateway's ``/metrics`` exports
+(per-class latency, queue depth) lives in ``runtime/prof.py``; it is
+re-exported here, as the reference does.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 from ..config import SLO_CLASSES
+from ..runtime.prof import (DEPTH_BUCKETS, LATENCY_BUCKETS,  # noqa: F401
+                            Histogram)
 
 POLICIES = ("fifo", "edf", "fair")
 
@@ -69,6 +75,11 @@ class FifoQueue:
     def pop(self):
         return self._q.popleft() if self._q else None
 
+    def items(self) -> List:
+        """Non-destructive snapshot of every queued request (engine-state
+        checkpointing reads the queue without disturbing pop order)."""
+        return list(self._q)
+
     def __len__(self) -> int:
         return len(self._q)
 
@@ -87,6 +98,11 @@ class EdfQueue:
 
     def pop(self):
         return heapq.heappop(self._h)[1] if self._h else None
+
+    def items(self) -> List:
+        """Snapshot of queued requests (heap order, not pop order — a
+        resume pushes them again, which re-sorts)."""
+        return [entry[1] for entry in self._h]
 
     def __len__(self) -> int:
         return len(self._h)
@@ -146,11 +162,36 @@ class FairShareQueue:
         self._vtime[tenant] += work / self._weight(tenant)
         return req
 
+    def items(self) -> List:
+        """Snapshot of every tenant's queued requests (unordered; a resume
+        pushes them again. Virtual-time credit is not part of it: a
+        resumed engine restarts every tenant at vtime 0)."""
+        return [entry[1] for h in self._tenants.values() for entry in h]
+
     def __len__(self) -> int:
         return self._count
 
     def __bool__(self) -> bool:
         return self._count > 0
+
+
+# --- admission tracing (runtime/trace.py) ------------------------------------
+# Queue objects stay trace-free; the scheduler calls these at its push/pop
+# sites: an ``enqueue`` instant per push and an id-paired ``queue-wait``
+# span per pop, per tenant track.
+
+def note_enqueue(tracer, policy: str, req) -> None:
+    tracer.instant("enqueue", tracer.track("queue", req.tenant),
+                   cat="queue", trace_id=req.trace_id,
+                   args={"id": req.id, "policy": policy,
+                         "class": req.slo_class}, ts=req.submit_t)
+
+
+def note_pop(tracer, policy: str, req, now: float) -> None:
+    tracer.async_span("queue-wait", tracer.track("queue", req.tenant),
+                      req.submit_t, now, req.trace_id,
+                      args={"id": req.id, "policy": policy,
+                            "tenant": req.tenant, "class": req.slo_class})
 
 
 def make_queue(policy: str, tenant_weights=()):

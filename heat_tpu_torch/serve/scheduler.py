@@ -71,12 +71,32 @@ serving contract:
   (``_GroupRunner.maybe_grow``).
 - **Fault injection** (``runtime/faults.py``): the engine's ``inject`` spec
   and each request's own take the serve kinds ``lane-nan``, ``perturb``,
-  ``fetch-hang`` (inside the watched boundary fetch) and ``engine-kill``.
+  ``fetch-hang`` (inside the watched boundary fetch), ``engine-kill``,
+  ``ckpt-manifest-corrupt`` and the solve cache's ``cache-corrupt`` /
+  ``cache-stale``.
+- **Observatories**: every request mints a trace id at submit, and every
+  layer appends spans to the engine's bounded event ring
+  (``runtime/trace.py``: lane occupancy, chunks in flight, boundary
+  fetches, device-idle gaps, writer jobs), dumped on watchdog, quarantine
+  after rollbacks, a numerics violation or a scheduler crash, or exported
+  at drain (``trace``). The cost observatory (``runtime/prof.py``) learns
+  seconds per lane-step per bucket from the boundary timestamps, samples
+  the device's memory, stamps every terminal record with its ``usage``
+  and aggregates the stamps per tenant.
+- **Engine checkpoints** (``engine_ckpt_interval``): every N processed
+  boundaries the runners stop feeding the pipeline, and at the first
+  empty-pipeline cut the engine writes one field per occupied lane and a
+  manifest of occupancy, queue and usage (``runtime/checkpoint.py``),
+  the manifest last; ``begin_drain(handoff=True)`` checkpoints at the
+  next cut without finishing lanes, and ``serve/resume.py`` continues
+  the work in a new process, byte for byte.
+- **Solve cache** (``cache``): a repeated request is replayed from the
+  content-addressed store (``serve/solvecache.py``) without a lane; a
+  request whose trajectory prefix is stored is seeded from it, and the
+  lane kernels step only the delta.
 
-Not in this port yet (ROADMAP): the trace and cost observatories (flight
-dumps, ``predicted_wall_s``, which stays None as in the reference with
-``--prof off``), the solve cache, engine checkpoints and handoff drain,
-``serve --listen`` and mega-lanes.
+Not in this port yet (ROADMAP): mega-lanes and the bucket-overflow
+``hint`` that names them.
 
 Records are mutated from the scheduler thread and the writer thread; one
 engine-wide lock guards every record mutation and every record line, and
@@ -94,15 +114,20 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from ..config import (DEFAULT_SLO_CLASS, DEFAULT_TENANT, LANE_KERNELS,
-                      HeatConfig, validate_slo_fields, validate_until_fields)
+                      SLO_TARGETS, HeatConfig, validate_slo_fields,
+                      validate_until_fields)
 from ..grid import ic_envelope, initial_condition_device
 from ..ops import cuda_lanes
 from ..runtime import async_io, faults
+from ..runtime import checkpoint as ckpt_mod
 from ..runtime import convergence as conv_mod
 from ..runtime import numerics as numerics_mod
+from ..runtime import prof as prof_mod
+from ..runtime import trace as trace_mod
 from ..runtime.checkpoint import savez_compressed
 from ..runtime.logging import json_record, master_print
 from . import policy as policy_mod
+from . import solvecache as solvecache_mod
 from .engine import (BucketKey, LaneEngine, lane_tier, resolve_lane_kernel,
                      unpack_boundary, wall_clock)
 
@@ -168,8 +193,50 @@ class ServeConfig:
                               # also retires there, exit=steady
     numerics_guard: str = "warn"  # violation routing (--numerics-guard):
                               # "warn" = structured numerics_violation
-                              # record only; "quarantine" = also fail the
-                              # request nonfinite and free its lane
+                              # record + flight dump only; "quarantine" =
+                              # also fail the request nonfinite and free
+                              # its lane
+    trace: Optional[str] = None  # export the event ring as Chrome
+                              # trace-event JSON here at drain; None =
+                              # flight recorder only (ring kept in memory,
+                              # dumped on faults)
+    trace_buffer: int = trace_mod.DEFAULT_BUFFER  # event-ring capacity
+                              # (runtime/trace.py); 0 disables recording
+                              # entirely, the flight recorder included
+    flight_dir: Optional[str] = None  # flight-recorder dump directory
+                              # (flightrec-<ts>.trace.json); None = out_dir;
+                              # with neither set the dump is skipped
+    prof: bool = True         # the cost observatory (runtime/prof.py):
+                              # chunk-cost model, per-tenant usage ledger,
+                              # memory watermarks, SLO burn monitor. off =
+                              # aggregation, model and sampling off (the
+                              # records keep their usage stamps)
+    slo_targets: tuple = ()   # (("class", target), ...) per-class SLO
+                              # target overrides (defaults SLO_TARGETS)
+    slo_burn_threshold: float = prof_mod.SLO_BURN_THRESHOLD
+                              # slo_alert once a class's fast AND slow
+                              # windows burn budget above this multiple
+    slo_fast_window_s: float = prof_mod.SLO_FAST_WINDOW_S
+    slo_slow_window_s: float = prof_mod.SLO_SLOW_WINDOW_S
+    mem_poll_every: int = prof_mod.MEM_POLL_EVERY_DEFAULT
+                              # chunk boundaries between device-memory
+                              # samples (leak sentinel); 0 = never
+    engine_ckpt_interval: int = 0  # checkpoint the whole engine (lane
+                              # fields + occupancy/queue/usage manifest)
+                              # every N processed chunk boundaries, and
+                              # always at drain; 0 = off
+    engine_ckpt_dir: Optional[str] = None  # manifest + lane-field
+                              # directory; None = <out_dir>/engine-ckpt,
+                              # or ./engine-ckpt with no out_dir
+    cache: bool = False       # the solve cache (serve/solvecache.py):
+                              # full hits replayed without a lane, prefix
+                              # hits seeded into one; every ok result and
+                              # checkpoint-boundary lane field published
+                              # into it. Off touches no directory
+    cache_dir: Optional[str] = None  # entry directory; None =
+                              # <out_dir>/solve-cache, or ./solve-cache
+    cache_max_bytes: int = 0  # LRU-evict the oldest entries once the
+                              # entries exceed this (0 = unbounded)
 
     def __post_init__(self):
         if self.lanes < 1:
@@ -213,6 +280,33 @@ class ServeConfig:
         if self.numerics_guard not in ("warn", "quarantine"):
             raise ValueError(f"numerics_guard must be 'warn' or "
                              f"'quarantine', got {self.numerics_guard!r}")
+        if self.trace_buffer < 0:
+            raise ValueError(f"trace_buffer must be >= 0 (0 disables "
+                             f"recording), got {self.trace_buffer}")
+        if self.trace and self.trace_buffer == 0:
+            raise ValueError("trace export needs trace_buffer > 0 (the "
+                             "export is the event ring's contents)")
+        for cls, target in self.slo_targets:
+            validate_slo_fields(None, cls)
+            if not 0.0 < float(target) < 1.0:
+                raise ValueError(f"SLO target must be in (0, 1), got "
+                                 f"{cls}={target}")
+        if self.slo_burn_threshold <= 0:
+            raise ValueError(f"slo_burn_threshold must be > 0, got "
+                             f"{self.slo_burn_threshold}")
+        if self.slo_fast_window_s <= 0 or self.slo_slow_window_s <= 0:
+            raise ValueError("SLO burn windows must be > 0 seconds, got "
+                             f"{self.slo_fast_window_s}/"
+                             f"{self.slo_slow_window_s}")
+        if self.mem_poll_every < 0:
+            raise ValueError(f"mem_poll_every must be >= 0 (0 = never "
+                             f"sample), got {self.mem_poll_every}")
+        if self.engine_ckpt_interval < 0:
+            raise ValueError(f"engine_ckpt_interval must be >= 0 (0 = "
+                             f"off), got {self.engine_ckpt_interval}")
+        if self.cache_max_bytes < 0:
+            raise ValueError(f"cache_max_bytes must be >= 0 (0 = "
+                             f"unbounded), got {self.cache_max_bytes}")
         if self.inject:
             # fail at construction, not at a boundary mid-drain
             faults.parse_spec(self.inject)
@@ -248,6 +342,15 @@ class Request:
     predicted_steps: Optional[int] = None  # closed-form eigenmode ETA to
                                         # steady, minted at submit: the
                                         # EDF predicted-finish rank
+    trace_id: str = ""                  # request-scoped trace/flow id
+                                        # (runtime/trace.py), minted at
+                                        # submit and echoed in the record
+    restore: Optional[dict] = None      # resume payload (serve/resume.py,
+                                        # or a solve-cache prefix): the
+                                        # host field ("T"), "remaining",
+                                        # the cumulative "chunks" meter and
+                                        # the saved "numerics" state; the
+                                        # admitting _fill consumes it
 
 
 def _bucket_for(cfg: HeatConfig, buckets) -> Optional[int]:
@@ -256,6 +359,35 @@ def _bucket_for(cfg: HeatConfig, buckets) -> Optional[int]:
         if cfg.n <= b:
             return b
     return None
+
+
+# threads that write one engine-checkpoint generation's lane fields
+_CKPT_WRITERS = 8
+
+
+def _run_concurrently(jobs: List[Callable[[], None]], tracer) -> None:
+    """Run ``jobs`` on up to ``_CKPT_WRITERS`` threads and return once all
+    have finished; each job is one span on its thread's ``writer`` track,
+    named by its ``_trace`` label (a job records its own failures)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(job):
+        t0 = wall_clock()
+        try:
+            job()
+        finally:
+            if tracer.enabled:
+                tracer.complete(job._trace[0], tracer.thread_track("writer"),
+                                t0, cat="io")
+
+    if len(jobs) <= 1:
+        for job in jobs:
+            run(job)
+        return
+    with ThreadPoolExecutor(min(_CKPT_WRITERS, len(jobs)),
+                            thread_name_prefix="heat-snapshot-writer-ckpt"
+                            ) as pool:
+        list(pool.map(run, jobs))
 
 
 def _write_result(out_dir, req_id: str, T: np.ndarray, cfg: HeatConfig,
@@ -317,6 +449,21 @@ class _GroupRunner:
                                                 # since (boundary gaps only)
         self.allow_growth = False   # the online loop opts in: offline run()
                                     # sizes runners from the full queue
+        # cost-observatory feed (runtime/prof.py): the model key names the
+        # bucket geometry; last_fetch_t makes the boundary service-time
+        # estimator exact under pipelining (prof.CostModel)
+        self.cost_label = f"{key.ndim}d/n{key.n}/{key.dtype}/{key.bc}"
+        self.last_fetch_t: Optional[float] = None
+        # trace tracks (runtime/trace.py): one process row per bucket
+        # group, one thread row per lane (the occupancy timeline) plus a
+        # dispatch row for chunk-in-flight / device-idle spans, registered
+        # once so the per-event path is append-only
+        self.tracer = outer.tracer
+        self.track_name = (f"lanes {key.ndim}d n{key.n} "
+                           f"{key.dtype} {key.bc}")
+        self.group_track = self.tracer.track(self.track_name, "dispatch")
+        self.lane_tracks = [self.tracer.track(self.track_name, f"lane {i}")
+                            for i in range(self.lanes)]
         self._fill()
 
     def _engine(self, lanes: int) -> LaneEngine:
@@ -352,6 +499,9 @@ class _GroupRunner:
         # passed tolerance this boundary; the judge pass of the same
         # process_boundary retires it at its dispatch frontier
         self.steady_exit: List[Optional[int]] = [None] * lanes
+        # per-lane chunk meters back the usage stamps (one vectorized add
+        # per dispatch)
+        self.lane_chunks = np.zeros(lanes, dtype=np.int64)
 
     # --- admission into lanes --------------------------------------------
     def _fill(self) -> None:
@@ -360,6 +510,11 @@ class _GroupRunner:
         the chunks in flight. Queued requests already past their deadline
         (or cancelled) are shed here."""
         outer = self.outer
+        if outer._ckpt_pause:
+            # checkpoint bubble: no admissions while the pipeline drains
+            # toward the consistent cut — queued requests belong to the
+            # manifest, not to a lane
+            return
         for lane in range(self.lanes):
             while self.occupant[lane] is None and self.q:
                 with outer._lock:
@@ -369,8 +524,17 @@ class _GroupRunner:
                     outer._queued_by_tenant[req.tenant] -= 1
                     outer.admission_trace.append(req.id)
                 now = wall_clock()
+                tr = self.tracer
+                if tr.enabled:
+                    # queue-wait span (pop side): the request's wait under
+                    # this policy, id-paired per tenant track
+                    policy_mod.note_pop(tr, outer.scfg.policy, req, now)
                 cut = outer._deadline_cut(req, now)
                 if cut is not None:
+                    if tr.enabled:
+                        tr.instant("deadline-shed", self.group_track,
+                                   trace_id=req.trace_id,
+                                   args={"id": req.id}, ts=now)
                     outer._fail_request(
                         req, "deadline",
                         "deadline: cancelled (deadline-preemption) while "
@@ -381,13 +545,23 @@ class _GroupRunner:
                         f"budget while still queued (never admitted)")
                     outer.deadline_misses += 1
                     continue
+                if tr.enabled:
+                    tr.flow("t", self.lane_tracks[lane], req.trace_id,
+                            ts=now)
                 rec = outer._by_id[req.id]
                 with outer._lock:
                     rec["lane"] = lane
                     rec["queue_wait_s"] = round(now - req.submit_t, 6)
                     rec["status"] = "running"
                     rec["_start_t"] = now
-                self._load_ic(lane, req)
+                # an engine-state resume or a cache prefix re-seeds the
+                # lane from its stored field (the maybe_grow transplant
+                # contract: the lanes round to storage every step, so the
+                # continuation is byte-equal to an uninterrupted run) and
+                # its chunk meter continues; else it restarts at 0
+                rst, req.restore = req.restore, None
+                self._load_ic(lane, req, rst)
+                self.lane_chunks[lane] = int((rst or {}).get("chunks", 0))
                 self.occupant[lane] = req
                 self.nan_pending[lane] = outer._lane_faults(
                     req, "lane_nan_steps")
@@ -406,15 +580,26 @@ class _GroupRunner:
                     outer.numerics.admit(
                         req.id, lo, hi, req.cfg.dtype, steady_tol=req.tol,
                         log_rate=conv_mod.closed_form_log_rate(req.cfg))
+                    if rst and rst.get("numerics"):
+                        # resume continuity: EWMAs, fired latches and the
+                        # ETA fuser pick up where the checkpointed
+                        # incarnation left them
+                        outer.numerics.reseed(req.id, rst["numerics"])
 
-    def _load_ic(self, lane: int, req: Request) -> None:
-        """(Re)start ``req`` in ``lane`` from its initial condition: the
-        field built on the card, the full countdown, and a new epoch (the
-        chunks in flight show the lane's previous state)."""
-        T0 = initial_condition_device(req.cfg, self.outer.device)
-        self.eng.load_lane(lane, T0, float(req.cfg.r), req.cfg.ntime,
+    def _load_ic(self, lane: int, req: Request,
+                 rst: Optional[dict] = None) -> None:
+        """(Re)start ``req`` in ``lane`` from its initial condition (the
+        field built on the card, the full countdown), or from a resume
+        payload ``rst`` (its host field and remaining count), with a new
+        epoch (the chunks in flight show the lane's previous state)."""
+        if rst:
+            T0, steps = rst["T"], int(rst["remaining"])
+        else:
+            T0 = initial_condition_device(req.cfg, self.outer.device)
+            steps = req.cfg.ntime
+        self.eng.load_lane(lane, T0, float(req.cfg.r), steps,
                            req.cfg.bc_value)
-        self.dev_rem[lane] = req.cfg.ntime
+        self.dev_rem[lane] = steps
         self.epoch[lane] = self.seq
         self.last_good[lane] = None
 
@@ -474,6 +659,10 @@ class _GroupRunner:
     def dispatch_fill(self) -> None:
         """Queue chunks until ``dispatch_depth`` are in flight or no lane has
         steps left to run. Pure host->device enqueue: no fetch, no fence."""
+        if self.outer._ckpt_pause:
+            # checkpoint bubble: stop feeding the pipeline so the chunks in
+            # flight drain to the empty cut (Engine._ckpt_tick)
+            return
         poison = self.outer._has_lane_faults
         while len(self.inflight) < self.depth:
             if self.allow_growth and self._growth_wanted():
@@ -497,7 +686,14 @@ class _GroupRunner:
             handle = self._dispatch(k)
             if self.idle_from is not None:
                 self.outer.device_idle_s += t_disp - self.idle_from
+                if self.tracer.enabled:
+                    # the idle gap, attributed to this group's dispatch row
+                    self.tracer.complete("device-idle", self.group_track,
+                                         self.idle_from, t_disp, cat="idle")
                 self.idle_from = None
+            # usage metering: every lane still counting down takes part in
+            # this chunk (freed lanes' meters reset at the next admission)
+            self.lane_chunks += self.dev_rem > 0
             np.maximum(self.dev_rem - k, 0, out=self.dev_rem)
             # rollback mode keeps every in-flight boundary restorable: the
             # snapshot is promoted to a lane's last_good only once that
@@ -520,8 +716,31 @@ class _GroupRunner:
                 plan=outer._plan, fetch_index=outer._fetch_seq)
         finally:
             outer._fetch_seq += 1
-            outer.boundary_wait_s += wall_clock() - t0
+            t1 = wall_clock()
+            outer.boundary_wait_s += t1 - t0
             outer.boundary_waits += 1
+            if self.tracer.enabled:
+                # boundary_wait_s, attributed: each fetch's blocked wall is
+                # one span on the scheduler thread's row
+                self.tracer.complete("boundary-fetch",
+                                     self.tracer.thread_track("scheduler"),
+                                     t0, t1, cat="boundary",
+                                     args={"bucket": self.track_name})
+
+    def _trace_occupancy(self, lane: int, req: Request, status: str) -> None:
+        """Close the lane's occupancy span (admission -> this verdict) on
+        its track. Runs before the finish/fail path pops ``_start_t``."""
+        tr = self.tracer
+        if not tr.enabled:
+            return
+        t0 = self.outer._by_id[req.id].get("_start_t")
+        if t0 is None:
+            return
+        tr.complete(req.id, self.lane_tracks[lane], t0, cat="lane",
+                    trace_id=req.trace_id,
+                    args={"status": status, "n": req.cfg.n,
+                          "ntime": req.cfg.ntime})
+        tr.flow("t", self.lane_tracks[lane], req.trace_id)
 
     def _judge_lanes(self, seq: int, rem, finite, snap, sync: bool) -> None:
         """Apply one fetched boundary's verdicts to every lane it is
@@ -539,6 +758,7 @@ class _GroupRunner:
             elif rem[lane] == 0 or self.steady_exit[lane] is not None:
                 steady_at = self.steady_exit[lane]
                 self.steady_exit[lane] = None
+                chunks = int(self.lane_chunks[lane])
                 steps_done = req.cfg.ntime
                 exit_mode = "steps"
                 if steady_at is not None:
@@ -556,12 +776,23 @@ class _GroupRunner:
                         with outer._lock:
                             outer.steps_saved_total += (req.cfg.ntime
                                                         - steps_done)
+                        if self.tracer.enabled:
+                            self.tracer.instant(
+                                "steady-exit", self.lane_tracks[lane],
+                                trace_id=req.trace_id,
+                                args={"id": req.id, "at_step": steps_done,
+                                      "requested": req.cfg.ntime,
+                                      "saved": req.cfg.ntime - steps_done,
+                                      "predicted_at_step":
+                                          req.predicted_steps})
+                self._trace_occupancy(lane, req, "retired")
                 finish = outer._finish_sync if sync else outer._finish_async
-                finish(self.eng, lane, req, self.writer,
+                finish(self.eng, lane, req, self.writer, chunks=chunks,
                        steps_done=steps_done, exit_mode=exit_mode)
                 self.occupant[lane] = None
             elif (cut := outer._deadline_cut(req, now)) is not None:
                 done = req.cfg.ntime - int(rem[lane])
+                self._trace_occupancy(lane, req, "deadline")
                 outer._fail_request(
                     req, "deadline",
                     (f"deadline: cancelled (deadline-preemption) with "
@@ -572,7 +803,8 @@ class _GroupRunner:
                      f"{1e3 * (req.deadline_t - req.submit_t):.0f} ms "
                      f"budget with ~{done} of {req.cfg.ntime} steps done; "
                      f"lane {lane} preempted at the chunk boundary"),
-                    lane=lane, steps_done=done)
+                    lane=lane, steps_done=done,
+                    chunks=int(self.lane_chunks[lane]))
                 outer.deadline_misses += 1
                 # the lane keeps counting down on the card (masked garbage
                 # until refilled) so the host mirror stays exact
@@ -590,6 +822,10 @@ class _GroupRunner:
         if self.rollback and self.rb_left[lane] > 0:
             self.rb_left[lane] -= 1
             outer.rollbacks += 1
+            if self.tracer.enabled:
+                self.tracer.instant("rollback", self.lane_tracks[lane],
+                                    trace_id=req.trace_id,
+                                    args={"id": req.id, "at_step": done})
             attempt = (f"attempt {_MAX_LANE_ROLLBACKS - self.rb_left[lane]}/"
                        f"{_MAX_LANE_ROLLBACKS}")
             if self.last_good[lane] is not None:
@@ -619,13 +855,24 @@ class _GroupRunner:
             exhausted = self.rollback and self.rb_left[lane] == 0
             tried = (f" after {_MAX_LANE_ROLLBACKS} rollbacks "
                      f"(deterministic blow-up)" if exhausted else "")
+            if self.tracer.enabled:
+                self.tracer.instant("quarantine", self.lane_tracks[lane],
+                                    trace_id=req.trace_id,
+                                    args={"id": req.id, "at_step": done})
+            self._trace_occupancy(lane, req, "nonfinite")
             outer._fail_request(
                 req, "nonfinite",
                 f"nonfinite: non-finite field detected at ~step {done} of "
                 f"{req.cfg.ntime} (lane {lane}){tried} — check the CFL "
                 f"bound sigma <= 1/(2*ndim) for this request", lane=lane,
-                steps_done=done)
+                steps_done=done, chunks=int(self.lane_chunks[lane]))
             outer.lanes_quarantined += 1
+            if exhausted:
+                # flight-recorder trigger: the ring holds the lane's whole
+                # restore/re-flag history
+                outer._flight_dump(f"quarantine after "
+                                   f"{_MAX_LANE_ROLLBACKS} rollbacks "
+                                   f"(request {req.id})")
             # free the lane; its NaN field idles masked (its countdown
             # still mirrored by dev_rem) until a new request's load
             # overwrites the whole lane buffer
@@ -647,10 +894,15 @@ class _GroupRunner:
         # Python floats/ints once per boundary, not per element
         resid, tmin, tmax, heat = unpack_boundary(b).tolist()
         rem = b[0].tolist()
+        tr = self.tracer
         for lane in range(self.lanes):
             req = self.occupant[lane]
             if req is None or seq < self.epoch[lane]:
                 continue
+            if tr.enabled:
+                # counter track: the lane's residual/heat series
+                tr.counter(f"numerics lane {lane}", self.group_track,
+                           {"resid": resid[lane], "heat": heat[lane]})
             events = outer.numerics.observe(req.id, resid[lane], tmin[lane],
                                             tmax[lane], heat[lane], rem[lane])
             for ev in events:
@@ -663,13 +915,20 @@ class _GroupRunner:
         lanes byte-identical to a clean run."""
         outer = self.outer
         done = req.cfg.ntime - rem_at
+        if self.tracer.enabled:
+            self.tracer.instant("quarantine", self.lane_tracks[lane],
+                                trace_id=req.trace_id,
+                                args={"id": req.id, "at_step": done,
+                                      "why": why})
+        self._trace_occupancy(lane, req, "nonfinite")
         outer._fail_request(
             req, "nonfinite",
             f"numerics: {why} violation at ~step {done} of "
             f"{req.cfg.ntime} (lane {lane}) — the field is finite but "
             f"un-physical; check r against the CFL bound "
             f"sigma <= 1/(2*ndim), dtype drift, or an injected perturb "
-            f"fault (TROUBLESHOOTING.md)", lane=lane, steps_done=done)
+            f"fault (TROUBLESHOOTING.md)", lane=lane, steps_done=done,
+            chunks=int(self.lane_chunks[lane]))
         outer.lanes_quarantined += 1
         self._free(lane)
 
@@ -686,10 +945,30 @@ class _GroupRunner:
         vector (the newer chunks keep computing behind the copy), check it
         against the host's prediction, judge every lane, refill."""
         if self.inflight:
-            seq, handle, predicted, snap, _, _ = self.inflight.popleft()
+            seq, handle, predicted, snap, t_disp, k = self.inflight.popleft()
             b = self._fetch(handle)
+            t_done = wall_clock()
+            if self.tracer.enabled:
+                # chunk-in-flight span: dispatch enqueue -> boundary
+                # fetched (the newer chunks compute behind it)
+                self.tracer.complete(f"chunk {seq} ({k} steps)",
+                                     self.group_track, t_disp, t_done,
+                                     cat="chunk", args={"seq": seq, "k": k})
+            outer = self.outer
+            if outer.prof.enabled:
+                # cost-model feed: the boundary service time from stamps
+                # already taken, then the cadenced memory sample
+                base = (t_disp if self.last_fetch_t is None
+                        else max(self.last_fetch_t, t_disp))
+                outer.prof.observe_chunk(self.cost_label, self.lanes,
+                                         self.depth, k, t_done - base,
+                                         kernel=self.kernel)
+                self.last_fetch_t = t_done
+                warn = outer.prof.maybe_sample_memory(t_done)
+                if warn is not None:
+                    outer._mem_warn(warn)
             if not self.inflight:
-                self.idle_from = wall_clock()
+                self.idle_from = t_done
             rem = b[0]
             if not np.array_equal(rem, predicted):
                 raise RuntimeError(
@@ -735,9 +1014,15 @@ class _GroupRunner:
         old_eng, old_occ = self.eng, self.occupant
         old_rem, old_nan, old_rb = self.dev_rem, self.nan_pending, self.rb_left
         old_pert, old_steady = self.perturb_pending, self.steady_exit
+        old_chunks = self.lane_chunks
+        if self.tracer.enabled:
+            self.tracer.instant("lane-tier-grow", self.group_track,
+                                args={"from": self.lanes, "to": want})
         self.lanes = want
         self.eng = self._engine(want)
         self._reset_lanes(want)
+        self.lane_tracks = [self.tracer.track(self.track_name, f"lane {i}")
+                            for i in range(want)]
         nd = self.key.ndim
         for lane, req in enumerate(old_occ):
             if req is None:
@@ -748,6 +1033,7 @@ class _GroupRunner:
                                req.cfg.bc_value)
             self.occupant[lane] = req
             self.dev_rem[lane] = old_rem[lane]
+            self.lane_chunks[lane] = old_chunks[lane]
             self.nan_pending[lane] = old_nan[lane]
             self.perturb_pending[lane] = old_pert[lane]
             self.rb_left[lane] = old_rb[lane]
@@ -770,10 +1056,29 @@ class _GroupRunner:
             t0 = wall_clock()
             if self.idle_from is not None:
                 outer.device_idle_s += t0 - self.idle_from
+                if self.tracer.enabled:
+                    self.tracer.complete("device-idle", self.group_track,
+                                         self.idle_from, t0, cat="idle")
             b = self._fetch(self._dispatch(self.chunk))
             outer.chunks_dispatched += 1   # counted once fetched, as the
                                            # reference counts a fenced chunk
             self.idle_from = wall_clock()
+            if self.tracer.enabled:
+                self.tracer.complete(f"chunk {self.seq} ({self.chunk} "
+                                     f"steps, fenced)", self.group_track,
+                                     t0, self.idle_from, cat="chunk",
+                                     args={"seq": self.seq,
+                                           "k": self.chunk})
+            if outer.prof.enabled:
+                # fenced boundary: the dispatch->fetch wall IS the chunk's
+                # service time (cost-model depth 0)
+                outer.prof.observe_chunk(self.cost_label, self.lanes, 0,
+                                         self.chunk, self.idle_from - t0,
+                                         kernel=self.kernel)
+                warn = outer.prof.maybe_sample_memory(self.idle_from)
+                if warn is not None:
+                    outer._mem_warn(warn)
+            self.lane_chunks += self.dev_rem > 0
             np.maximum(self.dev_rem - self.chunk, 0, out=self.dev_rem)
             # the live stack IS the fetched boundary's state here, so the
             # rollback snapshot is taken after the fetch
@@ -790,6 +1095,9 @@ class _GroupRunner:
         the same per-lane fault domains."""
         while self.has_work():
             self.sync_round()
+            # every fenced round is an empty-pipeline cut: take an armed
+            # engine checkpoint here
+            self.outer._ckpt_tick()
 
 
 class Engine:
@@ -810,12 +1118,27 @@ class Engine:
     def __init__(self, scfg: Optional[ServeConfig] = None, device=None):
         from ..backends import resolve_device
 
-        self.scfg = scfg if scfg is not None else ServeConfig()
+        self.scfg = scfg = scfg if scfg is not None else ServeConfig()
         self.device = resolve_device(device)
-        # the numerics observatory: its lock is its own and is only taken
-        # after (or without) the engine lock, never before it
+        # request-scoped tracing + always-on flight recorder
+        # (runtime/trace.py): trace ids are minted even with
+        # trace_buffer=0, so the record schema never flickers
+        self.tracer = trace_mod.Tracer(capacity=scfg.trace_buffer)
+        # the cost observatory (runtime/prof.py) and the numerics
+        # observatory: their locks are their own and are only taken after
+        # (or without) the engine lock, never before it, so the gateway's
+        # scrape threads can never deadlock the hot path
+        targets = dict(SLO_TARGETS)
+        targets.update((c, float(t)) for c, t in scfg.slo_targets)
+        self.prof = prof_mod.Observatory(
+            enabled=scfg.prof, slo_targets=targets,
+            mem_poll_every=scfg.mem_poll_every,
+            slo_fast_window_s=scfg.slo_fast_window_s,
+            slo_slow_window_s=scfg.slo_slow_window_s,
+            slo_burn_threshold=scfg.slo_burn_threshold,
+            device=self.device)
         self.numerics = (numerics_mod.NumericsObservatory(
-            steady_tol=self.scfg.steady_tol) if self.scfg.numerics else None)
+            steady_tol=scfg.steady_tol) if scfg.numerics else None)
         self._queues: Dict[BucketKey, object] = {}  # policy queues
         self._records: List[dict] = []
         self._by_id: Dict[str, dict] = {}
@@ -833,6 +1156,10 @@ class Engine:
         self.loop_error: Optional[BaseException] = None
         self._queued_by_tenant: collections.Counter = collections.Counter()
         self.admission_trace: List[str] = []
+        # per-class end-to-end latency and queue-depth-at-submit histograms
+        # (the gateway's /metrics)
+        self.lat_hist: Dict[str, policy_mod.Histogram] = {}
+        self.depth_hist = policy_mod.Histogram(policy_mod.DEPTH_BUCKETS)
         self.compile_s = 0.0       # loading the lane kernels' libraries
         self.chunks_dispatched = 0
         self.tail_chunks = 0
@@ -855,10 +1182,40 @@ class Engine:
         self.shed = 0                # submits rejected by the queue bounds
         self.watchdog_fired = 0      # boundary-fetch watchdog timeouts
         self.boundaries_total = 0    # processed chunk boundaries (the
+                                     # checkpoint cadence clock and the
                                      # engine-kill@N address)
+        # engine-state checkpointing: crossing the interval arms
+        # _ckpt_pause (runners stop feeding the pipeline) and the driving
+        # loop takes the manifest at the first empty-pipeline cut
+        # (_ckpt_tick). Mutated on the scheduler thread under the engine
+        # lock; /drainz?handoff=1 flips _ckpt_pause/_handoff under it too
+        self.serve_resumed_total = 0  # requests re-admitted by --resume
+        self._engine_ckpt_gen = 0     # last PUBLISHED manifest generation
+        self._engine_ckpt_next = 0    # next generation to write (0 = scan
+                                      # the directory first)
+        self._last_ckpt_boundary = 0  # cadence clock at the last publish
+        self._ckpt_pause = False      # armed: drain to the empty cut
+        self._handoff = False         # drain-to-checkpoint requested
+        self._active_runners = ()     # the driving loop's live runners and
+        self._active_writer = None    # its writer (scheduler thread only)
         # engine-scoped fault plan (scfg.inject / HEAT_TPU_FAULTS); None on
         # every normal run — the hot loop then does no fault work at all
         self._plan = faults.plan_for(self.scfg)
+        # the solve cache: consulted at submit, fed by the writer thread's
+        # result publishes and the engine checkpoints' lane fields; None
+        # with --cache off (every call site skips on one test)
+        self.solvecache = None
+        if scfg.cache:
+            from pathlib import Path
+
+            cache_dir = scfg.cache_dir or (
+                str(Path(scfg.out_dir) / "solve-cache") if scfg.out_dir
+                else "solve-cache")
+            self.solvecache = solvecache_mod.SolveCache(
+                cache_dir, max_bytes=scfg.cache_max_bytes, plan=self._plan)
+        # the gateway's canary prober (serve/probe.py), attached by the
+        # CLI before any thread starts; /metrics and /statusz read it
+        self.prober = None
         self._has_lane_faults = False  # flips on when a faulted request is
                                        # admitted (gates _maybe_poison)
         self._fetch_seq = 0            # boundary-fetch counter (fetch-hang
@@ -870,15 +1227,24 @@ class Engine:
                tenant: Optional[str] = None,
                slo_class: Optional[str] = None,
                until: Optional[str] = None,
-               tol: Optional[float] = None) -> str:
+               tol: Optional[float] = None,
+               _restore: Optional[dict] = None) -> str:
         """Admit one request; returns its id. Unservable requests become
         status='rejected' records instead of raising. ``deadline_ms`` bounds
         the request's wall time from submission (overriding the engine
         default); ``tenant``/``slo_class`` drive the fair-share and EDF
         policies; ``until="steady"`` retires the lane once its residual
         EWMA passes ``tol`` (default the engine's ``steady_tol``), with
-        ``ntime`` as the hard cap; malformed values raise. Thread-safe: the
-        online scheduler thread is woken per submit."""
+        ``ntime`` as the hard cap; malformed values raise.
+
+        ``_restore`` (serve/resume.py only) re-admits a request recovered
+        from an engine checkpoint: ``{}`` for one that was queued, or the
+        checkpointed field/remaining/usage partials of one mid-solve,
+        which the admitting lane fill continues byte for byte.
+
+        Thread-safe: the gateway's handler threads call this while the
+        online scheduler thread drains; the scheduler is woken per
+        submit."""
         tenant, slo_class = validate_slo_fields(tenant, slo_class)
         until, tol = validate_until_fields(until, tol)
         if deadline_ms is not None and deadline_ms <= 0:
@@ -897,18 +1263,32 @@ class Engine:
             self._seq += 1
             if rid in self._by_id:
                 raise ValueError(f"duplicate request id {rid!r}")
+            trace_id = self.tracer.mint_trace_id()
             rec = {"id": rid, "n": cfg.n, "ndim": cfg.ndim,
                    "ntime": cfg.ntime, "dtype": cfg.dtype, "bc": cfg.bc,
                    "tenant": tenant, "class": slo_class, "status": "queued",
                    "placement": None, "bucket": None, "lane": None,
                    "queue_wait_s": None, "solve_s": None,
                    "steps_per_s": None, "error": None,
-                   "deadline_ms": deadline_ms, "until": until,
-                   "steps_done": None, "exit": None,
+                   "deadline_ms": deadline_ms, "trace_id": trace_id,
+                   "until": until, "steps_done": None, "exit": None,
                    "predicted_steps": predicted, "predicted_wall_s": None,
+                   "resumed": _restore is not None, "cached": False,
                    "_submit_t": wall_clock()}
+            if _restore is not None:
+                # usage partials from the checkpointed incarnation: the
+                # terminal stamp folds them in (the step count spans both
+                # incarnations by construction)
+                self.serve_resumed_total += 1
+                rec["_resumed_lane_s"] = float(_restore.get("lane_s")
+                                               or 0.0)
             self._records.append(rec)
             self._by_id[rid] = rec
+        if self.tracer.enabled:
+            # flow start: the submitting thread anchors the request's
+            # cross-thread arrow
+            self.tracer.flow("s", self.tracer.thread_track(), trace_id,
+                             ts=rec["_submit_t"])
         if cfg.bc == "periodic":
             self._reject(rec, "unsupported-bc: periodic has no padded-lane "
                               "form (wraparound would wrap at the bucket "
@@ -921,6 +1301,21 @@ class Engine:
                               f"{max(self.scfg.buckets)}")
             return rid
         key = BucketKey(ndim=cfg.ndim, n=b, dtype=cfg.dtype, bc=cfg.bc)
+        if predicted is not None and self.prof.enabled:
+            rec["predicted_wall_s"] = self._forecast_wall(cfg, b, predicted)
+        # solve-cache consult at the admission door, after every rejection
+        # gate: only fixed-step requests consume the cache (a steady exit
+        # step is not knowable from the key); checkpoint re-admissions
+        # carry their own field
+        prefix_restore = None
+        if (self.solvecache is not None and _restore is None
+                and until == "steps"):
+            hit = self.solvecache.lookup(cfg)
+            if hit is not None and hit["kind"] == "full":
+                if self._cache_replay(rec, cfg, b, "packed", hit):
+                    return rid
+            elif hit is not None:
+                prefix_restore = self._cache_prefix(rec, cfg, hit)
         shed_reason = None
         with self._cond:
             queued = sum(len(q) for q in self._queues.values())
@@ -945,17 +1340,120 @@ class Engine:
                     q = self._queues[key] = policy_mod.make_queue(
                         self.scfg.policy, self.scfg.tenant_weights)
                 submit_t = rec["_submit_t"]
-                q.push(Request(
+                req = Request(
                     id=rid, cfg=cfg, submit_t=submit_t, key=key,
                     deadline_t=(submit_t + deadline_ms / 1e3
                                 if deadline_ms is not None else None),
                     tenant=tenant, slo_class=slo_class, seq=seq,
-                    until=until, tol=tol, predicted_steps=predicted))
+                    until=until, tol=tol, predicted_steps=predicted,
+                    trace_id=trace_id,
+                    restore=(_restore if _restore else prefix_restore))
+                q.push(req)
+                if self.tracer.enabled:
+                    policy_mod.note_enqueue(self.tracer, self.scfg.policy,
+                                            req)
                 self._queued_by_tenant[tenant] += 1
+                self.depth_hist.observe(float(queued + 1))
                 self._cond.notify_all()   # wake the online scheduler
         if shed_reason is not None:
             self._reject(rec, shed_reason)
         return rid
+
+    def _cache_replay(self, rec: dict, cfg: HeatConfig, bucket: int,
+                      placement: str, hit: dict) -> bool:
+        """Full cache hit at the admission door: replay the stored npz
+        through the normal record/listener path without occupying a lane —
+        no lane kernel launches, and an out-dir publish is a byte copy of
+        the cached file. Billed as cached: zero lane_s/steps, the whole
+        ``ntime`` credited as steps_saved. False when the entry vanished
+        mid-replay (an eviction race): the caller proceeds as a miss."""
+        scfg = self.scfg
+        path: Optional[str] = None
+        T = None
+        try:
+            nbytes = int(hit["nbytes"])
+            if scfg.out_dir:
+                p = self.solvecache.replay(hit["path"], scfg.out_dir,
+                                           rec["id"])
+                path = str(p)
+                nbytes = p.stat().st_size
+            if scfg.keep_fields or not scfg.out_dir:
+                T, _ = solvecache_mod.SolveCache.load(hit["path"])
+        except Exception as e:  # noqa: BLE001 — entry evicted under us
+            master_print(f"solve cache: replay of {hit['path']} failed "
+                         f"({type(e).__name__}: {e}) — recomputing")
+            return False
+        now = wall_clock()
+        with self._lock:
+            rec["bucket"] = bucket
+            rec["placement"] = placement
+            rec["status"] = "ok"
+            rec["cached"] = True
+            rec["exit"] = "cached"
+            rec["queue_wait_s"] = round(now - rec["_submit_t"], 6)
+            rec["solve_s"] = 0.0
+            rec["steps_per_s"] = None
+            rec["steps_done"] = int(cfg.ntime)
+            if path is not None:
+                rec["path"] = path
+            if T is not None:
+                rec["T"] = T
+            rec["usage"] = {"lane_s": 0.0, "steps": 0, "chunks": 0,
+                            "bytes_written": int(nbytes),
+                            "steps_saved": int(cfg.ntime),
+                            "cached": True}
+            self.steps_saved_total += int(cfg.ntime)
+        if self.tracer.enabled:
+            self.tracer.instant("cache-hit", self.tracer.thread_track(),
+                                trace_id=rec["trace_id"],
+                                args={"id": rec["id"],
+                                      "step": int(hit["step"])})
+        self._emit(rec)
+        return True
+
+    def _cache_prefix(self, rec: dict, cfg: HeatConfig,
+                      hit: dict) -> Optional[dict]:
+        """Prefix hit: seed the admitting lane fill from the cached field
+        at ``hit['step']`` so the lane kernels step only the delta. The
+        payload has the resume shape ``_fill`` consumes;
+        ``_cache_prefix_steps`` on the record makes the terminal stamp
+        bill only the stepped delta. None when the entry vanished: the
+        request runs from its initial condition."""
+        try:
+            T, step = solvecache_mod.SolveCache.load(hit["path"])
+        except Exception as e:  # noqa: BLE001 — entry evicted under us
+            master_print(f"solve cache: prefix read of {hit['path']} "
+                         f"failed ({type(e).__name__}: {e}) — "
+                         f"recomputing from the IC")
+            return None
+        remaining = int(cfg.ntime) - int(step)
+        if remaining <= 0:
+            return None
+        with self._lock:
+            rec["_cache_prefix_steps"] = int(step)
+        if self.tracer.enabled:
+            self.tracer.instant("cache-prefix",
+                                self.tracer.thread_track(),
+                                trace_id=rec["trace_id"],
+                                args={"id": rec["id"], "step": int(step),
+                                      "delta": remaining})
+        return {"T": T, "remaining": remaining, "chunks": 0}
+
+    def _forecast_wall(self, cfg: HeatConfig, b: int,
+                       steps: int) -> Optional[float]:
+        """Cost-model wall forecast for an ``until=steady`` admission, on
+        its PREDICTED steps (runtime/prof.py): None until the model has
+        observed this geometry; the tier is assumed saturated at
+        ``--lanes``."""
+        d = self.scfg.dispatch_depth
+        depth = max(1, d) if d > 0 else 0
+        bucket = f"{cfg.ndim}d/n{b}/{cfg.dtype}/{cfg.bc}"
+        for kernel in ("cuda", "torch"):
+            est = self.prof.cost.estimate_request_s(
+                bucket, self.scfg.lanes, depth, steps, kernel=kernel)
+            if est is not None:
+                return round(est, 6)
+        return None
 
     def _lane_faults(self, req: Request, which: str) -> list:
         """One admitted request's lane-nan steps (``which`` =
@@ -981,7 +1479,13 @@ class Engine:
             json_record("steady_state", id=req.id, lane=lane,
                         steps_done=done, remaining=rem_at,
                         resid=ev["resid"], resid_ewma=ev["resid_ewma"],
-                        steady_tol=ev["steady_tol"])
+                        steady_tol=ev["steady_tol"],
+                        trace_id=req.trace_id)
+            if self.tracer.enabled:
+                self.tracer.instant("steady-state",
+                                    runner.lane_tracks[lane],
+                                    trace_id=req.trace_id,
+                                    args={"id": req.id, "at_step": done})
             if req.until == "steady":
                 # ACT on the detector: flag the lane for frontier
                 # retirement; the judge pass of this same boundary consumes
@@ -1000,7 +1504,18 @@ class Engine:
                     lo=ev.get("lo"), hi=ev.get("hi"), tol=ev.get("tol"),
                     heat=ev.get("heat"), heat_prev=ev.get("heat_prev"),
                     dheat=ev.get("dheat"),
-                    dheat_ewma=ev.get("dheat_ewma"))
+                    dheat_ewma=ev.get("dheat_ewma"),
+                    trace_id=req.trace_id)
+        if self.tracer.enabled:
+            self.tracer.instant("numerics-violation",
+                                runner.lane_tracks[lane],
+                                trace_id=req.trace_id,
+                                args={"id": req.id, "why": why,
+                                      "at_step": done})
+        # flight-recorder trigger: the ring holds the lane's chunk and
+        # residual history up to the escape
+        self._flight_dump(f"numerics violation ({why}) on request "
+                          f"{req.id}")
         if self.scfg.numerics_guard == "quarantine":
             runner._quarantine_numerics(lane, req, rem_at, why)
 
@@ -1008,21 +1523,26 @@ class Engine:
         with self._lock:
             rec["status"] = "rejected"
             rec["error"] = reason
+            rec["usage"] = prof_mod.empty_usage()   # schema-stable stamp
         self._emit(rec)
 
     def _fail_request(self, req: Request, status: str, reason: str,
-                      lane: Optional[int] = None,
-                      steps_done: int = 0) -> None:
+                      lane: Optional[int] = None, steps_done: int = 0,
+                      chunks: int = 0) -> None:
         """Fail ONE request with a structured status (nonfinite / deadline /
         error): the record carries the reason, the engine keeps serving
-        everyone else."""
+        everyone else. ``steps_done``/``chunks`` are the usage stamp: the
+        work the failed request did consume."""
         rec = self._by_id[req.id]
         now = wall_clock()
         with self._lock:
             self._cancel_reqs.discard(req.id)
             start = rec.pop("_start_t", None)
+            base = rec.pop("_resumed_lane_s", 0.0)
             if start is not None:
-                rec["solve_s"] = round(now - start, 6)
+                rec["solve_s"] = round(now - start + base, 6)
+            elif base:
+                rec["solve_s"] = round(base, 6)
             if rec["queue_wait_s"] is None:
                 rec["queue_wait_s"] = round(now - req.submit_t, 6)
             if lane is not None:
@@ -1030,6 +1550,14 @@ class Engine:
             rec["status"] = status
             rec["error"] = reason
             rec["steps_done"] = int(steps_done)
+            # a cache-prefix admission never ran its prefix steps: bill
+            # only the stepped delta, credit the prefix as saved
+            prefix = int(rec.pop("_cache_prefix_steps", 0) or 0)
+            rec["usage"] = {"lane_s": rec["solve_s"] or 0.0,
+                            "steps": max(0, int(steps_done) - prefix),
+                            "chunks": int(chunks),
+                            "bytes_written": 0, "steps_saved": prefix,
+                            "cached": False}
         if self.numerics is not None:
             self.numerics.forget(req.id)   # terminal: drop detector state
         self._emit(rec)
@@ -1051,6 +1579,24 @@ class Engine:
             f"to the torch lane step ({reason})")
         json_record("lane_kernel_fallback", bucket=bucket, lanes=lanes,
                     requested=self.scfg.lane_kernel, reason=reason)
+        if self.tracer.enabled:
+            self.tracer.instant("lane-kernel-fallback",
+                                self.tracer.thread_track("scheduler"),
+                                args={"bucket": bucket, "lanes": lanes,
+                                      "reason": reason})
+
+    def _mem_warn(self, warn: dict) -> None:
+        """The leak sentinel fired (runtime/prof.py MemWatermark): one
+        structured ``mem_watermark`` record + a human line, at a chunk
+        boundary on the scheduler thread."""
+        master_print(
+            f"mem watermark: device memory grew monotonically by "
+            f"{warn['growth_bytes'] / 2**20:.1f} MiB over the last "
+            f"{warn['window_samples']} samples to "
+            f"{warn['bytes_in_use'] / 2**20:.1f} MiB "
+            f"({warn['source']}) — a rollback-stack or lane-grow leak "
+            f"looks exactly like this; see TROUBLESHOOTING.md")
+        json_record("mem_watermark", **warn)
 
     def _fail_group(self, runner: _GroupRunner, exc: BaseException) -> None:
         """The boundary-fetch watchdog fired for one bucket group: its device
@@ -1059,20 +1605,27 @@ class Engine:
         other groups keep draining. (The online loop reuses it as the
         fail-everything exit when the loop itself dies; only a real
         watchdog timeout bumps the watchdog counter.)"""
-        if isinstance(exc, async_io.BoundedFetchTimeout):
+        is_watchdog = isinstance(exc, async_io.BoundedFetchTimeout)
+        if is_watchdog:
             self.watchdog_fired += 1
+            if self.tracer.enabled:
+                self.tracer.instant("watchdog-fired", runner.group_track,
+                                    args={"bucket": runner.track_name,
+                                          "error": str(exc)})
         master_print(f"serve fetch watchdog: bucket {runner.key} boundary "
                      f"fetch hung ({exc}); failing the group's "
                      f"{sum(o is not None for o in runner.occupant)} "
                      f"in-flight and {len(runner.q)} queued request(s)")
         for lane, req in enumerate(runner.occupant):
             if req is not None:
+                runner._trace_occupancy(lane, req, "error")
                 self._fail_request(
                     req, "error",
                     f"fetch-watchdog: {exc} — lane {lane}'s group state "
                     f"is unreadable; request failed cleanly", lane=lane,
                     steps_done=max(0, req.cfg.ntime
-                                   - int(runner.dev_rem[lane])))
+                                   - int(runner.dev_rem[lane])),
+                    chunks=int(runner.lane_chunks[lane]))
                 runner.occupant[lane] = None
         while True:
             with self._lock:
@@ -1086,6 +1639,32 @@ class Engine:
                 f"fetch-watchdog: {exc} — request was still queued when "
                 f"its bucket group's boundary fetch hung")
         runner.inflight.clear()
+        if is_watchdog:
+            # flight-recorder trigger: the ring holds the wedged request's
+            # span chain up to the hang
+            self._flight_dump(f"fetch watchdog fired for bucket "
+                              f"{runner.key}")
+
+    def _flight_dump(self, reason: str) -> None:
+        """Flight-recorder dump (watchdog, quarantine after rollbacks,
+        numerics violation, scheduler crash): the event ring written
+        atomically to ``flight_dir`` (default ``out_dir``; with neither set
+        the dump is skipped, never the cwd). Never raises into the failure
+        path it documents. A dump emits a structured ``flightrec`` record
+        naming the file."""
+        d = self.scfg.flight_dir or self.scfg.out_dir
+        if d is None:
+            return
+        try:
+            path = self.tracer.flight_dump(d, reason)
+        except Exception as e:  # noqa: BLE001 — best-effort by contract
+            master_print(f"flight recorder: dump failed "
+                         f"({type(e).__name__}: {e})")
+            return
+        if path is not None:
+            json_record("flightrec", reason=reason, path=str(path),
+                        events=len(self.tracer), dump=self.tracer.dumps,
+                        max_dumps=trace_mod.MAX_FLIGHT_DUMPS)
 
     @staticmethod
     def _public(rec: dict) -> dict:
@@ -1099,12 +1678,36 @@ class Engine:
         condition broadcast for ``wait()`` callers, and every registered
         listener. Called from the scheduler thread and the writer thread;
         the lock keeps lines from interleaving."""
+        now = wall_clock()
         with self._cond:
             snap = self._public(rec)
             listeners = list(self._listeners)
+            submit_t = rec.get("_submit_t")
+            if submit_t is not None and snap.get("status") != "rejected":
+                cls = snap.get("class", DEFAULT_SLO_CLASS)
+                h = self.lat_hist.get(cls)
+                if h is None:
+                    h = self.lat_hist[cls] = policy_mod.Histogram()
+                h.observe(max(0.0, now - submit_t))
+            # observatory feed: the usage ledger and the SLO burn windows
+            # take the terminal snapshot (engine -> observatory lock order)
+            alert = self.prof.note_terminal(snap, now)
             if self.scfg.emit_records:
                 json_record("serve_request", **snap)
             self._cond.notify_all()
+        if alert is not None:
+            master_print(
+                f"slo alert: class {alert['class']!r} burning its error "
+                f"budget at {alert['fast_burn']:.1f}x (fast) / "
+                f"{alert['slow_burn']:.1f}x (slow) the sustainable rate "
+                f"(target {alert['target']:g}) — see TROUBLESHOOTING.md")
+            json_record("slo_alert", **alert)
+        if self.tracer.enabled:
+            # flow end: the terminal record left the engine
+            xid = snap.get("trace_id")
+            if xid:
+                self.tracer.flow("f", self.tracer.thread_track(), xid,
+                                 ts=now)
         # listeners run OUTSIDE the lock: they may call poll()/summary()
         for fn in listeners:
             try:
@@ -1148,6 +1751,24 @@ class Engine:
             rec = self._by_id.get(request_id)
             return None if rec is None else self._public(rec)
 
+    def field_of(self, request_id: str) -> Optional[np.ndarray]:
+        """The final field of a terminal ``ok`` request, or ``None`` — from
+        the in-memory record (``keep_fields`` / no out_dir) or the
+        published ``.npz`` (a bf16 field as its ``V2`` bits). The
+        gateway's ``GET /v1/requests/<id>?field=1`` reads it, so the
+        canary prober verifies results through the front door; the npz
+        load runs outside the engine lock."""
+        with self._lock:
+            rec = self._by_id.get(request_id)
+            T = rec.get("T") if rec is not None else None
+            path = rec.get("path") if rec is not None else None
+        if T is not None:
+            return np.asarray(T)
+        if path is not None:
+            with np.load(path) as z:
+                return np.asarray(z["T"])
+        return None
+
     def wait(self, request_id: str, timeout: Optional[float] = None
              ) -> Optional[dict]:
         """Block until a request's record is terminal; returns the record
@@ -1179,14 +1800,224 @@ class Engine:
             if fn in self._listeners:
                 self._listeners.remove(fn)
 
+    def queue_depths(self) -> Dict[str, int]:
+        """Queued (not yet admitted) request count per tenant."""
+        with self._lock:
+            return {t: n for t, n in self._queued_by_tenant.items() if n}
+
+    def backlog_snapshot(self) -> Dict[str, int]:
+        """Queued/running work totals (integer step sums) from the records
+        only — never runner state, which is scheduler-thread-confined — so
+        any handler thread may call it. ``running_steps_bound`` counts each
+        resident request at its full ``ntime`` (an upper bound)."""
+        queued_req = queued_steps = running_req = running_steps = 0
+        with self._lock:
+            for rec in self._by_id.values():
+                st = rec.get("status")
+                if st == "queued":
+                    queued_req += 1
+                    queued_steps += int(rec.get("ntime") or 0)
+                elif st == "running":
+                    running_req += 1
+                    running_steps += int(rec.get("ntime") or 0)
+        return {"queued_requests": queued_req,
+                "queued_steps": queued_steps,
+                "running_requests": running_req,
+                "running_steps_bound": running_steps}
+
+    # --- engine-state checkpointing ----------------------------------------
+    def engine_ckpt_dir(self) -> str:
+        """Resolved manifest directory: explicit engine_ckpt_dir, else
+        <out_dir>/engine-ckpt, else ./engine-ckpt."""
+        from pathlib import Path
+
+        if self.scfg.engine_ckpt_dir:
+            return self.scfg.engine_ckpt_dir
+        if self.scfg.out_dir:
+            return str(Path(self.scfg.out_dir) / "engine-ckpt")
+        return "engine-ckpt"
+
     def _note_boundary(self) -> None:
         """One processed chunk boundary (every runner, scheduler thread):
-        the engine-wide count that ``engine-kill@N`` addresses."""
+        advance the checkpoint cadence clock, arm the checkpoint pause when
+        the interval is crossed, and give ``engine-kill@N`` its address."""
         with self._lock:
             self.boundaries_total += 1
             n = self.boundaries_total
+            interval = self.scfg.engine_ckpt_interval
+            if (interval > 0 and not self._ckpt_pause
+                    and n - self._last_ckpt_boundary >= interval):
+                self._ckpt_pause = True
         if self._plan is not None:
             self._plan.maybe_engine_kill(n)
+
+    def _ckpt_tick(self) -> None:
+        """Take the armed checkpoint once the pipeline is EMPTY: every
+        runner's in-flight deque drained, so the live stacks are exactly
+        the last judged boundary (the maybe_grow precedent — the
+        consistent cut). A no-op unless the pause is armed."""
+        if not self._ckpt_pause:
+            return
+        if any(r.inflight for r in self._active_runners or ()):
+            return
+        try:
+            self._engine_checkpoint(reason="interval")
+        finally:
+            with self._cond:
+                self._ckpt_pause = False
+                self._last_ckpt_boundary = self.boundaries_total
+                self._cond.notify_all()
+
+    def _engine_checkpoint(self, reason: str) -> None:
+        """Snapshot the whole engine at THIS empty-pipeline cut: one
+        on-card copy per occupied lane (``LaneEngine.snapshot_lane``: a
+        clone of the lane's region enqueued before any later chunk, with
+        its pinned D2H behind it, so no chunk that ping-pongs the stacks
+        can reach it; the clone and the copy stay on the scheduler's one
+        stream and the writer thread only waits on the copy's event), plus
+        a JSON manifest of lane occupancy, queued requests and usage
+        partials. The manifest is submitted to the FIFO writer after every
+        field job and every earlier writeback, so a manifest on disk
+        proves everything it references is durable — a kill mid-generation
+        leaves fields without a manifest, and discovery falls back one
+        generation."""
+        from pathlib import Path
+
+        d = Path(self.engine_ckpt_dir())
+        with self._lock:
+            if self._engine_ckpt_next <= 0:
+                self._engine_ckpt_next = ckpt_mod.next_engine_generation(d)
+            gen = self._engine_ckpt_next
+            self._engine_ckpt_next = gen + 1
+        now = wall_clock()
+        inflight_entries: List[dict] = []
+        field_jobs: List = []
+        failed: List[str] = []
+
+        def _entry(req: Request, remaining: int, chunks: int,
+                   lane_s: float, numerics) -> dict:
+            rec = self._by_id[req.id]
+            return {"id": req.id,
+                    "cfg": dataclasses.asdict(req.cfg),
+                    "fingerprint": ckpt_mod.config_fingerprint(req.cfg),
+                    "placement": "packed",
+                    "remaining": int(remaining),
+                    "steps_done": int(req.cfg.ntime - remaining),
+                    "chunks": int(chunks),
+                    "lane_s": round(float(lane_s), 6),
+                    "until": req.until, "tol": req.tol,
+                    "tenant": req.tenant, "class": req.slo_class,
+                    "deadline_ms": rec.get("deadline_ms"),
+                    "seq": req.seq,
+                    "numerics": numerics}
+
+        def _field_job(rid: str, fp: str, remaining: int, get_field,
+                       cfg: HeatConfig):
+            def job():
+                try:
+                    T = get_field()
+                    ckpt_mod.save_engine_field(d, gen, rid, T, fp,
+                                               remaining)
+                except BaseException as e:  # noqa: BLE001 — abort the gen
+                    failed.append(f"{rid}: {type(e).__name__}: {e}")
+                    return
+                # boundary snapshots double as the solve cache's prefix
+                # store; put() swallows its own failures
+                if self.solvecache is not None and remaining > 0:
+                    step = int(cfg.ntime) - int(remaining)
+                    if step > 0:
+                        self.solvecache.put(cfg, step, T=T,
+                                            kind="snapshot")
+            job._trace = (f"engine-ckpt field {rid}", None)
+            return job
+
+        for r in (self._active_runners or ()):
+            for lane, req in enumerate(r.occupant):
+                if req is None:
+                    continue
+                remaining = int(r.dev_rem[lane])
+                rec = self._by_id[req.id]
+                lane_s = (now - rec.get("_start_t", now)
+                          + rec.get("_resumed_lane_s", 0.0))
+                num = (self.numerics.export_state(req.id)
+                       if self.numerics is not None else None)
+                e = _entry(req, remaining, int(r.lane_chunks[lane]),
+                           lane_s, num)
+                snap = r.eng.snapshot_lane(lane, req.cfg.n)
+                inflight_entries.append(e)
+                field_jobs.append(_field_job(
+                    req.id, e["fingerprint"], remaining,
+                    lambda s=snap: LaneEngine.extract(s), req.cfg))
+        queued_entries: List[dict] = []
+        with self._lock:
+            queued_reqs = [q2 for q in self._queues.values()
+                           for q2 in q.items()]
+        for req in sorted(queued_reqs, key=lambda q2: q2.seq):
+            rst = req.restore
+            if rst:
+                # a resumed (or prefix-seeded) request still waiting for a
+                # lane carries its mid-solve field in host memory: persist
+                # it as an in-flight entry or its progress would be lost
+                e = _entry(req, int(rst["remaining"]),
+                           int(rst.get("chunks", 0)),
+                           float(rst.get("lane_s", 0.0)),
+                           rst.get("numerics"))
+                inflight_entries.append(e)
+                field_jobs.append(_field_job(
+                    req.id, e["fingerprint"], int(rst["remaining"]),
+                    lambda rst=rst: rst["T"], req.cfg))
+            else:
+                e = _entry(req, req.cfg.ntime, 0, 0.0, None)
+                e.pop("numerics")
+                queued_entries.append(e)
+        with self._lock:
+            live = ({e["id"] for e in inflight_entries}
+                    | {e["id"] for e in queued_entries})
+            done = sorted(rid for rid in self._by_id if rid not in live)
+        manifest = {"kind": ckpt_mod.ENGINE_MANIFEST_KIND,
+                    "version": ckpt_mod.ENGINE_MANIFEST_VERSION,
+                    "generation": gen, "reason": reason,
+                    "boundaries": self.boundaries_total,
+                    "policy": self.scfg.policy,
+                    "inflight": inflight_entries,
+                    "queued": queued_entries,
+                    "done": done}
+
+        def manifest_job():
+            if failed:
+                master_print(
+                    f"engine checkpoint: generation {gen} ABORTED — "
+                    f"{len(failed)} lane field(s) failed to persist "
+                    f"({'; '.join(failed)}); the previous generation "
+                    f"remains the resume point")
+                return
+            path = ckpt_mod.save_engine_manifest(d, gen, manifest,
+                                                 plan=self._plan)
+            with self._lock:
+                self._engine_ckpt_gen = gen
+            json_record("engine_ckpt", generation=gen, reason=reason,
+                        path=str(path), boundaries=manifest["boundaries"],
+                        inflight=len(inflight_entries),
+                        queued=len(queued_entries), done=len(done))
+        manifest_job._trace = (f"engine-ckpt manifest gen {gen}", None)
+
+        def fields_job():
+            # one generation's fields are written concurrently (zlib and
+            # sha256 release the GIL): a generation of many lanes, each
+            # compressed for its file and again for its cache entry, would
+            # otherwise hold the FIFO writer — and, through its
+            # backpressure, the scheduler — for the sum of their times
+            _run_concurrently(field_jobs, self.tracer)
+        fields_job._trace = (f"engine-ckpt fields gen {gen}", None)
+
+        writer = self._active_writer
+        if writer is not None:
+            if field_jobs:
+                writer.submit(fields_job)
+            writer.submit(manifest_job)
+        else:
+            fields_job()
+            manifest_job()
 
     # --- execution --------------------------------------------------------
     def run(self) -> List[dict]:
@@ -1197,10 +2028,15 @@ class Engine:
                 "Engine.run()/results() cannot be called while the online "
                 "scheduler thread is serving — use poll()/wait() for "
                 "records, shutdown() to drain")
-        writer = async_io.SnapshotWriter()
+        writer = async_io.SnapshotWriter(tracer=self.tracer)
+        t0 = wall_clock()
         try:
             runners = [_GroupRunner(self, key, q, writer)
                        for key, q in list(self._queues.items()) if q]
+            # engine checkpoints read the live runners and the writer from
+            # the driving loop (scheduler-thread-confined)
+            self._active_runners = tuple(runners)
+            self._active_writer = writer
             if self.scfg.dispatch_depth == 0:
                 # synchronous debugging fallback: groups drain one at a
                 # time with a fence at every boundary
@@ -1212,6 +2048,9 @@ class Engine:
             else:
                 live = [r for r in runners if r.has_work()]
                 while live:
+                    # an armed engine checkpoint fires at the empty cut,
+                    # before the pipeline refills
+                    self._ckpt_tick()
                     # prime every group's device queue before anyone waits:
                     # one group's boundary wait then hides under the other
                     # groups' queued chunks
@@ -1228,12 +2067,25 @@ class Engine:
                         if r.has_work():
                             nxt.append(r)
                     live = nxt
-        except BaseException:
+        except BaseException as e:
+            # flight-recorder trigger: dump the ring first, then drain —
             # every writeback already queued still lands (or fails per
             # request), but a writer error must not mask this one
+            self._flight_dump(f"scheduler crashed: {type(e).__name__}: {e}")
             writer.drain(raise_errors=False)
+            self._active_runners, self._active_writer = (), None
             raise
+        # the always-at-drain checkpoint (engine_ckpt_interval > 0 opts
+        # in): every request done, so a later --resume re-admits nothing
+        if self.scfg.engine_ckpt_interval > 0:
+            self._engine_checkpoint(reason="drain")
         writer.drain()
+        self._active_runners, self._active_writer = (), None
+        if self.tracer.enabled:
+            self.tracer.complete("engine.run", self.tracer.thread_track(),
+                                 t0, cat="engine")
+            if self.scfg.trace:
+                self.tracer.export(self.scfg.trace)
         return list(self._records)
 
     def results(self) -> List[dict]:
@@ -1264,15 +2116,24 @@ class Engine:
             self.loop_error = None
             self._thread = threading.Thread(
                 target=self._serve_loop, daemon=True,
-                name="heat-serve-scheduler")
+                name="heat-tpu-serve-scheduler")
             self._thread.start()
         return self
 
-    def begin_drain(self) -> None:
+    def begin_drain(self, handoff: bool = False) -> None:
         """The online loop finishes every lane already admitted AND every
-        request already queued, then exits. Idempotent."""
+        request already queued, then exits. ``handoff=True`` is
+        drain-to-checkpoint (POST /drainz?handoff=1): the loop stops lane
+        fills and chunk dispatch, takes the boundaries already in flight,
+        checkpoints the whole engine at the first empty-pipeline cut —
+        without finishing lanes — and exits; ``serve --resume`` picks the
+        work up there. Idempotent, and a later plain drain never cancels a
+        requested handoff."""
         with self._cond:
             self._draining = True
+            if handoff:
+                self._handoff = True
+                self._ckpt_pause = True
             self._cond.notify_all()
 
     def shutdown(self, timeout: Optional[float] = None) -> bool:
@@ -1297,10 +2158,28 @@ class Engine:
         its lane tier when a burst outruns it, and an empty engine parks on
         the condition until a submit (or drain) wakes it. Exits when
         draining AND idle; the writer drains on every exit path."""
-        writer = async_io.SnapshotWriter()
+        writer = async_io.SnapshotWriter(tracer=self.tracer)
         runners: Dict[BucketKey, _GroupRunner] = {}
+        self._active_writer = writer
+        t0 = wall_clock()
         try:
             while True:
+                if self._handoff:
+                    # drain-to-checkpoint: no fills, no new dispatch — take
+                    # only the boundaries already in flight, then
+                    # checkpoint at the first empty cut and exit. Lane
+                    # occupants stay status="running"; they and the queue
+                    # ride the manifest
+                    self._active_runners = tuple(runners.values())
+                    for r in [r for r in runners.values() if r.inflight]:
+                        try:
+                            r.process_boundary()
+                        except async_io.BoundedFetchTimeout as e:
+                            self._fail_group(r, e)
+                    if not any(r.inflight for r in runners.values()):
+                        self._engine_checkpoint(reason="handoff")
+                        break
+                    continue
                 with self._lock:
                     keys = [k for k, q in self._queues.items() if q]
                 for key in keys:
@@ -1312,6 +2191,8 @@ class Engine:
                     else:
                         r.maybe_grow()
                         r._fill()
+                self._active_runners = tuple(runners.values())
+                self._ckpt_tick()
                 live = [r for r in runners.values() if r.has_work()]
                 if not live:
                     with self._cond:
@@ -1337,6 +2218,10 @@ class Engine:
                             r.dispatch_fill()
                         except async_io.BoundedFetchTimeout as e:
                             self._fail_group(r, e)
+            # normal drain exit (the handoff exit checkpointed already): an
+            # interval-opted engine always leaves a final generation
+            if self.scfg.engine_ckpt_interval > 0 and not self._handoff:
+                self._engine_checkpoint(reason="drain")
         except BaseException as e:  # noqa: BLE001 — surfaced via loop_error
             # a crash in the daemon thread has nowhere to propagate: record
             # it and fail every in-flight and queued request cleanly
@@ -1344,26 +2229,57 @@ class Engine:
                 self.loop_error = e
             master_print(f"serve scheduler loop failed: "
                          f"{type(e).__name__}: {e}")
+            self._flight_dump(f"scheduler loop crashed: "
+                              f"{type(e).__name__}: {e}")
             for r in runners.values():
                 self._fail_group(r, e)
         finally:
-            writer.drain(raise_errors=False)
-            with self._cond:
-                self._cond.notify_all()  # unblock wait() callers
+            try:
+                writer.drain(raise_errors=False)
+            finally:
+                self._active_runners, self._active_writer = (), None
+                if self.tracer.enabled:
+                    self.tracer.complete("serve-loop",
+                                         self.tracer.thread_track(), t0,
+                                         cat="engine")
+                    if self.scfg.trace:
+                        try:
+                            self.tracer.export(self.scfg.trace)
+                        except OSError as te:
+                            master_print(f"trace export to "
+                                         f"{self.scfg.trace} failed: {te}")
+                with self._cond:
+                    self._cond.notify_all()  # unblock wait() callers
 
     # --- lane retirement --------------------------------------------------
-    def _finish_timing(self, req: Request, steps_done: Optional[int] = None,
+    def _finish_timing(self, req: Request, chunks: int = 0,
+                       steps_done: Optional[int] = None,
                        exit_mode: str = "steps") -> dict:
         steps = int(req.cfg.ntime if steps_done is None else steps_done)
         rec = self._by_id[req.id]
         now = wall_clock()
         with self._lock:
-            lane_s = now - rec.pop("_start_t", now)
+            start = rec.pop("_start_t", now)
+            # a resumed request's first incarnation billed lane seconds too
+            lane_s = (now - start) + rec.pop("_resumed_lane_s", 0.0)
+            # a cache-prefix admission only STEPPED the delta: bill that,
+            # credit the prefix as steps_saved
+            prefix = int(rec.pop("_cache_prefix_steps", 0) or 0)
+            stepped = max(0, steps - prefix)
             rec["solve_s"] = round(lane_s, 6)
-            rec["steps_per_s"] = (round(steps / lane_s, 3)
+            rec["steps_per_s"] = (round(stepped / lane_s, 3)
                                   if lane_s > 0 else None)
             rec["steps_done"] = steps
             rec["exit"] = exit_mode
+            # the usage stamp: what THIS request consumed (bytes_written is
+            # finalized by the writer thread before the record is emitted)
+            rec["usage"] = {"lane_s": rec["solve_s"],
+                            "steps": stepped,
+                            "chunks": int(chunks), "bytes_written": 0,
+                            "steps_saved": int(req.cfg.ntime) - stepped,
+                            "cached": False}
+            if prefix:
+                self.steps_saved_total += prefix
         if self.numerics is not None:
             self.numerics.forget(req.id)   # terminal: drop detector state
         return rec
@@ -1392,12 +2308,27 @@ class Engine:
                 path = (str(_write_result(scfg.out_dir, req.id, T, cfg,
                                           steps=steps_done))
                         if scfg.out_dir else None)
+                # bytes the tenant's result cost: the published file, or
+                # the in-memory field when nothing hits disk
+                from pathlib import Path
+
+                nbytes = (Path(path).stat().st_size if path is not None
+                          else int(T.nbytes))
                 with self._lock:
                     if scfg.keep_fields or not scfg.out_dir:
                         rec["T"] = T
                     if path is not None:
                         rec["path"] = path
                     rec["status"] = "ok"
+                    rec["usage"]["bytes_written"] = int(nbytes)
+                # solve-cache population after the publish landed: a byte
+                # copy of the published file (or the same serialization),
+                # keyed under the step count the field carries
+                if self.solvecache is not None:
+                    self.solvecache.put(
+                        cfg, int(cfg.ntime if steps_done is None
+                                 else steps_done),
+                        T=T, src_path=path, kind="result")
             except BaseException as e:  # noqa: BLE001 — per-request record
                 if async_io.is_transient(e) and attempts["n"] <= writer.retries:
                     raise
@@ -1406,39 +2337,41 @@ class Engine:
                     rec["error"] = f"{type(e).__name__}: {e}"
             self._emit(rec)
 
+        # the writer thread labels its span with the request it serves
+        job._trace = (f"writeback {req.id}", rec.get("trace_id"))
         writer.submit(job)
 
     def _finish_async(self, eng: LaneEngine, lane: int, req: Request,
-                      writer, steps_done: Optional[int] = None,
+                      writer, chunks: int = 0,
+                      steps_done: Optional[int] = None,
                       exit_mode: str = "steps") -> None:
         """Dispatch-ahead retirement: a one-lane snapshot enqueued behind
         the chunks in flight (the scheduler thread never waits); the D2H
         wait and the writeback run in the writer thread."""
-        rec = self._finish_timing(req, steps_done=steps_done,
+        rec = self._finish_timing(req, chunks=chunks, steps_done=steps_done,
                                   exit_mode=exit_mode)
         snap = eng.snapshot_lane(lane, req.cfg.n)
         self._writeback_job(rec, req, writer, lambda: eng.extract(snap))
 
     def _finish_sync(self, eng: LaneEngine, lane: int, req: Request,
-                     writer, steps_done: Optional[int] = None,
+                     writer, chunks: int = 0,
+                     steps_done: Optional[int] = None,
                      exit_mode: str = "steps") -> None:
         """Sync-fallback retirement: fetch the lane on the scheduler thread,
         write back in the writer."""
-        rec = self._finish_timing(req, steps_done=steps_done,
+        rec = self._finish_timing(req, chunks=chunks, steps_done=steps_done,
                                   exit_mode=exit_mode)
         T = eng.extract_lane(lane, req.cfg.n)
         self._writeback_job(rec, req, writer, lambda: T)
 
     # --- reporting --------------------------------------------------------
     def summary(self) -> dict:
-        """The reference's summary keys for what this port serves. Of the
-        rest: ``mega_lanes`` 0 (no mega-lane tier), ``prof`` False (the cost
-        observatory is not ported) and ``cache`` None (no solve cache);
-        ``step_compiles`` and ``tail_compiles`` are 0 (nothing is compiled
-        per bucket: the lane kernels are built once per checkout,
-        ``compile_s`` is the time to load them). The cost observatory's own
-        keys are left out (ROADMAP). The port adds ``lane_passes``, the
-        lane kernel launches that the dispatched chunks cost by kernel,
+        """The reference's summary keys. Of these, ``mega_lanes`` and
+        ``mega_compiles`` are 0 (no mega-lane tier), ``step_compiles`` and
+        ``tail_compiles`` are 0 (nothing is compiled per bucket: the lane
+        kernels are built once per checkout, ``compile_s`` is the time to
+        load them). The port adds ``device``, ``lane_passes``, the lane
+        kernel launches that the dispatched chunks cost by kernel,
         ``lane_passes_by_bucket``, the same by ``"<kernel> <bucket side>
         <dtype>"``, and ``lane_chunks``, those chunks by kernel."""
         with self._lock:
@@ -1447,7 +2380,8 @@ class Engine:
                 r["placement"] for r in self._records if r.get("placement"))
             n = len(self._records)
             queued = sum(len(q) for q in self._queues.values())
-        # the observatory's snapshot AFTER the engine lock is released
+        # the observatories' snapshots AFTER the engine lock is released
+        obs = self.prof.summary(wall_clock())
         ns = self.numerics.snapshot() if self.numerics is not None else None
         by_kernel = collections.Counter()
         for (name, _, _), count in self.lane_passes.items():
@@ -1458,7 +2392,11 @@ class Engine:
                 "numerics_guard": self.scfg.numerics_guard,
                 "steady_lanes": ns["steady_total"] if ns else 0,
                 "numerics_violations": ns["violation_total"] if ns else 0,
-                "prof": False,
+                "prof": self.scfg.prof,
+                "cost_model": obs["cost_model"],
+                "mem": obs["mem"],
+                "slo_burn": obs["slo_burn"],
+                "flightrec_dumps": self.tracer.dumps,
                 "policy": self.scfg.policy,
                 "lane_kernel": self.scfg.lane_kernel,
                 "lane_kernel_fallbacks": self.lane_kernel_fallbacks,
@@ -1469,6 +2407,7 @@ class Engine:
                 "lane_chunks": dict(self.lane_chunks),
                 "placement": dict(by_placement),
                 "mega_lanes": 0,
+                "mega_compiles": 0,
                 "queued_now": queued,
                 "lane_grows": self.lane_grows,
                 "step_compiles": 0,
@@ -1485,6 +2424,10 @@ class Engine:
                 "deadline_misses": self.deadline_misses,
                 "steady_exits": self.steady_exits,
                 "steps_saved": self.steps_saved_total,
-                "cache": None,
+                "serve_resumed": self.serve_resumed_total,
+                "cache": (self.solvecache.stats()
+                          if self.solvecache is not None else None),
+                "engine_ckpt_interval": self.scfg.engine_ckpt_interval,
+                "engine_ckpt_generation": self._engine_ckpt_gen,
                 "shed": self.shed,
                 "watchdog_fired": self.watchdog_fired}

@@ -320,3 +320,84 @@ def test_overlap_on_the_card(ndim, comm):
         want = _sharded_field(bf16)
         assert cs.launches[name] == 0
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_memory_watermark_reads_the_device_allocator():
+    from heat_tpu_torch.runtime import prof
+
+    dev = torch.device("cuda")
+    before, source = prof.device_memory_bytes(dev)
+    assert source == "device" and before >= 0
+    block = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    after, _ = prof.device_memory_bytes(dev)
+    assert after >= before + (64 << 20)
+    obs = prof.Observatory(mem_poll_every=1, device=dev)
+    obs.maybe_sample_memory(0.0)
+    snap = obs.mem.snapshot()
+    assert snap["source"] == "device" and snap["last_bytes"] >= 64 << 20
+    del block
+
+
+@pytest.mark.parametrize("ndim,dtype", [(2, "float32"), (2, "bfloat16"),
+                                        (3, "float32"), (3, "bfloat16")])
+def test_checkpoint_field_d2h_equals_the_live_stack(ndim, dtype):
+    """An engine checkpoint's lane field (``snapshot_lane`` at the cut, the
+    D2H fetched later while the chunks ping-pong the stacks on) holds the
+    bytes the stack held at the cut."""
+    from heat_tpu_torch.serve.engine import BucketKey, LaneEngine
+
+    n = 20 if ndim == 2 else 12
+    key = BucketKey(ndim=ndim, n=24 if ndim == 2 else 16, dtype=dtype,
+                    bc="edges")
+    eng = LaneEngine(key, 2, 8, kernel="cuda", device="cuda")
+    for lane in range(2):
+        cfg = HeatConfig(n=n - lane, ndim=ndim, ntime=200, dtype=dtype,
+                         ic="hat_half")
+        from heat_tpu_torch.grid import initial_condition_device
+
+        eng.load_lane(lane, initial_condition_device(cfg, "cuda"),
+                      cfg.r, 200, 0.0)
+    for _ in range(3):
+        eng.dispatch_chunk()
+    region = (1,) + (slice(1, 1 + n - 1),) * ndim
+    want = eng._fields[region].clone()      # the stack at the cut
+    snap = eng.snapshot_lane(1, n - 1)
+    for _ in range(5):                      # overwrite both stacks
+        eng.dispatch_chunk()
+    got = LaneEngine.extract(snap)
+    view = torch.int16 if dtype == "bfloat16" else torch.int32
+    assert got.tobytes() == want.view(view).cpu().numpy().tobytes()
+    assert not torch.equal(eng._fields[region].view(view), want.view(view))
+
+
+@pytest.mark.parametrize("case", [
+    dict(n=200, ntime=141, dtype="float32", sigma=0.2),
+    dict(n=190, ntime=133, dtype="bfloat16", sigma=0.2, bc="ghost",
+         bc_value=1.0),
+    dict(n=40, ndim=3, ntime=77, dtype="float32", sigma=1 / 6),
+    dict(n=36, ndim=3, ntime=69, dtype="bfloat16", sigma=1 / 6,
+         ic="hat_half")], ids=["K4-f32", "K4-bf16", "K5-f32", "K5-bf16"])
+def test_cache_prefix_seed_into_a_lane_kernel(case, tmp_path):
+    """A lane seeded from a cached prefix (cut inside a chunk) and stepped
+    the rest of the way by the lane kernels gives the bytes of the plain
+    lane body's uninterrupted run on the card."""
+    cut = 45
+    kw = dict(lanes=2, chunk=16, buckets=(64, 256), emit_records=False)
+
+    def serve(kernel, ntime, out, **extra):
+        cuda_lanes.reset_launches()
+        eng = Engine(ServeConfig(lane_kernel=kernel, out_dir=str(out),
+                                 **kw, **extra), device="cuda")
+        eng.submit(HeatConfig(**dict(case, ntime=ntime)), request_id="x")
+        (rec,) = eng.results()
+        assert rec["status"] == "ok"
+        return eng, (out / "x.npz").read_bytes(), dict(cuda_lanes.launches)
+
+    cache = dict(cache=True, cache_dir=str(tmp_path / "c"))
+    serve("cuda", cut, tmp_path / "o0", **cache)
+    eng, got, launches = serve("cuda", case["ntime"], tmp_path / "o1",
+                               **cache)
+    assert eng.summary()["cache"]["hits_prefix"] == 1
+    assert launches["lanes3d" if case.get("ndim") == 3 else "lanes2d"] > 0
+    _, want, _ = serve("torch", case["ntime"], tmp_path / "o2")
+    assert got == want
