@@ -121,8 +121,13 @@ a checkout of the repository, it exits non-zero and prints no result):
    npz files byte-equal to the first run's (the card's busy time by kernel,
    and the device seconds and launches of ``lanes2d``, ``lanes3d`` and
    ``lanes_init`` by name, are a measurement: "not measured" where the
-   profiler fails or sees no device time); served a third time with ``--serve-lane-kernel torch``
-   (the plain versions, on the card), byte-equal npz files; six small f32
+   profiler fails or sees no device time); served a third time with
+   ``--serve-lane-kernel torch`` (the plain versions, on the card), every
+   record ok, no lane kernel launched, byte-equal npz files: that run
+   (about 90 s on an H100) takes a child process of its own, started
+   before phase 1 and waited for before phase 2 times anything, so it
+   runs beside the build, the card-only tests and phase 2's byte
+   comparisons, which time nothing (``start_plain_serve``); six small f32
    requests against the serial oracle (5e-6 per 30 steps); every field in
    the maximum principle's [1, 2] envelope. Prints the served cell-steps
    per second, the chunks, the tail chunks, the boundary wait and the
@@ -188,6 +193,36 @@ a checkout of the repository, it exits non-zero and prints no result):
    the trace; (6) ``run --trace`` at 4096^2 f32 for 320 steps in 16-step
    chunks: one chunk span per launch of ``ftcs2d`` (and the warm-up's in
    the compile span);
+5d. mega-lanes (a request over every bucket served over every shard of
+   the mesh through the sharded padded carry): (1) ``serve --mega-lanes
+   1`` on phase 5's 56 requests plus 4096^2 f32 x 8192 and 4096^2 bf16 x
+   256 (edges, hat): every record ok, the two oversized ones placed
+   ``mega`` with no bucket, ``placement`` {mega 2, packed 56}, a mega
+   machinery build, the 56 packed npz byte-equal to phase 5's, ``ftcs2d``
+   launches equal to the mega chunks' passes (each chunk: divmod(k - 1,
+   kf) blocks of kf, the remainder, the final step; the reference's
+   passes at the padded shard shape); the f32 npz byte-equal to ``run
+   --backend cuda`` and ``--backend sharded`` of its config, the bf16 npz
+   to the same mega machinery on the plain bounded version on the card;
+   (2) the same oversized request without ``--mega-lanes``: rejected (auto
+   is 0 on one card) with the reference's reason and ``hint: "enable
+   --mega-lanes"``; (3) each mega request alone in this process, 4096^2
+   f32 x 8192 and config 4 (512^3 f32 x 3200 at sigma 1/6, ``--buckets
+   256``): field byte-equal to ``run --backend cuda``, launches equal to
+   the pass schedule's, served cell-steps/s beside phase 3's points/s,
+   chunks, launches a chunk, the host's ms a chunk from a ``--trace`` run
+   and the card's busy share from a ``torch.profiler`` run; (4) hip.dat
+   (32768^2 f32 x 128, ghost) on 2x2 shards of the one card through the
+   ``mega_device_count`` seam set to 4, in this process with the field in
+   memory: its sha256 equal to phase 7's first 2x2 sharded field; (5) on
+   4096^2 f32 x 512: ``lane-nan`` healed under ``--serve-on-nan
+   rollback``, and ``begin_drain(handoff=True)`` with the mega occupant
+   held in flight then ``serve --resume`` in a new process, both
+   byte-equal to the ``run`` field and the resumed record marked; (6) one
+   chunk of the 4096^2 and 512^3 mega shapes in f32 and bf16 on the
+   kernels against the plain bounded version (boundary vector and field
+   bytes), and the f32 chunk's deepest pass and its final 1-step pass
+   timed beside the plain pass and the bound;
 6. the kernel lab's candidates L1-L5 (``lab2d``, ``lab3d``): every
    (kernel, variant, dtype) against its plain version on the card, bytes,
    at the JAX lab's check shapes, depths 1 and the deepest its TPU geometry
@@ -1347,8 +1382,58 @@ def npz_differ(ids, a: Path, b: Path) -> list:
             if (a / f"{i}.npz").read_bytes() != (b / f"{i}.npz").read_bytes()]
 
 
-def phase_serve(smi):
-    """The serve main path on the card (see the module docstring)."""
+def start_plain_serve():
+    """Phase 5's file served with ``--serve-lane-kernel torch`` (the plain
+    lane body, which builds and launches no kernel) in a child process, so
+    that it runs beside phases 1 and 2's untimed work. Returns the child;
+    ``plain_serve_result`` waits for it."""
+    serve_population(WORK / "requests.jsonl")
+    log = open(WORK / "serve-torch.log", "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-c",
+             "import chip_smoke as c; c.plain_serve_child()"],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    finally:
+        log.close()
+
+
+def plain_serve_child() -> None:
+    """The child of ``start_plain_serve``: the serve and its launch counts,
+    written to ``serve-torch.json``."""
+    rc, recs, summary, launches, wall = cli_serve(
+        WORK / "requests.jsonl", WORK / "serve-torch", "--serve-lane-kernel",
+        "torch")
+    (WORK / "serve-torch.json").write_text(json.dumps(dict(
+        rc=rc, records=recs, summary=summary, launches=launches, wall=wall)))
+
+
+def plain_serve_result(child, timeout: float = 600.0) -> dict:
+    """Wait for ``child`` (``start_plain_serve``) and return its result;
+    a child that fails, or outlasts ``timeout`` (killed then), fails the
+    phase."""
+    t0 = time.perf_counter()
+    try:
+        rc = child.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait()
+        rc = None
+    log = (WORK / "serve-torch.log").read_text()
+    res = WORK / "serve-torch.json"
+    check(rc == 0 and res.exists(),
+          f"the plain serve child exited {rc}:\n{log[-4000:]}")
+    out = json.loads(res.read_text())
+    out["log"] = log
+    print(f"[phase 2] the plain serve child (phase 5's comparison run) "
+          f"done, waited {time.perf_counter() - t0:.1f} s for it")
+    return out
+
+
+def phase_serve(smi, plain=None):
+    """The serve main path on the card (see the module docstring).
+    ``plain`` is the ``--serve-lane-kernel torch`` run's result
+    (``plain_serve_result``); without it the run is made here."""
     import numpy as np
 
     from heat_tpu_torch import HeatConfig, solve
@@ -1396,17 +1481,25 @@ def phase_serve(smi):
     profile = profiled_serve(reqfile, WORK / "serve-profiled", wall, ids, out_k)
 
     print("[phase 5] the same file with --serve-lane-kernel torch (the plain "
-          "versions, on the card)")
-    rc_t, recs_t, summary_t, launches_t, wall_t = cli_serve(
-        reqfile, out_t, "--serve-lane-kernel", "torch")
-    check(rc_t == 0 and all(r["status"] == "ok" for r in recs_t),
+          "versions, on the card)" + (", in a child process beside phases "
+                                      "1 and 2" if plain else ""))
+    if plain is None:
+        rc_t, recs_t, summary_t, launches_t, wall_t = cli_serve(
+            reqfile, out_t, "--serve-lane-kernel", "torch")
+    else:
+        print(plain["log"], end="")
+        rc_t, recs_t, summary_t, launches_t, wall_t = (
+            plain["rc"], plain["records"], plain["summary"],
+            plain["launches"], plain["wall"])
+    check(rc_t == 0 and len(recs_t) == len(reqs)
+          and all(r["status"] == "ok" for r in recs_t),
           "torch lane body run failed")
     check(not any(launches_t.values()) and not summary_t["lane_passes"],
           f"torch body launched {launches_t}")
     ndiff = npz_differ(ids, out_k, out_t)
     print(f"  {len(reqs) - len(ndiff)} of {len(reqs)} npz files byte-equal "
           f"(torch body {wall_t:.3f} s, {cell_steps / wall_t:.6g} "
-          f"cell-steps/s)")
+          f"cell-steps/s" + (", beside phases 1 and 2)" if plain else ")"))
     check(not ndiff, f"npz differ from the plain versions' run: {ndiff}")
 
     def field_of(rid):
@@ -2388,6 +2481,451 @@ def phase_serving_front(smi, serve):
     return out
 
 
+# --- phase 5d: mega-lanes ---------------------------------------------------
+
+# the oversized requests: the python/cuda shape as phase 3 runs it and a
+# bf16 cut of it; config 4 (512^3 at sigma 1/6) as phase 3 runs it;
+# hip.dat (32768^2, ghost, ntime cut to 128) as phase 7 runs it; the
+# fault cases' 4096^2 f32 x 512
+MEGA_F32 = dict(id="mega-f32", n=4096, ntime=8192, sigma=0.25, nu=0.05,
+                dom_len=2.0, dtype="float32", bc="edges", ic="hat")
+MEGA_BF16 = dict(MEGA_F32, id="mega-bf16", ntime=256, dtype="bfloat16")
+MEGA_3D = dict(id="mega-512", n=512, ndim=3, ntime=3200, sigma=SIGMA_3D,
+               nu=0.05, dom_len=2.0, dtype="float32")
+MEGA_HIP = dict(id="mega-hip", n=32768, ntime=128, dtype="float32",
+                sigma=0.25, nu=0.05, dom_len=1.0, ic="uniform", bc="ghost")
+MEGA_FAULT = dict(MEGA_F32, id="mega-fault", ntime=512)
+
+
+def mega_config(r):
+    from heat_tpu_torch import HeatConfig
+
+    return HeatConfig(**{k: v for k, v in r.items() if k != "id"})
+
+
+def mega_launches(cfg, mesh, chunk: int) -> tuple:
+    """(launches, kf, padded shard shape, launches a chunk by chunk size)
+    of one mega request: every chunk of k steps runs, on each shard,
+    divmod(k - 1, kf) blocks of kf steps, the remainder block and the final
+    step, each cut into the reference's passes at the padded shard
+    shape."""
+    import math
+
+    from heat_tpu_torch.backends import sharded
+    from heat_tpu_torch.ops import pass_schedule
+
+    kf = sharded.fuse_depth_sharded(cfg, mesh)
+    padded = tuple(cfg.n // m + 2 * kf for m in mesh)
+
+    def npass(k):
+        return len(pass_schedule.passes(padded, cfg.dtype, k)) if k else 0
+
+    per = {}
+    for k in {min(chunk, cfg.ntime), cfg.ntime % chunk} - {0}:
+        nf, r = divmod(k - 1, kf)
+        per[k] = math.prod(mesh) * (nf * npass(kf) + npass(r) + npass(1))
+    total = (cfg.ntime // chunk) * per.get(chunk, 0) + per.get(
+        cfg.ntime % chunk, 0)
+    return total, kf, padded, per
+
+
+def mega_serve(reqs, **kw):
+    """Drain ``reqs`` through an in-process ``Engine`` on the card with
+    one mega slot, the fields kept in memory; the stencil launch counts
+    zeroed just before and read just after. Returns (engine, records by
+    id, wall seconds, launches)."""
+    from heat_tpu_torch.ops import cuda_stencil as cs
+    from heat_tpu_torch.runtime import faults
+    from heat_tpu_torch.serve import Engine, ServeConfig
+
+    faults.reset()
+    knobs = dict(lanes=8, chunk=16, buckets=(256, 512, 1024),
+                 emit_records=False, keep_fields=True, mega_lanes=1)
+    eng = Engine(ServeConfig(**dict(knobs, **kw)), device="cuda")
+    for r in reqs:
+        eng.submit(mega_config(r), request_id=r["id"])
+    cs.reset_launches()
+    t0 = time.perf_counter()
+    recs = {r["id"]: r for r in eng.results()}
+    wall = time.perf_counter() - t0
+    return eng, recs, wall, dict(cs.launches)
+
+
+def host_bits(T):
+    """The bytes of a host field (a ``V2`` bf16 array or a float one)."""
+    import numpy as np
+
+    return np.ascontiguousarray(T).view(np.uint8)
+
+
+def mega_busy(fn):
+    """Device seconds of ``fn()``'s kernels under ``torch.profiler``, in all
+    and for ftcs2d/ftcs3d, beside ``wall_s``, what ``fn`` returns (the
+    profiled run's own wall, or None); None where the profiler records
+    none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = fn()
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+    except Exception as e:  # noqa: BLE001 — a measurement, not a check
+        print(f"  device busy: not measured ({type(e).__name__}: {e})")
+        return None
+
+    def dev_us(evt):
+        return getattr(evt, "self_device_time_total",
+                       getattr(evt, "self_cuda_time_total", 0))
+
+    dev = [(dev_us(e), e.key) for e in rows
+           if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy = sum(t for t, _ in dev) / 1e6
+    if busy <= 0:
+        return None
+    ftcs = sum(t for t, key in dev if re.search(r"ftcs|stream", key)) / 1e6
+    return dict(busy_s=busy, kernel_s=ftcs, other_s=busy - ftcs,
+                wall_s=wall)
+
+
+def phase_mega(smi, serve, runs):
+    """Phase 5d, mega-lanes: a bucket-overflow request served over every
+    shard of the mesh through the sharded padded carry (see the module
+    docstring). Returns the numbers and the digest of the 32768^2 field,
+    which phase 7 holds against its 2x2 sharded run."""
+    import functools
+    import hashlib
+    import threading
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch import solve
+    from heat_tpu_torch.backends import sharded
+    from heat_tpu_torch.machine import device_model
+    from heat_tpu_torch.ops import cuda_stencil as cs
+    from heat_tpu_torch.ops import pass_schedule
+    from heat_tpu_torch.runtime import checkpoint as ckpt
+    from heat_tpu_torch.serve import Engine, ServeConfig
+    from heat_tpu_torch.serve import scheduler as sch
+    from heat_tpu_torch.serve.engine import MegaLaneEngine, fetch_boundary
+    from heat_tpu_torch.utils import torch_dtype
+
+    t0 = time.perf_counter()
+    out = {"requests": {}, "kernels": {}}
+    plain = functools.partial(cs.ftcs_multistep_bounded_cuda, plain=True)
+
+    def cell_steps(r):
+        return r["n"] ** r.get("ndim", 2) * r["ntime"]
+
+    # 1. phase 5's 56 requests with the two oversized ones, one mega slot
+    reqfile = WORK / "requests-mega.jsonl"
+    reqs = serve_population(WORK / "requests-mega-packed.jsonl")
+    reqfile.write_text("".join(json.dumps(r) + "\n"
+                               for r in reqs + [MEGA_F32, MEGA_BF16]))
+    out_m = WORK / "serve-mega"
+    print(f"[phase 5d] serve --mega-lanes 1: phase 5's {len(reqs)} requests "
+          f"and 4096^2 f32 x 8192, 4096^2 bf16 x 256")
+    cs.reset_launches()
+    rc, rows, summary, lane_launches, wall = cli_serve_rows(
+        reqfile, out_m, "--mega-lanes", "1")
+    ftcs = dict(cs.launches)
+    out["corun_launches"] = ftcs
+    recs = {r["id"]: r for r in rows if r.get("event") == "serve_request"}
+    check(rc == 0 and len(recs) == len(reqs) + 2
+          and all(r["status"] == "ok" for r in recs.values()),
+          f"the co-scheduled serve failed (rc {rc})")
+    for r in (MEGA_F32, MEGA_BF16):
+        rec = recs[r["id"]]
+        check(rec["placement"] == "mega" and rec["bucket"] is None,
+              f"{r['id']} placed {rec['placement']} bucket {rec['bucket']}")
+    check(summary["placement"] == {"mega": 2, "packed": len(reqs)},
+          f"placement {summary['placement']}")
+    check(summary["mega_compiles"] >= 1 and summary["mega_lanes"] == 1,
+          f"mega_compiles {summary['mega_compiles']}")
+    ids = [r["id"] for r in reqs]
+    ndiff = npz_differ(ids, out_m, WORK / "serve-cuda")
+    check(not ndiff, f"packed npz beside the mega-lanes differ from phase "
+                     f"5's: {ndiff}")
+    packed_rate = sum(cell_steps(r) for r in reqs) / wall
+    want = sum(mega_launches(mega_config(r), (1, 1), 16)[0]
+               for r in (MEGA_F32, MEGA_BF16))
+    check(ftcs["ftcs2d"] == want, f"{ftcs['ftcs2d']} ftcs2d launches, the "
+                                  f"mega chunks' passes are {want}")
+    print(f"  {len(recs)} records ok, placement {summary['placement']}, "
+          f"{summary['mega_compiles']} mega machinery build(s), "
+          f"{summary['mega_chunks']} mega chunks, {ftcs['ftcs2d']} ftcs2d "
+          f"launches (= the passes of the mega chunks), lane launches "
+          f"{lane_launches}; {len(ids)} packed npz byte-equal to phase 5's; "
+          f"packed tier {packed_rate:.6g} cell-steps/s with the mega-lanes "
+          f"resident in {wall:.3f} s (phase 5 alone "
+          f"{serve['cell_steps_per_s']:.6g}) on {smi}")
+    out["packed_rate"] = packed_rate
+    out["corun_wall_s"] = wall
+
+    def npz_field(rid):
+        with np.load(out_m / f"{rid}.npz") as z:
+            return z["T"]
+
+    # 2. the f32 mega-lane against run --backend cuda and --backend sharded
+    cfg = mega_config(MEGA_F32)
+    Tm = npz_field("mega-f32")
+    for backend in ("cuda", "sharded"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            T = solve(cfg.with_(backend=backend), device="cuda").T
+        same = np.array_equal(host_bits(T), host_bits(Tm))
+        print(f"  4096^2 f32 x 8192 mega npz vs run --backend {backend}: "
+              f"byte-equal {same}")
+        check(same, f"the f32 mega-lane is not the {backend} run's field")
+        del T
+    # 3. the bf16 mega-lane against the same machinery on the plain
+    # bounded version, on the card
+    with mock.patch.object(sharded, "ftcs_multistep_bounded_cuda", plain):
+        _, prec, _, pl = mega_serve([MEGA_BF16])
+    check(pl["ftcs2d"] == 0, "the plain mega run launched ftcs2d")
+    same = np.array_equal(host_bits(prec["mega-bf16"]["T"]),
+                          host_bits(npz_field("mega-bf16")))
+    print(f"  4096^2 bf16 x 256 mega npz vs the plain local kernel on the "
+          f"card: byte-equal {same}")
+    check(same, "the bf16 mega-lane is not its plain local kernel's")
+
+    # 4. the same oversized request without --mega-lanes: auto is 0 on one
+    # card, so it is rejected with the reference's reason and hint
+    one = WORK / "requests-mega-one.jsonl"
+    one.write_text(json.dumps(MEGA_F32) + "\n")
+    rc, rows, _, _, _ = cli_serve_rows(one, WORK / "serve-mega-off",
+                                       echo=False)
+    (rec,) = [r for r in rows if r.get("event") == "serve_request"]
+    check(rc == 1 and rec["status"] == "rejected"
+          and rec.get("hint") == "enable --mega-lanes"
+          and "auto enables mega-lanes only on multi-device hosts"
+          in rec["error"], f"no auto rejection: {rec}")
+    print(f"  without --mega-lanes: rc {rc}, {rec['status']}: "
+          f"{rec['error']!r}, hint {rec['hint']!r}")
+
+    # 5. each mega request alone: served cell-steps/s against its run twin,
+    # chunks and launches a chunk against the pass schedule, the host per
+    # chunk from a traced run, the card's busy share from a profiled run
+    dm = device_model(0)
+    twin = {"mega-f32": runs["4096 f32"]["points_per_s"],
+            "mega-512": runs["512^3 f32"]["points_per_s"]}
+    for r, buckets in ((MEGA_F32, (256, 512, 1024)), (MEGA_3D, (256,))):
+        rid, cfg = r["id"], mega_config(r)
+        name = cs._KERNELS[cfg.ndim]
+        eng, recs1, wall1, l1 = mega_serve([r], buckets=buckets)
+        rec = recs1[rid]
+        check(rec["status"] == "ok" and rec["placement"] == "mega",
+              f"{rid} {rec['status']}")
+        total, kf, padded, per = mega_launches(cfg, (1,) * cfg.ndim, 16)
+        check(l1[name] == total, f"{rid}: {l1[name]} {name} launches, "
+                                 f"expected {total}")
+        chunks = rec["usage"]["chunks"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            T = solve(cfg.with_(backend="cuda"), device="cuda").T
+        same = np.array_equal(host_bits(T), host_bits(rec["T"]))
+        check(same, f"{rid} is not the run --backend cuda field")
+        del T
+        rate = cell_steps(r) / wall1
+        trace = WORK / f"{rid}.trace.json"
+        mega_serve([r], buckets=buckets, trace=str(trace))
+        split = trace_split(trace, None)
+        # the share of the profiled run's own drain wall
+        busy = mega_busy(lambda: mega_serve([r], buckets=buckets)[2])
+        share = None if busy is None else busy["busy_s"] / busy["wall_s"]
+        out["requests"][rid] = dict(
+            wall_s=wall1, cell_steps_per_s=rate, run_points_per_s=twin[rid],
+            chunks=chunks, launches=l1[name], launches_per_chunk=per,
+            kf=kf, padded=padded, host_ms_per_chunk=split["host_ms_per_chunk"],
+            fetch_ms_per_chunk=split["fetch_ms_per_chunk"],
+            busy=busy, busy_share=share)
+        print(f"  {rid} ({cfg.n}^{cfg.ndim} {cfg.dtype} x {cfg.ntime}, "
+              f"--buckets {','.join(map(str, buckets))}): {rate:.6g} served "
+              f"cell-steps/s in {wall1:.3f} s against run --backend cuda "
+              f"{twin[rid]:.6g} points/s ({rate / twin[rid]:.4f}x); field "
+              f"byte-equal to the run; {chunks} chunks, {l1[name]} {name} "
+              f"launches ({l1[name] / chunks:.4f} a chunk; the pass schedule "
+              f"gives {per} by chunk size at {'x'.join(map(str, padded))}, "
+              f"kf {kf}); host {split['host_ms_per_chunk']:.4f} ms + fetch "
+              f"{split['fetch_ms_per_chunk']:.4f} ms a chunk; card busy "
+              + ("not measured" if busy is None else
+                 f"{busy['busy_s']:.6f} s = {share:.1%} of the profiled "
+                 f"run's {busy['wall_s']:.3f} s of wall ("
+                 f"{name} {busy['kernel_s']:.6f} s, other {busy['other_s']:.6f}"
+                 f" s)") + f" on {smi}")
+        del eng, recs1
+        torch.cuda.empty_cache()
+
+    # 6. hip.dat on 2x2 shards of the one card: the mega mesh through the
+    # mega_device_count seam set to 4; the field's digest goes to phase 7
+    with mock.patch.object(sch, "mega_device_count", lambda device: 4):
+        eng, rh, wall_h, lh = mega_serve([MEGA_HIP], buckets=(256,))
+    rec = rh["mega-hip"]
+    check(rec["status"] == "ok" and rec["placement"] == "mega",
+          f"hip.dat mega {rec['status']}: {rec.get('error')}")
+    total, kf, padded, per = mega_launches(mega_config(MEGA_HIP), (2, 2), 16)
+    check(lh["ftcs2d"] == total, f"hip.dat mega: {lh['ftcs2d']} ftcs2d "
+                                 f"launches, expected {total}")
+    digest = hashlib.sha256(host_bits(rec.pop("T"))).hexdigest()
+    del eng, rh
+    torch.cuda.empty_cache()
+    # one 16-step chunk alone (CUDA events around dispatch and fetch), and
+    # the device seconds of two chunks by kernel and the rest (exchanges,
+    # the stats)
+    eng = MegaLaneEngine(mega_config(MEGA_HIP), 4, 16, device="cuda",
+                         cache={})
+
+    def chunk():
+        return fetch_boundary(eng.dispatch_chunk(16), timeout_s=600)
+
+    def two_chunks():
+        chunk()
+        chunk()
+
+    chunk_ms = event_ms(chunk, 2)
+    hip_busy = mega_busy(two_chunks)
+    del eng
+    torch.cuda.empty_cache()
+    rate = cell_steps(MEGA_HIP) / wall_h
+    out["requests"]["mega-hip"] = dict(wall_s=wall_h, cell_steps_per_s=rate,
+                                       chunks=rec["usage"]["chunks"],
+                                       launches=lh["ftcs2d"], kf=kf,
+                                       padded=padded, digest=digest,
+                                       chunk_ms=chunk_ms, busy=hip_busy)
+    print(f"  mega-hip (32768^2 f32 x 128 ghost, 2x2 shards on the one "
+          f"card): {rate:.6g} served cell-steps/s in {wall_h:.3f} s (the "
+          f"IC, 8 chunks, the crop and the 4 GiB copy to the host), "
+          f"{rec['usage']['chunks']} chunks, {lh['ftcs2d']} ftcs2d launches "
+          f"({per} a chunk) at {'x'.join(map(str, padded))} kf {kf}; one "
+          f"chunk {chunk_ms:.4f} ms, "
+          + ("device not measured" if hip_busy is None else
+             f"device {hip_busy['busy_s'] / 2 * 1e3:.4f} ms a chunk (ftcs2d "
+             f"{hip_busy['kernel_s'] / 2 * 1e3:.4f} ms, other "
+             f"{hip_busy['other_s'] / 2 * 1e3:.4f} ms)")
+          + f"; sha256 {digest[:16]} (held against phase 7's 2x2 run) on "
+          f"{smi}")
+
+    # 7. faults on 4096^2 f32 x 512: lane-nan healed by rollback; the
+    # handoff drain with the mega occupant in flight, then serve --resume
+    # in a new process
+    cfg = mega_config(MEGA_FAULT)
+    with contextlib.redirect_stdout(io.StringIO()):
+        clean = solve(cfg.with_(backend="cuda"), device="cuda").T
+    with contextlib.redirect_stdout(io.StringIO()):
+        eng, rr, _, _ = mega_serve([MEGA_FAULT], on_nan="rollback",
+                                   inject="lane-nan@100:req=mega-fault")
+    rec = rr["mega-fault"]
+    same = rec["status"] == "ok" and np.array_equal(host_bits(rec["T"]),
+                                                    host_bits(clean))
+    print(f"  lane-nan@100 under --serve-on-nan rollback: {rec['status']}, "
+          f"{eng.rollbacks} rollback(s), byte-equal to the clean run {same}")
+    check(same and eng.rollbacks == 1, "the mega rollback did not heal")
+    ck = WORK / "mega-ckpt"
+    held, asked = [], threading.Event()
+    orig = sch.MegaLaneRunner.process_boundary
+
+    def gated(self):
+        orig(self)
+        held.append(1)
+        if len(held) == 4:
+            asked.wait(120)
+
+    with mock.patch.object(sch.MegaLaneRunner, "process_boundary", gated):
+        eng = Engine(ServeConfig(lanes=8, chunk=16, mega_lanes=1,
+                                 emit_records=False, engine_ckpt_dir=str(ck)),
+                     device="cuda")
+        eng.submit(cfg, request_id="mega-fault")
+        eng.start()
+        try:
+            for _ in range(12000):
+                if len(held) >= 4 or not eng.online:
+                    break
+                time.sleep(0.01)
+            check(len(held) >= 4, "the handoff never reached its hold")
+            eng.begin_drain(handoff=True)
+        finally:
+            asked.set()
+            check(eng.shutdown(timeout=300), "the handoff drain hung")
+    man, _ = ckpt.latest_engine_manifest(ck)
+    (entry,) = man["inflight"]
+    check(entry["placement"] == "mega" and 0 < entry["remaining"] < 512,
+          f"handoff manifest {entry}")
+    out_r = WORK / "serve-mega-resume"
+    proc = subprocess.run(
+        [sys.executable, "-m", "heat_tpu_torch", "serve", "--resume",
+         str(ck), "--out-dir", str(out_r), "--mega-lanes", "1", "--json",
+         *SERVE_ARGS], cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+        capture_output=True, text=True, timeout=600)
+    rows = [json.loads(x) for x in proc.stdout.splitlines()
+            if x.startswith("{")]
+    (rec,) = [r for r in rows if r.get("event") == "serve_request"]
+    with np.load(out_r / "mega-fault.npz") as z:
+        same = np.array_equal(host_bits(z["T"]), host_bits(clean))
+    print(f"  handoff with the mega occupant in flight ({entry['remaining']} "
+          f"steps left at generation {man['generation']}), serve --resume in "
+          f"a new process: rc {proc.returncode}, {rec['status']}, resumed "
+          f"{rec['resumed']}, byte-equal to the clean run {same}")
+    check(proc.returncode == 0 and rec["status"] == "ok" and rec["resumed"]
+          and same, f"the mega resume failed: {proc.stderr[-2000:]}")
+    del clean
+
+    # 8. each mega block's kernel against its plain version, one chunk of
+    # the 4096^2 and 512^3 mega shapes in f32 and bf16: boundary vector
+    # and field bytes; the f32 rows' pass times for the kernels line
+    for r in (MEGA_F32, MEGA_3D):
+        for dtype in ("float32", "bfloat16"):
+            cfg = mega_config(dict(r, dtype=dtype))
+            name = cs._KERNELS[cfg.ndim]
+
+            def one_chunk():
+                eng = MegaLaneEngine(cfg, 1, 16, device="cuda", cache={})
+                b = fetch_boundary(eng.dispatch_chunk(16), timeout_s=600)
+                return b, fetch_boundary(eng.final_snapshot(), timeout_s=600)
+
+            cs.reset_launches()
+            gb, gT = one_chunk()
+            check(cs.launches[name] > 0, f"the mega chunk never launched {name}")
+            with mock.patch.object(sharded, "ftcs_multistep_bounded_cuda",
+                                   plain):
+                pb, pT = one_chunk()
+            same = gb.tobytes() == pb.tobytes() and np.array_equal(
+                host_bits(gT), host_bits(pT))
+            check(same, f"{name} mega chunk {cfg.n}^{cfg.ndim} {dtype} != plain")
+            del gT, pT
+            if dtype != "float32":
+                continue
+            _, kf, padded, _ = mega_launches(cfg, (1,) * cfg.ndim, 16)
+            # the chunk's deepest pass: its first block's
+            k = max(pass_schedule.passes(padded, dtype, min(kf, 15)))
+            bounds = sharded.shard_bounds(cfg.bc, (0,) * cfg.ndim,
+                                          (1,) * cfg.ndim, padded, kf)
+            A = field(padded, torch_dtype(dtype), seed=5)
+            B = torch.empty_like(A)
+            ms = event_ms(lambda: cs._launch(A, cfg.r, k, bounds, B), 10)
+            one_ms = event_ms(lambda: cs._launch(A, cfg.r, 1, bounds, B), 10)
+            plain_ms = event_ms(lambda: cs._pass(A, cfg.r, k, bounds,
+                                                 plain=True), 1)
+            bound_s, bound_by = dm.pass_bound_s(A.numel(), 4, k,
+                                                ndim=cfg.ndim)
+            out["kernels"][(name, padded)] = dict(
+                rid=r["id"], k=k, ms=ms, one_step_ms=one_ms,
+                plain_ms=plain_ms, bound_ms=bound_s * 1e3, bound_by=bound_by)
+            print(f"  {name} {'x'.join(map(str, padded))} f32 k={k} (the "
+                  f"mega chunk's block at kf {kf}): {ms:.4f} ms/pass, the "
+                  f"final 1-step pass {one_ms:.4f} ms (plain "
+                  f"{plain_ms:.2f} ms, bound {bound_s * 1e3:.4f} ms by "
+                  f"{bound_by}, {bound_s * 1e3 / ms:.1%} of it) on {smi}")
+            del A, B
+        torch.cuda.empty_cache()
+    print(f"  4 mega chunks (4096^2 and 512^3, f32 and bf16): kernel = plain "
+          f"version, boundary vectors and fields byte-equal")
+    print(f"[phase 5d] {time.perf_counter() - t0:.1f} s on {smi}")
+    return out
+
+
 def nan_bits_equal_cells(a, b):
     """Per cell: both NaN, or the same bytes."""
     return (a.isnan() & b.isnan()) | (bits(a) == bits(b))
@@ -2893,12 +3431,14 @@ def overlap_window(key, c, mesh, kf, comm, smi, blocks=3):
     return res
 
 
-def phase_sharded(smi):
+def phase_sharded(smi, mega_digest=None):
     """Phase 7, the sharded backend: hip.dat at full width (2x2 shards on
     the one card, staged and direct) and 512^3 (2x2x1) against the
     single-device cuda runs, bytes; the formulations at 8192^2; bf16
     against the plain bounded version on the card; the bounded kernels
-    with shard bounds; the multi-process worlds; exchange times."""
+    with shard bounds; the multi-process worlds; exchange times.
+    ``mega_digest`` is the sha256 of phase 5d's hip.dat mega-lane field
+    (2x2 shards), held against the first 2x2 run's."""
     import functools
     import itertools
     import math
@@ -2951,6 +3491,20 @@ def phase_sharded(smi):
             main[key] = (res.cfg, res.mesh_shape, rec["kf"])
             if T_indep is None:
                 T_indep = res.T
+                if mega_digest is not None:
+                    import hashlib
+
+                    import numpy as np
+
+                    got = hashlib.sha256(np.ascontiguousarray(
+                        res.T).view(np.uint8)).hexdigest()
+                    print(f"  32768^2 2x2 {comm} {form} vs phase 5d's "
+                          f"mega-lane (2x2): sha256 {got[:16]} / "
+                          f"{mega_digest[:16]}, byte-equal "
+                          f"{got == mega_digest}")
+                    check(got == mega_digest, "phase 5d's hip.dat "
+                          "mega-lane is not the 2x2 sharded field")
+                    mega_digest = None
             del res
             torch.cuda.empty_cache()
         ratio = (out["runs"][f"32768 2x2 {comm} overlap"]["points_per_s"]
@@ -3404,22 +3958,28 @@ def main() -> int:
             shutil.rmtree(WORK, ignore_errors=True)
         print(f"chip_smoke --worlds: ok in {time.perf_counter() - t0:.1f} s")
         return 0
+    plain = start_plain_serve()
     try:
         phase_build()
         phase_card_tests()
         errs = phase_compare()
+        serve_plain = plain_serve_result(plain)
         times = phase_times()
         errs.update(phase_lane_compare())
         times.update(phase_lane_times())
         runs = phase_main_path(smi)
         phase_oracle()
-        serve = phase_serve(smi)
+        serve = phase_serve(smi, serve_plain)
         phase_serve_semantics(smi, serve)
         phase_serving_front(smi, serve)
+        mega = phase_mega(smi, serve, runs)
         lab_errs = phase_lab_compare()
         lab_rows, lab_launches = phase_lab(smi)
-        shard = phase_sharded(smi)
+        shard = phase_sharded(smi, mega["requests"]["mega-hip"]["digest"])
     finally:
+        if plain.poll() is None:
+            plain.kill()
+            plain.wait()
         shutil.rmtree(WORK, ignore_errors=True)
     print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
 
@@ -3507,6 +4067,25 @@ def main() -> int:
             launches=launches, max_abs_err=t["err"],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=None))
+    # the mega-lanes (phase 5d): ftcs2d on the 4096^2 mega request's padded
+    # shard, ftcs3d on the 512^3 one's, at the chunk's deepest pass (ms,
+    # plain and bound of that pass, one_step_ms of the chunk's final
+    # step); launches those of the co-scheduled serve (ftcs2d: both
+    # 4096^2 mega requests) and of the 512^3 mega serve (ftcs3d); the
+    # kernel equalled its plain version byte for byte on one chunk of
+    # each shape, f32 and bf16
+    for (name, shape), t in mega["kernels"].items():
+        launches = (mega["corun_launches"]["ftcs2d"] if name == "ftcs2d"
+                    else mega["requests"][t["rid"]]["launches"])
+        check(launches > 0, f"the mega path never launched {name}")
+        kernels.append(dict(
+            name=(f"{name} {'x'.join(map(str, shape))} f32 k={t['k']} "
+                  f"(mega-lane {t['rid']})"),
+            route="cuda", source=SOURCES[name],
+            replaces=K1 if name == "ftcs2d" else K3, launches=launches,
+            max_abs_err=0.0, ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+            one_step_ms=t["one_step_ms"]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -480,6 +480,90 @@ def _chunked_advance(step, kf: int):
     return advance, warm
 
 
+def make_mega_machinery(cfg: HeatConfig, comm):
+    """``(seed, advance, crop, kf, kernel)``: the padded-carry machinery in
+    the serve dispatch contract (``serve/engine.MegaLaneEngine``), one
+    request spanning every shard of ``comm`` as a *mega-lane*.
+
+    ``seed(owned)`` pads each owned block at width ``kf`` into a
+    ``ShardField``. ``advance(F, rem, k)`` runs ``k`` steps and returns
+    ``(F', rem', boundary)``:
+
+    - the blocks are cut as the reference's mega chunk cuts them:
+      ``divmod(k - 1, kf)`` fused blocks of ``kf`` steps, the remainder
+      block, then the chunk's final step as a block of its own, so the
+      owned cells from before it are at hand for the residual. Owned cells
+      do not depend on where a chunk is cut in f32 and f64; in bf16 every
+      block (and every pass inside one, planned at the padded shard shape)
+      is a rounding point, so a bf16 mega field is the reference's
+      mega-lane's, not the solo drive's;
+    - ``rem`` is a ``(1,)`` int32 countdown on the first shard's device,
+      ``rem' = max(rem - k, 0)``;
+    - ``boundary`` is the ``(K_BOUNDARY, 1)`` int32 vector of
+      ``serve/engine.pack_boundary``: the finite bit over every shard's
+      OWNED cells (the garbage margins never vote), and the float32 stats
+      ``max |own - prev_own|``, ``min``, ``max`` and ``sum`` per shard,
+      merged across shards by max / min / max / sum. They are torch
+      reductions, as the reference takes them in XLA outside its kernels.
+
+    Every block's output is a fresh tensor (the exchange writes only the
+    input's margins), so the owned cells before the final step stay intact
+    while it runs. ``crop(F)`` assembles the owned global field on the
+    first shard's device. ``kernel`` is the resolved local kernel."""
+    from ..serve.engine import pack_boundary
+
+    mesh = comm.mesh
+    validate_divisible(cfg.n, mesh)
+    kf = fuse_depth_sharded(cfg, mesh.shape)
+    nd = cfg.ndim
+    kernel = resolve_local_kernel(
+        cfg, comm, [cfg.n // s + 2 * kf for s in mesh.shape])
+    padded_multi = make_local_multistep(cfg, comm, kernel)
+    ctr = (slice(kf, -kf),) * nd
+    head = comm.devices[0]
+
+    def seed(owned: Sequence[torch.Tensor]) -> ShardField:
+        return ShardField([halo_pad(s, cfg.bc_value, kf) for s in owned],
+                          comm, cfg.n, kf)
+
+    def advance(F: ShardField, rem: torch.Tensor, k: int):
+        shards = F.shards
+        if k > 1:
+            n_fused, r_ = divmod(k - 1, kf)
+            for _ in range(n_fused):
+                shards = padded_multi(shards, kf, kf)
+            if r_:
+                shards = padded_multi(shards, kf, r_)
+        prev = shards
+        shards = padded_multi(shards, kf, 1)
+        fins, stats = [], []
+        for p, q in zip(shards, prev):
+            own = p[ctr]
+            o32 = own.float()
+            fins.append(torch.isfinite(own).all())
+            lo, hi = torch.aminmax(o32)
+            stats.append(torch.stack([
+                torch.sub(o32, q[ctr].float()).abs_().amax(), lo, hi,
+                o32.sum()]).to(head))
+        del prev
+        F.shards = shards
+        per = torch.stack(stats, dim=1)
+        merged = torch.stack([per[0].amax(), per[1].amin(), per[2].amax(),
+                              per[3].sum()]).reshape(4, 1)
+        finite = torch.stack([f.to(head) for f in fins]).all().reshape(1)
+        rem2 = torch.clamp(rem - k, min=0)
+        return F, rem2, pack_boundary(rem2, finite.to(torch.int32), merged)
+
+    def crop(F: ShardField) -> torch.Tensor:
+        out = torch.empty((cfg.n,) * nd, dtype=F.shards[0].dtype,
+                          device=head)
+        for rank, o in zip(comm.ranks, F.owned()):
+            out[mesh.block(rank, cfg.n)] = o
+        return out
+
+    return seed, advance, crop, kf, kernel
+
+
 def make_parity_machinery(cfg: HeatConfig, comm):
     """``(seed, step)`` of the literal update-then-swap order: the carried
     state is the width-1 padded field; every step updates all owned cells

@@ -173,6 +173,17 @@ def build_parser() -> argparse.ArgumentParser:
                        help="comma-separated grid-side buckets; a request "
                             "is padded up to the smallest side that fits "
                             "(default 256,512,1024)")
+    serve.add_argument("--mega-lanes", dest="mega_lanes", default="auto",
+                       metavar="auto|N",
+                       help="second placement tier: requests whose side "
+                            "overflows every bucket run as mega-lanes — ONE "
+                            "request over every shard of the device mesh "
+                            "(the sharded padded-carry advance, one shard "
+                            "per card) co-scheduled with the packed lanes "
+                            "— instead of being rejected. N = concurrent "
+                            "mega-lane slots; 'auto' (default) = 1 on a "
+                            "host with several cards, 0 on one card or the "
+                            "CPU; 0 keeps the bucket-overflow rejection")
     serve.add_argument("--dispatch-depth", default="on", metavar="on|off|N",
                        help="chunks kept in flight per bucket group: 'on' "
                             "(default) = 2; N >= 1 explicitly; 'off' = "
@@ -573,6 +584,14 @@ def _serve_report(summary: dict, ok: int, args) -> None:
                  f"{summary.get('rejected', 0)} rejected, {failed} failed "
                  f"(device {summary['device']}, {summary['compile_s']:.3f}s "
                  f"loading kernels)")
+    pl = summary.get("placement") or {}
+    if pl.get("mega") or summary.get("mega_compiles"):
+        master_print(f"placement: {pl.get('packed', 0)} packed, "
+                     f"{pl.get('mega', 0)} mega (mesh-spanning sharded "
+                     f"lanes; {summary.get('mega_lanes', 0)} slot(s), "
+                     f"{summary.get('mega_compiles', 0)} mega machinery "
+                     f"build(s), {summary.get('mega_chunks', 0)} mega "
+                     f"chunk(s))")
     passes = summary.get("lane_passes") or {}
     master_print(f"dispatch: depth {summary['dispatch_depth']}, "
                  f"policy {summary['policy']}, "
@@ -650,8 +669,9 @@ def cmd_serve(args) -> int:
     from its newest valid checkpoint, before any file row or HTTP
     request."""
     from .backends import resolve_device
-    from .config import (parse_dispatch_depth, parse_listen, parse_on_off,
-                         parse_slo_targets, parse_tenant_weights)
+    from .config import (parse_dispatch_depth, parse_listen,
+                         parse_mega_lanes, parse_on_off, parse_slo_targets,
+                         parse_tenant_weights)
     from .serve import Engine, ServeConfig, serve_requests
 
     path = None
@@ -676,6 +696,7 @@ def cmd_serve(args) -> int:
                                                         args.trace_buffer)
         scfg = ServeConfig(lanes=args.lanes, chunk=args.chunk,
                            buckets=buckets, out_dir=args.out_dir,
+                           mega_lanes=parse_mega_lanes(args.mega_lanes),
                            dispatch_depth=parse_dispatch_depth(
                                args.dispatch_depth),
                            on_nan=args.serve_on_nan,
@@ -1078,6 +1099,23 @@ def cmd_info(_args) -> int:
     print(f"native fastio: "
           f"{'available' if native_available() else 'unavailable (numpy fallback)'}")
     print(describe())
+    # two-tier placement: where a bucket-overflow request goes on THIS
+    # host — the mesh a mega-lane would span and the auto default
+    from .parallel.mesh import auto_mesh_shape
+    from .serve import ServeConfig
+    from .serve.scheduler import mega_device_count
+
+    sd = ServeConfig()
+    ndev = mega_device_count(torch.device(
+        "cuda" if torch.cuda.is_available() else "cpu"))
+    mshape = "x".join(map(str, auto_mesh_shape(ndev, 2)))
+    print(f"serve placement: two-tier — packed lanes up to bucket "
+          f"{max(sd.buckets)}, then sharded mega-lanes spanning the "
+          f"{ndev}-device mesh ({mshape} for 2D); mega-lanes default "
+          f"{1 if ndev > 1 else 0} on this host (--mega-lanes auto|N; 0 = "
+          f"overflow stays a rejection"
+          + (", the single-device behavior); " if ndev <= 1 else "); ")
+          + "mega side must divide the mesh axes")
     return 0
 
 

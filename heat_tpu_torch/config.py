@@ -383,6 +383,25 @@ def parse_dispatch_depth(v) -> int:
     return n
 
 
+def parse_mega_lanes(v) -> Optional[int]:
+    """``--mega-lanes`` grammar (serve CLI): ``auto`` (default) -> None,
+    resolved by the engine to 1 on a multi-device host and 0 on a
+    single-device one; an integer N >= 0 pins the concurrent mega-lane
+    budget (0 = bucket overflow stays a rejection)."""
+    s = str(v).strip().lower()
+    if s == "auto":
+        return None
+    try:
+        n = int(s)
+    except ValueError:
+        raise ValueError(
+            f"--mega-lanes must be 'auto' or an integer >= 0, got {v!r}"
+        ) from None
+    if n < 0:
+        raise ValueError(f"--mega-lanes must be >= 0, got {n}")
+    return n
+
+
 def config_from_request(d) -> HeatConfig:
     """Build a HeatConfig from one parsed serve-request object.
 

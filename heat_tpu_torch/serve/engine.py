@@ -1,7 +1,9 @@
 """Stacked simulation lanes: the device half of the serving engine.
 
-The counterpart of ``heat_tpu.serve.engine`` (packed lanes; mega-lanes are
-not ported). One chunk steps up to ``L`` independent solve requests at once.
+The counterpart of ``heat_tpu.serve.engine``: packed lanes, and the
+mega-lane (``MegaLaneEngine``, at the end of this module) for a request that
+overflows every bucket. One chunk steps up to ``L`` independent solve
+requests at once.
 The requests of one *bucket* (same ndim/dtype/BC, grid side <= the bucket
 side ``B``) are stacked into a single ``(L, B+2, ..., B+2)`` tensor — each
 lane carries its request's field in the ``[1 : 1+n]`` corner of a
@@ -213,6 +215,17 @@ def make_lane_advance(key: BucketKey, kernel: str):
     return advance
 
 
+def _host_tensor(field, dtype: torch.dtype) -> torch.Tensor:
+    """A host field (numpy, or a tensor) as a CPU tensor of ``dtype``; a
+    ``V2`` array holds bf16 bits and is taken bit for bit."""
+    if isinstance(field, torch.Tensor):
+        return field.to(dtype)
+    a = np.ascontiguousarray(field)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a).to(dtype)
+
+
 def make_lane_loader(key: BucketKey):
     """The lane swap: install one request into lane ``lane`` of the stack,
     in place and on the stack's device — fill the lane buffer with
@@ -228,14 +241,9 @@ def make_lane_loader(key: BucketKey):
         buf.fill_(bc_value)
         corner = buf[(slice(1, 1 + n_new),) * nd]
         if isinstance(field, np.ndarray):
-            field = np.ascontiguousarray(field)
-            if field.dtype.kind == "V" and field.dtype.itemsize == 2:
-                # bf16 bits as stored (a checkpoint field, a cache entry):
-                # installed as they are, no rounding
-                field = torch.from_numpy(field.view(np.int16)).view(
-                    torch.bfloat16)
-            else:
-                field = torch.from_numpy(field)
+            # bf16 bits as stored (a checkpoint field, a cache entry) are
+            # installed as they are, no rounding
+            field = _host_tensor(field, buf.dtype)
             if buf.device.type == "cuda":
                 field = field.pin_memory()
         corner.copy_(field, non_blocking=True)
@@ -458,6 +466,172 @@ def fetch_boundary(handle, timeout_s: Optional[float] = None, plan=None,
     from ..runtime.async_io import bounded_call
 
     return bounded_call(fetch, timeout_s, "serve boundary fetch")
+
+
+class MegaLaneEngine:
+    """Device half of ONE mega-lane occupant: a request that overflows
+    every bucket runs over ``nshards`` shards (a ``LocalComm`` from
+    ``backends/sharded.make_comm``, on the engine's device: one shard per
+    card, or several time-sharing one) through the sharded padded-carry
+    advance, in the dispatch contract ``LaneEngine`` gives packed lanes:
+    ``dispatch_chunk(k)`` enqueues one k-step chunk and returns the handle
+    of its ``(K_BOUNDARY, 1)`` boundary vector's host copy (remaining
+    steps, the owned cells' finite bit, the numerics stats) with no host
+    round trip; ``fetch_boundary`` is the only wait. One mega-lane is a
+    bucket group of one lane whose "bucket" is the mesh.
+
+    Its bytes are the machinery's (``sharded.make_mega_machinery``): the
+    initial state is the device-built IC of each shard's block, seeded as
+    the solo sharded drive seeds it, and in f32/f64 owned cells do not
+    depend on where a chunk is cut, so the field equals a solo sharded or
+    single-device run of the same config.
+
+    The machinery is built once per (config geometry, mesh, exchange,
+    comm, local kernel, fuse depth) and cached engine-wide in ``cache``;
+    ``on_compile(seconds)`` fires for each build, so re-admitting the same
+    oversized config builds nothing. Nothing is compiled per chunk size:
+    the kernels are built once per checkout."""
+
+    def __init__(self, cfg, nshards: int, chunk: int, device=None,
+                 cache: Optional[dict] = None, on_compile=None):
+        from ..backends import resolve_device
+        from ..backends.sharded import make_comm
+
+        self.cfg = cfg
+        self.chunk = chunk
+        device = resolve_device(device)
+        # the mega mesh spans the shards, whatever mesh the request names
+        comm = make_comm(cfg.with_(mesh_shape=None), device,
+                         virtual_devices=nshards)
+        self._cache = cache if cache is not None else {}
+        self._ckey = ("mega", cfg.ndim, cfg.n, cfg.dtype, cfg.bc,
+                      repr(cfg.bc_value), repr(float(cfg.r)),
+                      tuple(comm.mesh.shape), cfg.exchange, cfg.comm,
+                      cfg.local_kernel, cfg.fuse_steps, str(device))
+        m = self._cache.get(self._ckey)
+        if m is None:
+            from ..backends.sharded import make_mega_machinery
+            from ..runtime import prof
+
+            t0 = time.perf_counter()
+            seed, advance, crop, kf, kernel = make_mega_machinery(cfg, comm)
+            m = {"comm": comm, "seed": seed, "advance": advance,
+                 "crop": crop, "kf": kf, "kernel": kernel}
+            if kernel == "cuda" and device.type == "cuda":
+                from ..ops import _build
+
+                _build.load("ftcs2d" if cfg.ndim == 2 else "ftcs3d")
+            spent = time.perf_counter() - t0
+            self._cache[self._ckey] = m
+            prof.compile_log().note(
+                f"mega {cfg.ndim}d n{cfg.n} {cfg.dtype} {cfg.bc} mesh "
+                f"{'x'.join(map(str, comm.mesh.shape))} machinery", 0, spent)
+            if on_compile is not None:
+                on_compile(spent)
+        self.comm = m["comm"]
+        self.kf = m["kf"]
+        self.kernel = m["kernel"]
+        self._seed, self._advance, self._crop = (m["seed"], m["advance"],
+                                                 m["crop"])
+        self._head = self.comm.devices[0]
+        self.reload()
+
+    def _countdown(self, steps: int) -> torch.Tensor:
+        return torch.tensor([int(steps)], dtype=torch.int32,
+                            device=self._head)
+
+    def _blocks(self):
+        mesh = self.comm.mesh
+        return [mesh.block(rank, self.cfg.n) for rank in self.comm.ranks]
+
+    # --- state lifecycle --------------------------------------------------
+    def reload(self) -> None:
+        """(Re)build the carried state from the initial condition, each
+        shard's block built on its device — admission, and a rollback with
+        no verified boundary yet."""
+        from ..grid import initial_condition_device
+
+        self._F = self._seed([initial_condition_device(self.cfg, dev, blk)
+                              for dev, blk in zip(self.comm.devices,
+                                                  self._blocks())])
+        self._rem = self._countdown(self.cfg.ntime)
+
+    def load(self, T, steps_left: int) -> None:
+        """Seed the carried state from a host field with ``steps_left``
+        steps to go (engine-checkpoint resume, a solve-cache prefix): the
+        continuation at a chunk boundary is byte-equal to an uninterrupted
+        run, as owned cells do not depend on where a chunk is cut."""
+        T = _host_tensor(T, torch_dtype(self.cfg.dtype))
+        self._F = self._seed([T[blk].to(dev)
+                              for dev, blk in zip(self.comm.devices,
+                                                  self._blocks())])
+        self._rem = self._countdown(steps_left)
+
+    def dispatch_chunk(self, k: int):
+        """Enqueue one k-step chunk over every shard and return the handle
+        of its boundary vector's host copy — no fence."""
+        self._F, self._rem, boundary = self._advance(self._F, self._rem, k)
+        return d2h_async(boundary)
+
+    def _hold(self, F):
+        """``F``'s shards, restorable (rollback bookkeeping). Every block
+        writes fresh output tensors, and the exchange before a block
+        refills every margin from owned cells, so nothing writes a held
+        shard's owned cells (the chaos writes copy their shard first): the
+        shards are held by reference. ``--exchange overlap`` is the
+        exception: its blocks write into the input of the block before, so
+        there the shards are copied."""
+        if self.cfg.exchange == "overlap":
+            return F.clone()
+        return type(F)(list(F.shards), F.comm, F.n, F.margin)
+
+    def snapshot_state(self):
+        """The carried shards at this boundary (rollback mode only)."""
+        return self._hold(self._F)
+
+    def restore(self, snap, steps_left: int) -> None:
+        """Roll back to a verified-finite boundary."""
+        self._F = self._hold(snap)
+        self._rem = self._countdown(steps_left)
+
+    def final_snapshot(self):
+        """The owned global field, assembled on the first shard's device
+        behind the chunks in flight, and its copy to the host started; the
+        writer thread waits for it (``extract``)."""
+        return d2h_async(self._crop(self._F))
+
+    @staticmethod
+    def extract(snap) -> np.ndarray:
+        """The host field of a ``final_snapshot`` (writer thread). Static,
+        so a writeback closure holds the cropped field, never the padded
+        shards."""
+        return host_fetch(snap)
+
+    def _centre(self):
+        """(shard, its padded index) of the owned centre cell. The shard is
+        a copy of the live one put in its place, so that a chaos write
+        never reaches a held snapshot (``_hold``)."""
+        F, mesh = self._F, self.comm.mesh
+        idx = (self.cfg.n // 2,) * self.cfg.ndim
+        for i, (rank, s) in enumerate(zip(self.comm.ranks, F.shards)):
+            blk = mesh.block(rank, self.cfg.n)
+            if all(b.start <= j < b.stop for b, j in zip(blk, idx)):
+                F.shards[i] = s = s.clone()
+                return s, tuple(j - b.start + F.margin
+                                for b, j in zip(blk, idx))
+        raise AssertionError("no shard owns the centre cell")
+
+    def poison_center(self) -> None:
+        """Chaos only (``lane-nan`` on a mega request): the owned centre
+        cell becomes NaN, enqueued after the chunks in flight."""
+        s, idx = self._centre()
+        s[idx] = float("nan")
+
+    def perturb_center(self, eps: float) -> None:
+        """Chaos only (``perturb`` on a mega request): add a finite bump
+        (in the field's dtype) to the owned centre cell."""
+        s, idx = self._centre()
+        s[idx] = s[idx] + torch.tensor(eps, dtype=s.dtype, device=s.device)
 
 
 def lane_state_from_reference(fields: np.ndarray, r, n, rem, key: BucketKey):

@@ -155,7 +155,7 @@ def render_metrics(engine: Engine) -> str:
            or [([("status", "ok")], 0)])
     metric("heat_tpu_serve_requests_by_placement_total", "counter",
            "Requests by placement tier: packed = stacked bucket lanes, "
-           "mega = mesh-spanning sharded mega-lane (not in this port).",
+           "mega = mesh-spanning sharded mega-lane.",
            [([("placement", p)], c)
             for p, c in sorted((s.get("placement") or {}).items())]
            or [([("placement", "packed")], 0)])

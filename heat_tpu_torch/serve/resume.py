@@ -42,8 +42,8 @@ from ..runtime import checkpoint as ckpt_mod
 from ..runtime.logging import json_record, master_print
 
 
-# A manifest the reference wrote names its own backends; the lanes ignore
-# the field (it is not in the fingerprint), so each maps to its counterpart
+# A manifest the reference wrote names its own backends and shard kernels;
+# neither is in the fingerprint, so each maps to its counterpart
 _REFERENCE_BACKENDS = {"xla": "torch", "pallas": "cuda"}
 
 
@@ -54,8 +54,9 @@ def config_from_manifest(d: dict) -> HeatConfig:
     d = dict(d)
     if d.get("mesh_shape") is not None:
         d["mesh_shape"] = tuple(int(x) for x in d["mesh_shape"])
-    if d.get("backend") in _REFERENCE_BACKENDS:
-        d["backend"] = _REFERENCE_BACKENDS[d["backend"]]
+    for field in ("backend", "local_kernel"):
+        if d.get(field) in _REFERENCE_BACKENDS:
+            d[field] = _REFERENCE_BACKENDS[d[field]]
     return HeatConfig(**d)
 
 

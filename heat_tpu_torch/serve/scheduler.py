@@ -1,6 +1,6 @@
 """Admission queue + shape bucketing + dispatch-ahead continuous batching.
 
-The core of ``heat_tpu.serve.scheduler`` (offline drain, packed lanes). The
+The core of ``heat_tpu.serve.scheduler``: packed lanes and mega-lanes. The
 serving contract:
 
 - **Admission**: ``Engine.submit(cfg)`` validates a request against the
@@ -14,6 +14,19 @@ serving contract:
 - **Bucketing**: requests are grouped by ``BucketKey`` (ndim, smallest
   bucket side that fits, dtype, BC). One group = one stacked lane array;
   lane counts round UP to power-of-two tiers (``engine.lane_tier``).
+- **Two-tier placement**: a request whose side overflows every bucket is
+  admitted, where ``mega_lanes`` allows and its side shards evenly, to the
+  engine-wide mega queue and runs as a **mega-lane**: one request over
+  every shard of the device mesh (``mega_device_count()`` shards, a
+  ``LocalComm``) through the sharded padded-carry advance
+  (``MegaLaneRunner`` + ``engine.MegaLaneEngine``), under the packed
+  lanes' dispatch-ahead contract (boundary handle, dispatch depth,
+  countdown mirror, finite bit, deadline / quarantine / rollback /
+  watchdog: one mega-lane is a fault domain of one mesh). The run loops
+  round-robin mega slots with the bucket groups. ``mega_lanes`` auto is 1
+  on a host with several cards and 0 on one card or the CPU, where an
+  overflow stays a rejection carrying a ``hint``; every record, cost-model
+  row, usage stamp and ``/metrics`` count carries ``placement``.
 - **Continuous batching, dispatch-ahead**: the scheduler keeps
   ``dispatch_depth`` chunks in flight per group and inspects the boundary
   vector of the OLDEST one — copied to the host behind the newer chunks,
@@ -95,9 +108,6 @@ serving contract:
   request whose trajectory prefix is stored is seeded from it, and the
   lane kernels step only the delta.
 
-Not in this port yet (ROADMAP): mega-lanes and the bucket-overflow
-``hint`` that names them.
-
 Records are mutated from the scheduler thread and the writer thread; one
 engine-wide lock guards every record mutation and every record line, and
 backs the condition that the online loop and ``wait`` callers sleep on.
@@ -128,8 +138,9 @@ from ..runtime.checkpoint import savez_compressed
 from ..runtime.logging import json_record, master_print
 from . import policy as policy_mod
 from . import solvecache as solvecache_mod
-from .engine import (BucketKey, LaneEngine, lane_tier, resolve_lane_kernel,
-                     unpack_boundary, wall_clock)
+from .engine import (BucketKey, LaneEngine, MegaLaneEngine, fetch_boundary,
+                     lane_tier, resolve_lane_kernel, unpack_boundary,
+                     wall_clock)
 
 # Statuses a record can never leave.
 TERMINAL_STATUSES = ("ok", "rejected", "error", "nonfinite", "deadline")
@@ -237,6 +248,13 @@ class ServeConfig:
                               # <out_dir>/solve-cache, or ./solve-cache
     cache_max_bytes: int = 0  # LRU-evict the oldest entries once the
                               # entries exceed this (0 = unbounded)
+    mega_lanes: Optional[int] = None  # the second placement tier: how many
+                              # mega-lanes (one bucket-overflow request
+                              # over every shard of the device mesh) may
+                              # run at once. None = auto: 1 where
+                              # mega_device_count() > 1, else 0, where an
+                              # overflow stays a rejection; 0 restores the
+                              # rejection
 
     def __post_init__(self):
         if self.lanes < 1:
@@ -274,6 +292,10 @@ class ServeConfig:
         if self.lane_kernel not in LANE_KERNELS:
             raise ValueError(f"lane_kernel must be one of {LANE_KERNELS}, "
                              f"got {self.lane_kernel!r}")
+        if self.mega_lanes is not None and self.mega_lanes < 0:
+            raise ValueError(f"mega_lanes must be >= 0 (None = auto: 1 on "
+                             f"a multi-device mesh, 0 single-device), got "
+                             f"{self.mega_lanes}")
         if not self.steady_tol > 0:
             raise ValueError(f"steady_tol must be > 0, got "
                              f"{self.steady_tol}")
@@ -317,6 +339,16 @@ class ServeConfig:
 _MAX_LANE_ROLLBACKS = 2
 
 
+def mega_device_count(device) -> int:
+    """Shards a mega-lane spans on this host: one per card for an engine
+    on the card, 1 on the CPU. The seam the auto ``mega_lanes`` and the
+    overflow rejection's text resolve through (tests patch it to fake a
+    mesh)."""
+    import torch
+
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
 @dataclasses.dataclass
 class Request:
     """One admitted solve request."""
@@ -324,7 +356,9 @@ class Request:
     id: str
     cfg: HeatConfig
     submit_t: float
-    key: BucketKey
+    key: Optional[BucketKey] = None   # None for a mega-placed request (its
+                                      # "bucket" is the device mesh)
+    placement: str = "packed"         # "packed" (bucket lanes) | "mega"
     deadline_t: Optional[float] = None  # absolute wall deadline (engine
                                         # clock), from the request's
                                         # deadline_ms or the engine default
@@ -411,76 +445,44 @@ def _write_result(out_dir, req_id: str, T: np.ndarray, cfg: HeatConfig,
     return path
 
 
-class _GroupRunner:
-    """Dispatch-ahead continuous batching for ONE bucket group.
+class _Runner:
+    """What a bucket group (``_GroupRunner``) and a mega-lane slot
+    (``MegaLaneRunner``) share: the dispatch-ahead loop over the in-flight
+    deque of ``(seq, boundary-handle, predicted-vector, snapshot,
+    t_dispatch, k)``, the host countdown mirror (``dev_rem``) checked
+    against every fetch, the watched boundary fetch, the verdicts per lane
+    (health, completion or a steady exit, deadline, last-good), rollback
+    and quarantine, numerics ingestion, the synchronous fallback, and the
+    trace, device-idle and cost-model bookkeeping. A subclass names its
+    lanes in messages (``_where``), picks each chunk's k, and dispatches,
+    snapshots, rolls back, retires and frees its lanes."""
 
-    Owns the group's ``LaneEngine``, occupancy, the host-side countdown
-    mirror (``dev_rem`` — exact, because the device decrements remaining by
-    one per step while positive), and the in-flight deque of
-    ``(seq, boundary-handle, predicted-vector, snapshot, t_dispatch, k)``.
-    ``Engine.run`` drives many runners round-robin; each tick dispatches
-    until ``dispatch_depth`` chunks are queued, then takes at most one
-    boundary.
-    """
+    placement = "packed"
+    _kind = ""                  # "mega " in the mega tier's messages
 
-    def __init__(self, outer: "Engine", key: BucketKey, q,
-                 writer: "async_io.SnapshotWriter"):
+    def _init_loop(self, outer: "Engine", q,
+                   writer: "async_io.SnapshotWriter") -> None:
         self.outer = outer
-        self.key = key
         self.q = q
         self.writer = writer
         scfg = outer.scfg
         self.chunk = scfg.chunk
         self.depth = max(1, scfg.dispatch_depth)
         self.rollback = scfg.on_nan == "rollback"
-        self.lanes = lane_tier(min(len(q), scfg.lanes), scfg.lanes)
-        self.kernel, self._kernel_fb = resolve_lane_kernel(
-            scfg.lane_kernel, key, outer.device)
-        self.eng = self._engine(self.lanes)
-        # the kernel launches each chunk costs, counted on the host from k
-        # (the wrappers count what they launch): lanes2d/lanes3d by name
-        self._kernel_name = (cuda_lanes._KERNELS[key.ndim]
-                             if self.kernel == "cuda"
-                             and outer.device.type == "cuda" else None)
         self.seq = 0                        # next dispatch's sequence id
-        self._reset_lanes(self.lanes)
         self.inflight: collections.deque = collections.deque()
-        self.idle_from: Optional[float] = None  # group device queue empty
-                                                # since (boundary gaps only)
+        self.idle_from: Optional[float] = None  # device queue empty since
+                                                # (boundary gaps only)
         self.allow_growth = False   # the online loop opts in: offline run()
                                     # sizes runners from the full queue
-        # cost-observatory feed (runtime/prof.py): the model key names the
-        # bucket geometry; last_fetch_t makes the boundary service-time
-        # estimator exact under pipelining (prof.CostModel)
-        self.cost_label = f"{key.ndim}d/n{key.n}/{key.dtype}/{key.bc}"
+        # cost-observatory feed (runtime/prof.py): last_fetch_t makes the
+        # boundary service-time estimator exact under pipelining
+        # (prof.CostModel)
         self.last_fetch_t: Optional[float] = None
-        # trace tracks (runtime/trace.py): one process row per bucket
-        # group, one thread row per lane (the occupancy timeline) plus a
-        # dispatch row for chunk-in-flight / device-idle spans, registered
-        # once so the per-event path is append-only
         self.tracer = outer.tracer
-        self.track_name = (f"lanes {key.ndim}d n{key.n} "
-                           f"{key.dtype} {key.bc}")
-        self.group_track = self.tracer.track(self.track_name, "dispatch")
-        self.lane_tracks = [self.tracer.track(self.track_name, f"lane {i}")
-                            for i in range(self.lanes)]
-        self._fill()
-
-    def _engine(self, lanes: int) -> LaneEngine:
-        """A lane engine at tier ``lanes``. Rollback mode builds it
-        keep-input, so every post-chunk stack stays a restorable boundary
-        snapshot with no copy on the dispatch path. A kernel fallback is
-        recorded per (bucket, tier)."""
-        outer = self.outer
-        eng = LaneEngine(self.key, lanes, outer.scfg.chunk, kernel=self.kernel,
-                         device=outer.device, keep_input=self.rollback)
-        outer.compile_s += eng.compile_s
-        if self._kernel_fb is not None:
-            outer._note_lane_fallback(self.key, lanes, self._kernel_fb)
-        return eng
 
     def _reset_lanes(self, lanes: int) -> None:
-        """Fresh per-lane state for a tier of ``lanes`` lanes."""
+        """Fresh per-lane state for ``lanes`` lanes."""
         self.occupant: List[Optional[Request]] = [None] * lanes
         # first dispatch seq whose chunk covers the lane's CURRENT occupant:
         # an older in-flight chunk shows the previous occupant's (or the
@@ -489,8 +491,8 @@ class _GroupRunner:
         self.dev_rem = np.zeros(lanes, dtype=np.int64)
         # per-lane fault-domain state, (re)set at each admission: pending
         # lane-nan thresholds and (step, eps) perturb events, rollback
-        # retries left, and the last verified-finite boundary (stack
-        # snapshot, steps left)
+        # retries left, and the last verified-finite boundary (snapshot,
+        # steps left)
         self.nan_pending: List[List[int]] = [[] for _ in range(lanes)]
         self.perturb_pending: List[List[tuple]] = [[] for _ in range(lanes)]
         self.rb_left = [0] * lanes
@@ -503,128 +505,42 @@ class _GroupRunner:
         # per dispatch)
         self.lane_chunks = np.zeros(lanes, dtype=np.int64)
 
-    # --- admission into lanes --------------------------------------------
-    def _fill(self) -> None:
-        """Swap queued requests into every free lane (continuous batching).
-        The initial field is built on the engine's device and loaded behind
-        the chunks in flight. Queued requests already past their deadline
-        (or cancelled) are shed here."""
+    def _admit(self, lane: int, req: Request, rst: Optional[dict]) -> None:
+        """The fault-domain and numerics state of ``req``, admitted into
+        ``lane`` (from its IC, or from a resume payload ``rst``)."""
         outer = self.outer
-        if outer._ckpt_pause:
-            # checkpoint bubble: no admissions while the pipeline drains
-            # toward the consistent cut — queued requests belong to the
-            # manifest, not to a lane
-            return
-        for lane in range(self.lanes):
-            while self.occupant[lane] is None and self.q:
-                with outer._lock:
-                    req = self.q.pop()
-                    if req is None:
-                        break
-                    outer._queued_by_tenant[req.tenant] -= 1
-                    outer.admission_trace.append(req.id)
-                now = wall_clock()
-                tr = self.tracer
-                if tr.enabled:
-                    # queue-wait span (pop side): the request's wait under
-                    # this policy, id-paired per tenant track
-                    policy_mod.note_pop(tr, outer.scfg.policy, req, now)
-                cut = outer._deadline_cut(req, now)
-                if cut is not None:
-                    if tr.enabled:
-                        tr.instant("deadline-shed", self.group_track,
-                                   trace_id=req.trace_id,
-                                   args={"id": req.id}, ts=now)
-                    outer._fail_request(
-                        req, "deadline",
-                        "deadline: cancelled (deadline-preemption) while "
-                        "still queued (never admitted)"
-                        if cut == "cancelled" else
-                        f"deadline: exceeded its "
-                        f"{1e3 * (req.deadline_t - req.submit_t):.0f} ms "
-                        f"budget while still queued (never admitted)")
-                    outer.deadline_misses += 1
-                    continue
-                if tr.enabled:
-                    tr.flow("t", self.lane_tracks[lane], req.trace_id,
-                            ts=now)
-                rec = outer._by_id[req.id]
-                with outer._lock:
-                    rec["lane"] = lane
-                    rec["queue_wait_s"] = round(now - req.submit_t, 6)
-                    rec["status"] = "running"
-                    rec["_start_t"] = now
-                # an engine-state resume or a cache prefix re-seeds the
-                # lane from its stored field (the maybe_grow transplant
-                # contract: the lanes round to storage every step, so the
-                # continuation is byte-equal to an uninterrupted run) and
-                # its chunk meter continues; else it restarts at 0
-                rst, req.restore = req.restore, None
-                self._load_ic(lane, req, rst)
-                self.lane_chunks[lane] = int((rst or {}).get("chunks", 0))
-                self.occupant[lane] = req
-                self.nan_pending[lane] = outer._lane_faults(
-                    req, "lane_nan_steps")
-                self.perturb_pending[lane] = outer._lane_faults(
-                    req, "perturb_events")
-                if self.nan_pending[lane] or self.perturb_pending[lane]:
-                    outer._has_lane_faults = True  # gates _maybe_poison
-                self.rb_left[lane] = _MAX_LANE_ROLLBACKS
-                self.steady_exit[lane] = None   # never inherit a prior
-                                                # occupant's verdict
-                if outer.numerics is not None:
-                    # arm the detectors: the analytic IC/BC envelope (no
-                    # device work), the request's steady tolerance and the
-                    # closed-form eigenmode rate seeding the ETA fuser
-                    lo, hi = ic_envelope(req.cfg)
-                    outer.numerics.admit(
-                        req.id, lo, hi, req.cfg.dtype, steady_tol=req.tol,
-                        log_rate=conv_mod.closed_form_log_rate(req.cfg))
-                    if rst and rst.get("numerics"):
-                        # resume continuity: EWMAs, fired latches and the
-                        # ETA fuser pick up where the checkpointed
-                        # incarnation left them
-                        outer.numerics.reseed(req.id, rst["numerics"])
-
-    def _load_ic(self, lane: int, req: Request,
-                 rst: Optional[dict] = None) -> None:
-        """(Re)start ``req`` in ``lane`` from its initial condition (the
-        field built on the card, the full countdown), or from a resume
-        payload ``rst`` (its host field and remaining count), with a new
-        epoch (the chunks in flight show the lane's previous state)."""
-        if rst:
-            T0, steps = rst["T"], int(rst["remaining"])
-        else:
-            T0 = initial_condition_device(req.cfg, self.outer.device)
-            steps = req.cfg.ntime
-        self.eng.load_lane(lane, T0, float(req.cfg.r), steps,
-                           req.cfg.bc_value)
-        self.dev_rem[lane] = steps
-        self.epoch[lane] = self.seq
-        self.last_good[lane] = None
+        self.lane_chunks[lane] = int((rst or {}).get("chunks", 0))
+        self.occupant[lane] = req
+        self.nan_pending[lane] = outer._lane_faults(req, "lane_nan_steps")
+        self.perturb_pending[lane] = outer._lane_faults(req, "perturb_events")
+        if self.nan_pending[lane] or self.perturb_pending[lane]:
+            outer._has_lane_faults = True  # gates _maybe_poison
+        self.rb_left[lane] = _MAX_LANE_ROLLBACKS
+        self.steady_exit[lane] = None   # never inherit a prior occupant's
+                                        # verdict
+        if outer.numerics is not None:
+            # arm the detectors: the analytic IC/BC envelope (no device
+            # work), the request's steady tolerance and the closed-form
+            # eigenmode rate seeding the ETA fuser
+            lo, hi = ic_envelope(req.cfg)
+            outer.numerics.admit(
+                req.id, lo, hi, req.cfg.dtype, steady_tol=req.tol,
+                log_rate=conv_mod.closed_form_log_rate(req.cfg))
+            if rst and rst.get("numerics"):
+                # resume continuity: EWMAs, fired latches and the ETA
+                # fuser pick up where the checkpointed incarnation left them
+                outer.numerics.reseed(req.id, rst["numerics"])
 
     def _live_remaining(self) -> List[int]:
         return [int(self.dev_rem[i]) for i, o in enumerate(self.occupant)
                 if o is not None and self.dev_rem[i] > 0]
 
-    def _effective_remaining(self) -> List[int]:
-        """Per-live-lane remaining WORK for tail sizing: the countdown
-        mirror, tightened for ``until=steady`` occupants by the fused
-        eigenmode/observed ETA (the numerics observatory). Prediction only
-        moves the full-chunk -> tail switch earlier and never changes
-        results: a mispredicted lane keeps taking tails until it exits."""
-        numerics = self.outer.numerics
-        out = []
-        for i, req in enumerate(self.occupant):
-            rem = int(self.dev_rem[i])
-            if req is None or rem <= 0:
-                continue
-            if req.until == "steady" and numerics is not None:
-                eta = numerics.eta_steps(req.id)
-                if eta is not None:
-                    rem = min(rem, max(int(eta), 1))
-            out.append(rem)
-        return out
+    def has_work(self) -> bool:
+        return (bool(self.inflight) or bool(self.q)
+                or any(o is not None for o in self.occupant))
+
+    def maybe_grow(self) -> None:
+        """Only a bucket group grows (``_GroupRunner.maybe_grow``)."""
 
     # --- dispatch side ----------------------------------------------------
     def _maybe_poison(self) -> None:
@@ -639,22 +555,22 @@ class _GroupRunner:
             done = req.cfg.ntime - int(self.dev_rem[lane])
             while self.nan_pending[lane] and done >= self.nan_pending[lane][0]:
                 self.nan_pending[lane].pop(0)   # fire-once per request
-                self.eng.poison_lane(lane, req.cfg.n)
+                self._poison(lane, req)
             while (self.perturb_pending[lane]
                    and done >= self.perturb_pending[lane][0][0]):
                 _, eps = self.perturb_pending[lane].pop(0)  # fire-once
-                self.eng.perturb_lane(lane, req.cfg.n, eps)
+                self._perturb(lane, req, eps)
 
-    def _dispatch(self, k: int):
-        """Enqueue one k-step chunk; returns its boundary handle."""
-        handle = self.eng.dispatch_chunk(k)
-        outer = self.outer
-        if self._kernel_name is not None:
-            outer.lane_chunks[self._kernel_name] += 1
-            outer.lane_passes[(self._kernel_name, self.key.n,
-                               self.key.dtype)] += len(
-                cuda_lanes.passes(self.key.ndim, k))
-        return handle
+    def _close_idle(self, t: float) -> None:
+        """A dispatch at ``t`` ends the device-idle gap since the last
+        boundary emptied the pipeline."""
+        if self.idle_from is not None:
+            self.outer.device_idle_s += t - self.idle_from
+            if self.tracer.enabled:
+                # the idle gap, attributed to this runner's dispatch row
+                self.tracer.complete("device-idle", self.group_track,
+                                     self.idle_from, t, cat="idle")
+            self.idle_from = None
 
     def dispatch_fill(self) -> None:
         """Queue chunks until ``dispatch_depth`` are in flight or no lane has
@@ -663,34 +579,13 @@ class _GroupRunner:
             # checkpoint bubble: stop feeding the pipeline so the chunks in
             # flight drain to the empty cut (Engine._ckpt_tick)
             return
-        poison = self.outer._has_lane_faults
         while len(self.inflight) < self.depth:
-            if self.allow_growth and self._growth_wanted():
-                # stop feeding the pipeline: once the in-flight chunks
-                # drain, maybe_grow rebuilds the group at the wider tier
+            k = self._next_k()
+            if k is None:
                 break
-            if not self._live_remaining():
-                break
-            if poison:
-                self._maybe_poison()
-            k = self.chunk
-            tail = self.eng.tail
-            if (tail is not None
-                    and max(self._effective_remaining()) <= self.chunk - tail):
-                # every live lane finishes (or is PREDICTED to steady-exit)
-                # inside the chunk, with enough headroom that ceil(rem/tail)
-                # tails compute strictly fewer masked steps than one chunk
-                k = tail
-                self.outer.tail_chunks += 1
             t_disp = wall_clock()
             handle = self._dispatch(k)
-            if self.idle_from is not None:
-                self.outer.device_idle_s += t_disp - self.idle_from
-                if self.tracer.enabled:
-                    # the idle gap, attributed to this group's dispatch row
-                    self.tracer.complete("device-idle", self.group_track,
-                                         self.idle_from, t_disp, cat="idle")
-                self.idle_from = None
+            self._close_idle(t_disp)
             # usage metering: every lane still counting down takes part in
             # this chunk (freed lanes' meters reset at the next admission)
             self.lane_chunks += self.dev_rem > 0
@@ -698,7 +593,7 @@ class _GroupRunner:
             # rollback mode keeps every in-flight boundary restorable: the
             # snapshot is promoted to a lane's last_good only once that
             # boundary's finite bit comes back clean
-            snap = self.eng.snapshot_stack() if self.rollback else None
+            snap = self._snapshot() if self.rollback else None
             self.inflight.append(
                 (self.seq, handle, self.dev_rem.astype(np.int32), snap,
                  t_disp, k))
@@ -711,7 +606,7 @@ class _GroupRunner:
         outer = self.outer
         t0 = wall_clock()
         try:
-            return self.eng.fetch_remaining(
+            return self._fetch_boundary(
                 handle, timeout_s=outer.scfg.fetch_timeout_s,
                 plan=outer._plan, fetch_index=outer._fetch_seq)
         finally:
@@ -727,6 +622,17 @@ class _GroupRunner:
                                      t0, t1, cat="boundary",
                                      args={"bucket": self.track_name})
 
+    def _observe(self, depth: int, k: int, wall_s: float, t: float) -> None:
+        """Cost-model feed: one chunk's boundary service time, then the
+        cadenced memory sample."""
+        outer = self.outer
+        outer.prof.observe_chunk(self.cost_label, self.lanes, depth, k,
+                                 wall_s, kernel=self.kernel,
+                                 placement=self.placement)
+        warn = outer.prof.maybe_sample_memory(t)
+        if warn is not None:
+            outer._mem_warn(warn)
+
     def _trace_occupancy(self, lane: int, req: Request, status: str) -> None:
         """Close the lane's occupancy span (admission -> this verdict) on
         its track. Runs before the finish/fail path pops ``_start_t``."""
@@ -736,10 +642,11 @@ class _GroupRunner:
         t0 = self.outer._by_id[req.id].get("_start_t")
         if t0 is None:
             return
+        args = {"status": status, "n": req.cfg.n, "ntime": req.cfg.ntime}
+        if self.placement != "packed":
+            args["placement"] = self.placement
         tr.complete(req.id, self.lane_tracks[lane], t0, cat="lane",
-                    trace_id=req.trace_id,
-                    args={"status": status, "n": req.cfg.n,
-                          "ntime": req.cfg.ntime})
+                    trace_id=req.trace_id, args=args)
         tr.flow("t", self.lane_tracks[lane], req.trace_id)
 
     def _judge_lanes(self, seq: int, rem, finite, snap, sync: bool) -> None:
@@ -756,61 +663,58 @@ class _GroupRunner:
             if finite is not None and not finite[lane]:
                 self._handle_nonfinite(lane, req, int(rem[lane]))
             elif rem[lane] == 0 or self.steady_exit[lane] is not None:
-                steady_at = self.steady_exit[lane]
-                self.steady_exit[lane] = None
-                chunks = int(self.lane_chunks[lane])
-                steps_done = req.cfg.ntime
-                exit_mode = "steps"
-                if steady_at is not None:
-                    # the steady exit retires at the dispatch FRONTIER: the
-                    # chunks in flight keep running (the countdown mirror
-                    # is untouched, so the desync check stays exact) and
-                    # the retirement snapshot is enqueued behind them, so
-                    # the field carries exactly ntime - dev_rem steps —
-                    # byte-equal to a fixed-step run cut there. At depth 0
-                    # the frontier IS the detection boundary.
-                    steps_done = req.cfg.ntime - int(self.dev_rem[lane])
-                    if steps_done < req.cfg.ntime:
-                        exit_mode = "steady"
-                        outer.steady_exits += 1
-                        with outer._lock:
-                            outer.steps_saved_total += (req.cfg.ntime
-                                                        - steps_done)
-                        if self.tracer.enabled:
-                            self.tracer.instant(
-                                "steady-exit", self.lane_tracks[lane],
-                                trace_id=req.trace_id,
-                                args={"id": req.id, "at_step": steps_done,
-                                      "requested": req.cfg.ntime,
-                                      "saved": req.cfg.ntime - steps_done,
-                                      "predicted_at_step":
-                                          req.predicted_steps})
+                steps_done, exit_mode = self._exit(lane, req)
                 self._trace_occupancy(lane, req, "retired")
-                finish = outer._finish_sync if sync else outer._finish_async
-                finish(self.eng, lane, req, self.writer, chunks=chunks,
-                       steps_done=steps_done, exit_mode=exit_mode)
-                self.occupant[lane] = None
+                self._retire(lane, req, sync, steps_done, exit_mode)
+                self._free(lane)
             elif (cut := outer._deadline_cut(req, now)) is not None:
                 done = req.cfg.ntime - int(rem[lane])
+                where = self._where(lane)
                 self._trace_occupancy(lane, req, "deadline")
                 outer._fail_request(
                     req, "deadline",
                     (f"deadline: cancelled (deadline-preemption) with "
-                     f"~{done} of {req.cfg.ntime} steps done; lane "
-                     f"{lane} preempted at the chunk boundary"
+                     f"~{done} of {req.cfg.ntime} steps done; {where} "
+                     f"preempted at the chunk boundary"
                      if cut == "cancelled" else
                      f"deadline: exceeded its "
                      f"{1e3 * (req.deadline_t - req.submit_t):.0f} ms "
                      f"budget with ~{done} of {req.cfg.ntime} steps done; "
-                     f"lane {lane} preempted at the chunk boundary"),
+                     f"{where} preempted at the chunk boundary"),
                     lane=lane, steps_done=done,
                     chunks=int(self.lane_chunks[lane]))
                 outer.deadline_misses += 1
-                # the lane keeps counting down on the card (masked garbage
-                # until refilled) so the host mirror stays exact
-                self.occupant[lane] = None
+                self._free(lane)
             elif self.rollback and snap is not None:
                 self.last_good[lane] = (snap, int(rem[lane]))
+
+    def _exit(self, lane: int, req: Request) -> tuple:
+        """``(steps_done, exit_mode)`` of a retiring lane. A steady exit
+        retires at the dispatch FRONTIER: the chunks in flight keep running
+        (the countdown mirror is untouched, so the desync check stays
+        exact) and the retirement snapshot is enqueued behind them, so the
+        field carries exactly ntime - dev_rem steps — byte-equal to a
+        fixed-step run cut there. At depth 0 the frontier IS the detection
+        boundary."""
+        outer = self.outer
+        steady_at = self.steady_exit[lane]
+        self.steady_exit[lane] = None
+        if steady_at is None:
+            return req.cfg.ntime, "steps"
+        steps_done = req.cfg.ntime - int(self.dev_rem[lane])
+        if steps_done >= req.cfg.ntime:
+            return req.cfg.ntime, "steps"
+        outer.steady_exits += 1
+        with outer._lock:
+            outer.steps_saved_total += req.cfg.ntime - steps_done
+        if self.tracer.enabled:
+            self.tracer.instant(
+                "steady-exit", self.lane_tracks[lane], trace_id=req.trace_id,
+                args={"id": req.id, "at_step": steps_done,
+                      "requested": req.cfg.ntime,
+                      "saved": req.cfg.ntime - steps_done,
+                      "predicted_at_step": req.predicted_steps})
+        return steps_done, "steady"
 
     def _handle_nonfinite(self, lane: int, req: Request, rem_at: int) -> None:
         """One lane's finite bit dropped: restore-and-re-step it alone
@@ -826,63 +730,34 @@ class _GroupRunner:
                 self.tracer.instant("rollback", self.lane_tracks[lane],
                                     trace_id=req.trace_id,
                                     args={"id": req.id, "at_step": done})
-            attempt = (f"attempt {_MAX_LANE_ROLLBACKS - self.rb_left[lane]}/"
-                       f"{_MAX_LANE_ROLLBACKS}")
-            if self.last_good[lane] is not None:
-                good_snap, steps_left = self.last_good[lane]
-                master_print(
-                    f"serve on-nan rollback: request {req.id} (lane {lane}) "
-                    f"non-finite at ~step {done}; restoring the last "
-                    f"verified boundary ({steps_left} steps left, "
-                    f"{attempt})")
-                self.eng.restore_lane(lane, good_snap[lane],
-                                      float(req.cfg.r), req.cfg.n,
-                                      steps_left)
-                self.dev_rem[lane] = steps_left
-                # boundaries already in flight show the pre-restore (still
-                # poisoned) lane: the epoch bump makes them non-authoritative
-                self.epoch[lane] = self.seq
-                self.last_good[lane] = None
-            else:
-                # no verified boundary yet: re-admit from the (determin-
-                # istic) initial condition — the first-chunk transient
-                master_print(
-                    f"serve on-nan rollback: request {req.id} (lane {lane}) "
-                    f"non-finite at ~step {done}; re-stepping from the "
-                    f"initial condition ({attempt})")
-                self._load_ic(lane, req)
-        else:
-            exhausted = self.rollback and self.rb_left[lane] == 0
-            tried = (f" after {_MAX_LANE_ROLLBACKS} rollbacks "
-                     f"(deterministic blow-up)" if exhausted else "")
-            if self.tracer.enabled:
-                self.tracer.instant("quarantine", self.lane_tracks[lane],
-                                    trace_id=req.trace_id,
-                                    args={"id": req.id, "at_step": done})
-            self._trace_occupancy(lane, req, "nonfinite")
-            outer._fail_request(
-                req, "nonfinite",
-                f"nonfinite: non-finite field detected at ~step {done} of "
-                f"{req.cfg.ntime} (lane {lane}){tried} — check the CFL "
-                f"bound sigma <= 1/(2*ndim) for this request", lane=lane,
-                steps_done=done, chunks=int(self.lane_chunks[lane]))
-            outer.lanes_quarantined += 1
-            if exhausted:
-                # flight-recorder trigger: the ring holds the lane's whole
-                # restore/re-flag history
-                outer._flight_dump(f"quarantine after "
-                                   f"{_MAX_LANE_ROLLBACKS} rollbacks "
-                                   f"(request {req.id})")
-            # free the lane; its NaN field idles masked (its countdown
-            # still mirrored by dev_rem) until a new request's load
-            # overwrites the whole lane buffer
-            self._free(lane)
-
-    def _free(self, lane: int) -> None:
-        self.occupant[lane] = None
-        self.nan_pending[lane] = []
-        self.perturb_pending[lane] = []
-        self.last_good[lane] = None
+            tries = _MAX_LANE_ROLLBACKS - self.rb_left[lane]
+            self._rollback(lane, req, done,
+                           f"attempt {tries}/{_MAX_LANE_ROLLBACKS}")
+            return
+        exhausted = self.rollback and self.rb_left[lane] == 0
+        tried = (f" after {_MAX_LANE_ROLLBACKS} rollbacks "
+                 f"(deterministic blow-up)" if exhausted else "")
+        if self.tracer.enabled:
+            self.tracer.instant("quarantine", self.lane_tracks[lane],
+                                trace_id=req.trace_id,
+                                args={"id": req.id, "at_step": done})
+        self._trace_occupancy(lane, req, "nonfinite")
+        outer._fail_request(
+            req, "nonfinite",
+            f"nonfinite: non-finite field detected at ~step {done} of "
+            f"{req.cfg.ntime} ({self._where(lane)}){tried} — check the CFL "
+            f"bound sigma <= 1/(2*ndim) for this request", lane=lane,
+            steps_done=done, chunks=int(self.lane_chunks[lane]))
+        outer.lanes_quarantined += 1
+        if exhausted:
+            # flight-recorder trigger: the ring holds the lane's whole
+            # restore/re-flag history
+            outer._flight_dump(f"quarantine after {_MAX_LANE_ROLLBACKS} "
+                               f"rollbacks ({self._kind}request {req.id})")
+        # free the lane; a packed lane's NaN field idles masked (its
+        # countdown still mirrored by dev_rem) until a new request's load
+        # overwrites the whole lane buffer
+        self._free(lane)
 
     def _ingest_numerics(self, seq: int, b: np.ndarray) -> None:
         """Feed one fetched boundary's fused stats rows (rows 2-5,
@@ -901,7 +776,7 @@ class _GroupRunner:
                 continue
             if tr.enabled:
                 # counter track: the lane's residual/heat series
-                tr.counter(f"numerics lane {lane}", self.group_track,
+                tr.counter(self._numerics_counter(lane), self.group_track,
                            {"resid": resid[lane], "heat": heat[lane]})
             events = outer.numerics.observe(req.id, resid[lane], tmin[lane],
                                             tmax[lane], heat[lane], rem[lane])
@@ -924,8 +799,8 @@ class _GroupRunner:
         outer._fail_request(
             req, "nonfinite",
             f"numerics: {why} violation at ~step {done} of "
-            f"{req.cfg.ntime} (lane {lane}) — the field is finite but "
-            f"un-physical; check r against the CFL bound "
+            f"{req.cfg.ntime} ({self._where(lane)}) — the field is finite "
+            f"but un-physical; check r against the CFL bound "
             f"sigma <= 1/(2*ndim), dtype drift, or an injected perturb "
             f"fault (TROUBLESHOOTING.md)", lane=lane, steps_done=done,
             chunks=int(self.lane_chunks[lane]))
@@ -951,31 +826,24 @@ class _GroupRunner:
             if self.tracer.enabled:
                 # chunk-in-flight span: dispatch enqueue -> boundary
                 # fetched (the newer chunks compute behind it)
-                self.tracer.complete(f"chunk {seq} ({k} steps)",
-                                     self.group_track, t_disp, t_done,
-                                     cat="chunk", args={"seq": seq, "k": k})
-            outer = self.outer
-            if outer.prof.enabled:
-                # cost-model feed: the boundary service time from stamps
-                # already taken, then the cadenced memory sample
+                name, args = self._chunk_span(seq, k, fenced=False)
+                self.tracer.complete(name, self.group_track, t_disp, t_done,
+                                     cat="chunk", args=args)
+            if self.outer.prof.enabled:
                 base = (t_disp if self.last_fetch_t is None
                         else max(self.last_fetch_t, t_disp))
-                outer.prof.observe_chunk(self.cost_label, self.lanes,
-                                         self.depth, k, t_done - base,
-                                         kernel=self.kernel)
+                self._observe(self.depth, k, t_done - base, t_done)
                 self.last_fetch_t = t_done
-                warn = outer.prof.maybe_sample_memory(t_done)
-                if warn is not None:
-                    outer._mem_warn(warn)
             if not self.inflight:
                 self.idle_from = t_done
             rem = b[0]
             if not np.array_equal(rem, predicted):
+                subject, contract = self._desync_names()
                 raise RuntimeError(
-                    f"serve dispatch-ahead desync for bucket {self.key}: "
-                    f"device remaining {rem.tolist()} != host-predicted "
-                    f"{predicted.tolist()} at chunk {seq} — the lane "
-                    f"masking contract broke; results cannot be trusted")
+                    f"serve dispatch-ahead desync for {subject}: device "
+                    f"remaining {rem.tolist()} != host-predicted "
+                    f"{predicted.tolist()} at chunk {seq} — the {contract} "
+                    f"contract broke; results cannot be trusted")
             self._boundary(seq, b, snap, sync=False)
         else:
             # nothing in flight and nothing left to step: occupants whose
@@ -983,9 +851,269 @@ class _GroupRunner:
             self._judge_lanes(self.seq, self.dev_rem, None, None, sync=False)
         self._fill()
 
-    def has_work(self) -> bool:
-        return (bool(self.inflight) or bool(self.q)
-                or any(o is not None for o in self.occupant))
+    # --- synchronous fallback (--dispatch-depth off) ----------------------
+    def sync_round(self) -> None:
+        """One fenced boundary: dispatch a chunk, wait for its boundary at
+        once, judge every lane on the scheduler thread, refill. ``run_sync``
+        loops it to drain; the online loop calls it round-robin across
+        runners so depth-0 engines still stream admissions."""
+        outer = self.outer
+        if self._live_remaining():
+            if outer._has_lane_faults:
+                self._maybe_poison()
+            k = self._fenced_k()
+            t0 = wall_clock()
+            self._close_idle(t0)
+            b = self._fetch(self._dispatch(k))
+            outer.chunks_dispatched += 1   # counted once fetched, as the
+                                           # reference counts a fenced chunk
+            self.idle_from = wall_clock()
+            if self.tracer.enabled:
+                name, args = self._chunk_span(self.seq, k, fenced=True)
+                self.tracer.complete(name, self.group_track, t0,
+                                     self.idle_from, cat="chunk", args=args)
+            if outer.prof.enabled:
+                # fenced boundary: the dispatch->fetch wall IS the chunk's
+                # service time (cost-model depth 0)
+                self._observe(0, k, self.idle_from - t0, self.idle_from)
+            self.lane_chunks += self.dev_rem > 0
+            np.maximum(self.dev_rem - k, 0, out=self.dev_rem)
+            # the live state IS the fetched boundary's here, so the
+            # rollback snapshot is taken after the fetch
+            snap = self._snapshot() if self.rollback else None
+            self._boundary(self.seq, b, snap, sync=True)
+        else:
+            self._judge_lanes(self.seq, self.dev_rem, None, None, sync=True)
+        self.seq += 1
+        self._fill()
+
+    def run_sync(self) -> None:
+        """Fetch every boundary as its chunk is dispatched and retire
+        finished lanes on the scheduler thread: no pipelining, no tails,
+        the same per-lane fault domains."""
+        while self.has_work():
+            self.sync_round()
+            # every fenced round is an empty-pipeline cut: take an armed
+            # engine checkpoint here
+            self.outer._ckpt_tick()
+
+
+class _GroupRunner(_Runner):
+    """Dispatch-ahead continuous batching for ONE bucket group.
+
+    Owns the group's ``LaneEngine``, occupancy, the host-side countdown
+    mirror (``dev_rem`` — exact, because the device decrements remaining by
+    one per step while positive), and the in-flight deque (``_Runner``).
+    ``Engine.run`` drives many runners round-robin; each tick dispatches
+    until ``dispatch_depth`` chunks are queued, then takes at most one
+    boundary.
+    """
+
+    def __init__(self, outer: "Engine", key: BucketKey, q,
+                 writer: "async_io.SnapshotWriter"):
+        self._init_loop(outer, q, writer)
+        self.key = key
+        scfg = outer.scfg
+        self.lanes = lane_tier(min(len(q), scfg.lanes), scfg.lanes)
+        self.kernel, self._kernel_fb = resolve_lane_kernel(
+            scfg.lane_kernel, key, outer.device)
+        self.eng = self._engine(self.lanes)
+        # the kernel launches each chunk costs, counted on the host from k
+        # (the wrappers count what they launch): lanes2d/lanes3d by name
+        self._kernel_name = (cuda_lanes._KERNELS[key.ndim]
+                             if self.kernel == "cuda"
+                             and outer.device.type == "cuda" else None)
+        self._reset_lanes(self.lanes)
+        # the cost model's key names the bucket geometry
+        self.cost_label = f"{key.ndim}d/n{key.n}/{key.dtype}/{key.bc}"
+        # trace tracks (runtime/trace.py): one process row per bucket
+        # group, one thread row per lane (the occupancy timeline) plus a
+        # dispatch row for chunk-in-flight / device-idle spans, registered
+        # once so the per-event path is append-only
+        self.track_name = (f"lanes {key.ndim}d n{key.n} "
+                           f"{key.dtype} {key.bc}")
+        self.group_track = self.tracer.track(self.track_name, "dispatch")
+        self.lane_tracks = [self.tracer.track(self.track_name, f"lane {i}")
+                            for i in range(self.lanes)]
+        self._fill()
+
+    def _engine(self, lanes: int) -> LaneEngine:
+        """A lane engine at tier ``lanes``. Rollback mode builds it
+        keep-input, so every post-chunk stack stays a restorable boundary
+        snapshot with no copy on the dispatch path. A kernel fallback is
+        recorded per (bucket, tier)."""
+        outer = self.outer
+        eng = LaneEngine(self.key, lanes, outer.scfg.chunk, kernel=self.kernel,
+                         device=outer.device, keep_input=self.rollback)
+        outer.compile_s += eng.compile_s
+        if self._kernel_fb is not None:
+            outer._note_lane_fallback(self.key, lanes, self._kernel_fb)
+        return eng
+
+    # --- what names and moves a lane -------------------------------------
+    def _where(self, lane: int) -> str:
+        return f"lane {lane}"
+
+    def _numerics_counter(self, lane: int) -> str:
+        return f"numerics lane {lane}"
+
+    def _desync_names(self) -> tuple:
+        return f"bucket {self.key}", "lane masking"
+
+    def _chunk_span(self, seq: int, k: int, fenced: bool) -> tuple:
+        return (f"chunk {seq} ({k} steps{', fenced' if fenced else ''})",
+                {"seq": seq, "k": k})
+
+    def _fetch_boundary(self, handle, **kw) -> np.ndarray:
+        return self.eng.fetch_remaining(handle, **kw)
+
+    def _poison(self, lane: int, req: Request) -> None:
+        self.eng.poison_lane(lane, req.cfg.n)
+
+    def _perturb(self, lane: int, req: Request, eps: float) -> None:
+        self.eng.perturb_lane(lane, req.cfg.n, eps)
+
+    def _snapshot(self):
+        return self.eng.snapshot_stack()
+
+    def _free(self, lane: int) -> None:
+        self.occupant[lane] = None
+        self.nan_pending[lane] = []
+        self.perturb_pending[lane] = []
+        self.last_good[lane] = None
+
+    # --- admission into lanes --------------------------------------------
+    def _fill(self) -> None:
+        """Swap queued requests into every free lane (continuous batching).
+        The initial field is built on the engine's device and loaded behind
+        the chunks in flight. Queued requests already past their deadline
+        (or cancelled) are shed here."""
+        outer = self.outer
+        if outer._ckpt_pause:
+            # checkpoint bubble: no admissions while the pipeline drains
+            # toward the consistent cut — queued requests belong to the
+            # manifest, not to a lane
+            return
+        for lane in range(self.lanes):
+            if self.occupant[lane] is None:
+                req = outer._next_admission(self, lane)
+                if req is None:
+                    continue
+                # an engine-state resume or a cache prefix re-seeds the
+                # lane from its stored field (the maybe_grow transplant
+                # contract: the lanes round to storage every step, so the
+                # continuation is byte-equal to an uninterrupted run) and
+                # its chunk meter continues; else it restarts at 0
+                rst, req.restore = req.restore, None
+                self._load_ic(lane, req, rst)
+                self._admit(lane, req, rst)
+
+    def _load_ic(self, lane: int, req: Request,
+                 rst: Optional[dict] = None) -> None:
+        """(Re)start ``req`` in ``lane`` from its initial condition (the
+        field built on the card, the full countdown), or from a resume
+        payload ``rst`` (its host field and remaining count), with a new
+        epoch (the chunks in flight show the lane's previous state)."""
+        if rst:
+            T0, steps = rst["T"], int(rst["remaining"])
+        else:
+            T0 = initial_condition_device(req.cfg, self.outer.device)
+            steps = req.cfg.ntime
+        self.eng.load_lane(lane, T0, float(req.cfg.r), steps,
+                           req.cfg.bc_value)
+        self.dev_rem[lane] = steps
+        self.epoch[lane] = self.seq
+        self.last_good[lane] = None
+
+    def _effective_remaining(self) -> List[int]:
+        """Per-live-lane remaining WORK for tail sizing: the countdown
+        mirror, tightened for ``until=steady`` occupants by the fused
+        eigenmode/observed ETA (the numerics observatory). Prediction only
+        moves the full-chunk -> tail switch earlier and never changes
+        results: a mispredicted lane keeps taking tails until it exits."""
+        numerics = self.outer.numerics
+        out = []
+        for i, req in enumerate(self.occupant):
+            rem = int(self.dev_rem[i])
+            if req is None or rem <= 0:
+                continue
+            if req.until == "steady" and numerics is not None:
+                eta = numerics.eta_steps(req.id)
+                if eta is not None:
+                    rem = min(rem, max(int(eta), 1))
+            out.append(rem)
+        return out
+
+    # --- dispatch side ----------------------------------------------------
+    def _dispatch(self, k: int):
+        """Enqueue one k-step chunk; returns its boundary handle."""
+        handle = self.eng.dispatch_chunk(k)
+        outer = self.outer
+        if self._kernel_name is not None:
+            outer.lane_chunks[self._kernel_name] += 1
+            outer.lane_passes[(self._kernel_name, self.key.n,
+                               self.key.dtype)] += len(
+                cuda_lanes.passes(self.key.ndim, k))
+        return handle
+
+    def _next_k(self) -> Optional[int]:
+        """The next chunk's steps, or None to stop feeding the pipeline:
+        the full chunk, or the lane engine's tail once every live lane
+        finishes inside a chunk."""
+        if self.allow_growth and self._growth_wanted():
+            # stop feeding the pipeline: once the in-flight chunks drain,
+            # maybe_grow rebuilds the group at the wider tier
+            return None
+        if not self._live_remaining():
+            return None
+        if self.outer._has_lane_faults:
+            self._maybe_poison()
+        tail = self.eng.tail
+        if (tail is not None
+                and max(self._effective_remaining()) <= self.chunk - tail):
+            # every live lane finishes (or is PREDICTED to steady-exit)
+            # inside the chunk, with enough headroom that ceil(rem/tail)
+            # tails compute strictly fewer masked steps than one chunk
+            self.outer.tail_chunks += 1
+            return tail
+        return self.chunk
+
+    def _fenced_k(self) -> int:
+        return self.chunk
+
+    # --- verdicts ---------------------------------------------------------
+    def _retire(self, lane: int, req: Request, sync: bool, steps_done: int,
+                exit_mode: str) -> None:
+        outer = self.outer
+        finish = outer._finish_sync if sync else outer._finish_async
+        finish(self.eng, lane, req, self.writer,
+               chunks=int(self.lane_chunks[lane]), steps_done=steps_done,
+               exit_mode=exit_mode)
+
+    def _rollback(self, lane: int, req: Request, done: int,
+                  attempt: str) -> None:
+        if self.last_good[lane] is not None:
+            good_snap, steps_left = self.last_good[lane]
+            master_print(
+                f"serve on-nan rollback: request {req.id} (lane {lane}) "
+                f"non-finite at ~step {done}; restoring the last "
+                f"verified boundary ({steps_left} steps left, "
+                f"{attempt})")
+            self.eng.restore_lane(lane, good_snap[lane], float(req.cfg.r),
+                                  req.cfg.n, steps_left)
+            self.dev_rem[lane] = steps_left
+            # boundaries already in flight show the pre-restore (still
+            # poisoned) lane: the epoch bump makes them non-authoritative
+            self.epoch[lane] = self.seq
+            self.last_good[lane] = None
+        else:
+            # no verified boundary yet: re-admit from the (determin-
+            # istic) initial condition — the first-chunk transient
+            master_print(
+                f"serve on-nan rollback: request {req.id} (lane {lane}) "
+                f"non-finite at ~step {done}; re-stepping from the "
+                f"initial condition ({attempt})")
+            self._load_ic(lane, req)
 
     # --- online lane-tier growth ------------------------------------------
     def _wanted_tier(self) -> int:
@@ -1043,61 +1171,189 @@ class _GroupRunner:
         self.outer.lane_grows += 1
         self._fill()
 
-    # --- synchronous fallback (--dispatch-depth off) ----------------------
-    def sync_round(self) -> None:
-        """One fenced boundary: dispatch a chunk, wait for its boundary at
-        once, judge every lane on the scheduler thread, refill. ``run_sync``
-        loops it to drain; the online loop calls it round-robin across
-        groups so depth-0 engines still stream admissions."""
-        outer = self.outer
-        if self._live_remaining():
-            if outer._has_lane_faults:
-                self._maybe_poison()
-            t0 = wall_clock()
-            if self.idle_from is not None:
-                outer.device_idle_s += t0 - self.idle_from
-                if self.tracer.enabled:
-                    self.tracer.complete("device-idle", self.group_track,
-                                         self.idle_from, t0, cat="idle")
-            b = self._fetch(self._dispatch(self.chunk))
-            outer.chunks_dispatched += 1   # counted once fetched, as the
-                                           # reference counts a fenced chunk
-            self.idle_from = wall_clock()
-            if self.tracer.enabled:
-                self.tracer.complete(f"chunk {self.seq} ({self.chunk} "
-                                     f"steps, fenced)", self.group_track,
-                                     t0, self.idle_from, cat="chunk",
-                                     args={"seq": self.seq,
-                                           "k": self.chunk})
-            if outer.prof.enabled:
-                # fenced boundary: the dispatch->fetch wall IS the chunk's
-                # service time (cost-model depth 0)
-                outer.prof.observe_chunk(self.cost_label, self.lanes, 0,
-                                         self.chunk, self.idle_from - t0,
-                                         kernel=self.kernel)
-                warn = outer.prof.maybe_sample_memory(self.idle_from)
-                if warn is not None:
-                    outer._mem_warn(warn)
-            self.lane_chunks += self.dev_rem > 0
-            np.maximum(self.dev_rem - self.chunk, 0, out=self.dev_rem)
-            # the live stack IS the fetched boundary's state here, so the
-            # rollback snapshot is taken after the fetch
-            snap = self.eng.snapshot_stack() if self.rollback else None
-            self._boundary(self.seq, b, snap, sync=True)
-        else:
-            self._judge_lanes(self.seq, self.dev_rem, None, None, sync=True)
-        self.seq += 1
+
+class MegaLaneRunner(_Runner):
+    """Dispatch-ahead serving for ONE mega-lane slot: a bucket group whose
+    "bucket" is the whole device mesh and whose lane count is one.
+    Requests that overflow every bucket queue in the engine-wide mega
+    queue (``Engine.submit``) and run through ``MegaLaneEngine`` under the
+    packed runners' contract (``_Runner``): a boundary handle per chunk,
+    ``dispatch_depth`` chunks in flight, the host countdown mirror checked
+    against every fetch, the owned cells' finite bit and stats on the
+    boundary copy, and the deadline / quarantine / rollback / watchdog
+    verdicts of a fault domain one mesh wide. What differs: the host picks
+    each chunk's k (the sharded advance has no per-step countdown mask),
+    snapshots and rollbacks hold the whole mesh state, and a retirement
+    crops the owned field. ``Engine.run`` round-robins it with the bucket
+    groups.
+
+    One slot serves one request at a time; ``mega_lanes`` slots share the
+    mega queue. A wedged mega fetch (watchdog) fails the mega tier's
+    in-flight and queued requests (``Engine._fail_group``): one mesh, one
+    fault domain."""
+
+    placement = "mega"
+    _kind = "mega "
+
+    def __init__(self, outer: "Engine", slot: int, q,
+                 writer: "async_io.SnapshotWriter"):
+        self._init_loop(outer, q, writer)
+        self.slot = slot
+        self.lanes = 1
+        self.kernel = "sharded"
+        self.key = ("mega", slot)
+        self._reset_lanes(1)
+        self.eng: Optional[MegaLaneEngine] = None   # per occupant
+        self.cost_label = "mega"       # refined per occupant
+        self.track_name = f"mega lane {slot}"
+        self.group_track = self.tracer.track(self.track_name, "dispatch")
+        self.lane_tracks = [self.tracer.track(self.track_name, "mesh")]
         self._fill()
 
-    def run_sync(self) -> None:
-        """Fetch every boundary as its chunk is dispatched and extract
-        finished lanes on the scheduler thread: no pipelining, no tails,
-        the same per-lane fault domains."""
-        while self.has_work():
-            self.sync_round()
-            # every fenced round is an empty-pipeline cut: take an armed
-            # engine checkpoint here
-            self.outer._ckpt_tick()
+    # --- what names and moves the lane -----------------------------------
+    def _where(self, lane: int) -> str:
+        return "mega lane"
+
+    def _numerics_counter(self, lane: int) -> str:
+        return "numerics mega"
+
+    def _desync_names(self) -> tuple:
+        return f"mega lane {self.slot}", "mega countdown"
+
+    def _chunk_span(self, seq: int, k: int, fenced: bool) -> tuple:
+        """The chunk span carries the halo geometry (ghost width, and the
+        exchanges of a pipelined chunk)."""
+        kf = self.eng.kf if self.eng is not None else 0
+        if fenced:
+            return (f"mega chunk {seq} ({k} steps, fenced)",
+                    {"seq": seq, "k": k, "halo_width": kf})
+        return (f"mega chunk {seq} ({k} steps)",
+                {"seq": seq, "k": k, "halo_width": kf,
+                 "exchanges": -(-(k - 1) // kf) + 1 if kf else 0})
+
+    def _fetch_boundary(self, handle, **kw) -> np.ndarray:
+        return fetch_boundary(handle, **kw)
+
+    def _poison(self, lane: int, req: Request) -> None:
+        self.eng.poison_center()
+
+    def _perturb(self, lane: int, req: Request, eps: float) -> None:
+        self.eng.perturb_center(eps)
+
+    def _snapshot(self):
+        return self.eng.snapshot_state()
+
+    def _free(self, lane: int) -> None:
+        """Free the slot and the carried shards after a terminal verdict;
+        stale boundaries in flight are judged by seq/epoch and dropped."""
+        self.occupant[0] = None
+        self.eng = None
+        self.dev_rem[0] = 0
+        self.nan_pending[0] = []
+        self.perturb_pending[0] = []
+        self.last_good[0] = None
+        self.steady_exit[0] = None
+        self.epoch[0] = self.seq
+
+    # --- admission --------------------------------------------------------
+    def _fill(self) -> None:
+        """Admit the next queued mega request into this slot: build its
+        ``MegaLaneEngine`` (the machinery warm from the engine-wide cache)
+        on the scheduler thread. Queued requests past their deadline are
+        shed here, and a build failure fails that one request — never the
+        scheduler loop."""
+        outer = self.outer
+        if outer._ckpt_pause:
+            # checkpoint bubble: queued mega requests ride the manifest
+            return
+        while self.occupant[0] is None:
+            req = outer._next_admission(self, 0)
+            if req is None:
+                break
+            try:
+                self.eng = MegaLaneEngine(
+                    req.cfg, mega_device_count(outer.device), self.chunk,
+                    device=outer.device, cache=outer._mega_cache,
+                    on_compile=outer._note_mega_compile)
+            except Exception as e:  # noqa: BLE001 — per-request record
+                outer._fail_request(
+                    req, "error",
+                    f"mega-lane build failed: {type(e).__name__}: {e}",
+                    lane=0)
+                continue
+            self.cost_label = (f"{req.cfg.ndim}d/n{req.cfg.n}/"
+                               f"{req.cfg.dtype}/{req.cfg.bc}")
+            rst, req.restore = req.restore, None
+            if rst:
+                # engine-state resume or a cache prefix: the stored owned
+                # field at a chunk boundary, continued byte for byte
+                self.eng.load(rst["T"], int(rst["remaining"]))
+                self.dev_rem[0] = int(rst["remaining"])
+            else:
+                self.dev_rem[0] = req.cfg.ntime
+            self.epoch[0] = self.seq
+            self.last_good[0] = None
+            self._admit(0, req, rst)
+
+    # --- dispatch side ----------------------------------------------------
+    def _dispatch(self, k: int):
+        """Enqueue one k-step mega chunk; returns its boundary handle."""
+        handle = self.eng.dispatch_chunk(k)
+        self.outer.mega_chunks += 1
+        return handle
+
+    def _next_k(self) -> Optional[int]:
+        """The last chunk shrinks to the exact remaining count."""
+        rem = int(self.dev_rem[0])
+        if self.occupant[0] is None or rem <= 0:
+            return None
+        if self.outer._has_lane_faults:
+            self._maybe_poison()
+        return min(self.chunk, rem)
+
+    def _fenced_k(self) -> int:
+        return min(self.chunk, int(self.dev_rem[0]))
+
+    # --- verdicts ---------------------------------------------------------
+    def _retire(self, lane: int, req: Request, sync: bool, steps_done: int,
+                exit_mode: str) -> None:
+        """Completion: the owned field cropped on the card behind the
+        chunks in flight, its host copy and the result write in the writer
+        thread (the closure holds the cropped field only)."""
+        outer = self.outer
+        rec = outer._finish_timing(req, chunks=int(self.lane_chunks[0]),
+                                   steps_done=steps_done,
+                                   exit_mode=exit_mode)
+        snap = self.eng.final_snapshot()
+        if sync:
+            T = MegaLaneEngine.extract(snap)
+            outer._writeback_job(rec, req, self.writer, lambda: T)
+        else:
+            outer._writeback_job(rec, req, self.writer,
+                                 lambda: MegaLaneEngine.extract(snap))
+
+    def _rollback(self, lane: int, req: Request, done: int,
+                  attempt: str) -> None:
+        """Restore and re-step the whole mesh state; the packed groups are
+        untouched."""
+        if self.last_good[0] is not None:
+            good_snap, steps_left = self.last_good[0]
+            master_print(
+                f"serve on-nan rollback: mega request {req.id} "
+                f"non-finite at ~step {done}; restoring the last "
+                f"verified boundary ({steps_left} steps left, "
+                f"{attempt})")
+            self.eng.restore(good_snap, steps_left)
+            self.dev_rem[0] = steps_left
+        else:
+            master_print(
+                f"serve on-nan rollback: mega request {req.id} "
+                f"non-finite at ~step {done}; re-stepping from the "
+                f"initial condition ({attempt})")
+            self.eng.reload()
+            self.dev_rem[0] = req.cfg.ntime
+        self.epoch[0] = self.seq
+        self.last_good[0] = None
 
 
 class Engine:
@@ -1140,6 +1396,15 @@ class Engine:
         self.numerics = (numerics_mod.NumericsObservatory(
             steady_tol=scfg.steady_tol) if scfg.numerics else None)
         self._queues: Dict[BucketKey, object] = {}  # policy queues
+        # the second placement tier: the engine-wide mega queue (same
+        # policy as the bucket queues, built at the first mega admission),
+        # the mega machinery cache shared by every occupant, and the
+        # resolved slot budget
+        self._mega_queue = None
+        self._mega_cache: dict = {}
+        self._mega_lanes_resolved: Optional[int] = None
+        self.mega_compiles = 0       # mega machinery builds
+        self.mega_chunks = 0         # mega chunks dispatched
         self._records: List[dict] = []
         self._by_id: Dict[str, dict] = {}
         self._seq = 0
@@ -1295,12 +1560,19 @@ class Engine:
                               "edge, not the request edge)")
             return rid
         b = _bucket_for(cfg, self.scfg.buckets)
+        key = None
+        placement = "packed"
         if b is None:
-            self._reject(rec, f"bucket-overflow: request side {cfg.n} "
-                              f"exceeds the biggest bucket "
-                              f"{max(self.scfg.buckets)}")
-            return rid
-        key = BucketKey(ndim=cfg.ndim, n=b, dtype=cfg.dtype, bc=cfg.bc)
+            # two-tier placement: a bucket overflow goes to the mega queue
+            # (one request over the whole device mesh) wherever mega-lanes
+            # are on and its side shards evenly, else it is rejected
+            reason, hint = self._mega_overflow_reason(cfg)
+            if reason is not None:
+                self._reject(rec, reason, hint=hint)
+                return rid
+            placement = "mega"
+        else:
+            key = BucketKey(ndim=cfg.ndim, n=b, dtype=cfg.dtype, bc=cfg.bc)
         if predicted is not None and self.prof.enabled:
             rec["predicted_wall_s"] = self._forecast_wall(cfg, b, predicted)
         # solve-cache consult at the admission door, after every rejection
@@ -1312,13 +1584,14 @@ class Engine:
                 and until == "steps"):
             hit = self.solvecache.lookup(cfg)
             if hit is not None and hit["kind"] == "full":
-                if self._cache_replay(rec, cfg, b, "packed", hit):
+                if self._cache_replay(rec, cfg, b, placement, hit):
                     return rid
             elif hit is not None:
                 prefix_restore = self._cache_prefix(rec, cfg, hit)
         shed_reason = None
         with self._cond:
-            queued = sum(len(q) for q in self._queues.values())
+            queued = (sum(len(q) for q in self._queues.values())
+                      + (len(self._mega_queue) if self._mega_queue else 0))
             if self.scfg.max_queue and queued >= self.scfg.max_queue:
                 self.shed += 1
                 shed_reason = (f"overloaded: admission queue full "
@@ -1334,14 +1607,21 @@ class Engine:
                                f"{self.scfg.tenant_quota}; resubmit later")
             else:
                 rec["bucket"] = b
-                rec["placement"] = "packed"
-                q = self._queues.get(key)
-                if q is None:
-                    q = self._queues[key] = policy_mod.make_queue(
-                        self.scfg.policy, self.scfg.tenant_weights)
+                rec["placement"] = placement
+                if placement == "mega":
+                    q = self._mega_queue
+                    if q is None:
+                        q = self._mega_queue = policy_mod.make_queue(
+                            self.scfg.policy, self.scfg.tenant_weights)
+                else:
+                    q = self._queues.get(key)
+                    if q is None:
+                        q = self._queues[key] = policy_mod.make_queue(
+                            self.scfg.policy, self.scfg.tenant_weights)
                 submit_t = rec["_submit_t"]
                 req = Request(
                     id=rid, cfg=cfg, submit_t=submit_t, key=key,
+                    placement=placement,
                     deadline_t=(submit_t + deadline_ms / 1e3
                                 if deadline_ms is not None else None),
                     tenant=tenant, slo_class=slo_class, seq=seq,
@@ -1359,8 +1639,9 @@ class Engine:
             self._reject(rec, shed_reason)
         return rid
 
-    def _cache_replay(self, rec: dict, cfg: HeatConfig, bucket: int,
-                      placement: str, hit: dict) -> bool:
+    def _cache_replay(self, rec: dict, cfg: HeatConfig,
+                      bucket: Optional[int], placement: str,
+                      hit: dict) -> bool:
         """Full cache hit at the admission door: replay the stored npz
         through the normal record/listener path without occupying a lane —
         no lane kernel launches, and an out-dir publish is a byte copy of
@@ -1439,20 +1720,70 @@ class Engine:
                                       "delta": remaining})
         return {"T": T, "remaining": remaining, "chunks": 0}
 
-    def _forecast_wall(self, cfg: HeatConfig, b: int,
+    def _forecast_wall(self, cfg: HeatConfig, b: Optional[int],
                        steps: int) -> Optional[float]:
         """Cost-model wall forecast for an ``until=steady`` admission, on
         its PREDICTED steps (runtime/prof.py): None until the model has
         observed this geometry; the tier is assumed saturated at
-        ``--lanes``."""
+        ``--lanes``; a mega request (``b`` None) is its own lane."""
         d = self.scfg.dispatch_depth
         depth = max(1, d) if d > 0 else 0
+        if b is None:
+            est = self.prof.cost.estimate_request_s(
+                f"{cfg.ndim}d/n{cfg.n}/{cfg.dtype}/{cfg.bc}", 1, depth,
+                steps, kernel="sharded", placement="mega")
+            return None if est is None else round(est, 6)
         bucket = f"{cfg.ndim}d/n{b}/{cfg.dtype}/{cfg.bc}"
         for kernel in ("cuda", "torch"):
             est = self.prof.cost.estimate_request_s(
                 bucket, self.scfg.lanes, depth, steps, kernel=kernel)
             if est is not None:
                 return round(est, 6)
+        return None
+
+    def _next_admission(self, runner, lane: int) -> Optional[Request]:
+        """Pop ``runner``'s queue for ``lane`` (either runner kind): queued
+        requests already past their deadline (or cancelled) are shed; the
+        first admissible one's record turns ``running`` and it is returned.
+        None once the queue has nothing to admit."""
+        tr = runner.tracer
+        while runner.q:
+            with self._lock:
+                req = runner.q.pop()
+                if req is None:
+                    return None
+                self._queued_by_tenant[req.tenant] -= 1
+                self.admission_trace.append(req.id)
+            now = wall_clock()
+            if tr.enabled:
+                # queue-wait span (pop side): the request's wait under this
+                # policy, id-paired per tenant track
+                policy_mod.note_pop(tr, self.scfg.policy, req, now)
+            cut = self._deadline_cut(req, now)
+            if cut is not None:
+                if tr.enabled:
+                    tr.instant("deadline-shed", runner.group_track,
+                               trace_id=req.trace_id,
+                               args={"id": req.id}, ts=now)
+                self._fail_request(
+                    req, "deadline",
+                    "deadline: cancelled (deadline-preemption) while "
+                    "still queued (never admitted)"
+                    if cut == "cancelled" else
+                    f"deadline: exceeded its "
+                    f"{1e3 * (req.deadline_t - req.submit_t):.0f} ms "
+                    f"budget while still queued (never admitted)")
+                self.deadline_misses += 1
+                continue
+            if tr.enabled:
+                tr.flow("t", runner.lane_tracks[lane], req.trace_id, ts=now)
+            rec = self._by_id[req.id]
+            with self._lock:
+                rec["lane"] = lane
+                rec["queue_wait_s"] = round(now - req.submit_t, 6)
+                rec["status"] = "running"
+                rec["_start_t"] = now
+            return req
         return None
 
     def _lane_faults(self, req: Request, which: str) -> list:
@@ -1468,7 +1799,7 @@ class Engine:
             found.update(getattr(p, which)(req.id))
         return sorted(found)
 
-    def _note_numerics_event(self, runner: _GroupRunner, lane: int,
+    def _note_numerics_event(self, runner: _Runner, lane: int,
                              req: Request, rem_at: int, ev: dict) -> None:
         """One numerics-observatory verdict becomes policy here: a
         structured record and — for violations under ``--numerics-guard
@@ -1519,10 +1850,70 @@ class Engine:
         if self.scfg.numerics_guard == "quarantine":
             runner._quarantine_numerics(lane, req, rem_at, why)
 
-    def _reject(self, rec: dict, reason: str) -> None:
+    # --- mega-lane placement ----------------------------------------------
+    @property
+    def mega_lanes(self) -> int:
+        """The resolved mega-lane slot budget: the configured value, or
+        auto (1 where ``mega_device_count`` is above 1, else 0), resolved
+        once, at the first overflow admission, summary or scrape."""
+        if self._mega_lanes_resolved is None:
+            self._mega_lanes_resolved = (
+                self.scfg.mega_lanes if self.scfg.mega_lanes is not None
+                else (1 if mega_device_count(self.device) > 1 else 0))
+        return self._mega_lanes_resolved
+
+    def _mega_shape(self, ndim: int) -> tuple:
+        """The mesh shape a mega-lane of this rank would span."""
+        from ..parallel.mesh import auto_mesh_shape
+
+        return auto_mesh_shape(mega_device_count(self.device), ndim)
+
+    def _mega_overflow_reason(self, cfg: HeatConfig):
+        """``(reason, hint)`` when a bucket-overflow request can NOT run as
+        a mega-lane — the rejection with the mesh that could have served
+        it and, where one knob would serve it, a machine-readable hint;
+        ``(None, None)`` when it can."""
+        biggest = max(self.scfg.buckets)
+        base = (f"bucket-overflow: request side {cfg.n} exceeds the "
+                f"biggest bucket {biggest}")
+        ndev = mega_device_count(self.device)
+        if self.mega_lanes <= 0:
+            shape = "x".join(map(str, self._mega_shape(cfg.ndim)))
+            why = ("auto enables mega-lanes only on multi-device hosts"
+                   if ndev <= 1 and self.scfg.mega_lanes is None
+                   else "--mega-lanes 0")
+            return (base + f"; mega-lane placement is off ({why}) though "
+                    f"this host's {ndev}-device {shape} mesh could serve "
+                    f"it", "enable --mega-lanes")
+        shape = self._mega_shape(cfg.ndim)
+        bad = [int(s) for s in shape if cfg.n % int(s)]
+        if bad:
+            return (base + f"; side {cfg.n} does not divide evenly over "
+                    f"the {'x'.join(map(str, shape))} device mesh "
+                    f"(mega-lane shard constraint) — resubmit at a side "
+                    f"divisible by {max(int(s) for s in shape)}", None)
+        return None, None
+
+    def _note_mega_compile(self, seconds: float) -> None:
+        """One mega machinery build (the packed tier builds nothing per
+        bucket): counted apart from the lanes, and a span on the trace."""
+        self.mega_compiles += 1
+        self.compile_s += seconds
+        if self.tracer.enabled:
+            t1 = wall_clock()
+            self.tracer.complete("mega machinery",
+                                 self.tracer.thread_track("compiler"),
+                                 t1 - seconds, t1, cat="compile",
+                                 args={"seconds": round(seconds, 4)})
+
+    def _reject(self, rec: dict, reason: str,
+                hint: Optional[str] = None) -> None:
         with self._lock:
             rec["status"] = "rejected"
             rec["error"] = reason
+            if hint is not None:
+                # the knob that would have served it, machine-readable
+                rec["hint"] = hint
             rec["usage"] = prof_mod.empty_usage()   # schema-stable stamp
         self._emit(rec)
 
@@ -1598,7 +1989,7 @@ class Engine:
             f"looks exactly like this; see TROUBLESHOOTING.md")
         json_record("mem_watermark", **warn)
 
-    def _fail_group(self, runner: _GroupRunner, exc: BaseException) -> None:
+    def _fail_group(self, runner: _Runner, exc: BaseException) -> None:
         """The boundary-fetch watchdog fired for one bucket group: its device
         state is unreadable, so every in-flight occupant and every queued
         request of THIS group fails with a structured record — and the
@@ -1900,7 +2291,7 @@ class Engine:
             return {"id": req.id,
                     "cfg": dataclasses.asdict(req.cfg),
                     "fingerprint": ckpt_mod.config_fingerprint(req.cfg),
-                    "placement": "packed",
+                    "placement": req.placement,
                     "remaining": int(remaining),
                     "steps_done": int(req.cfg.ntime - remaining),
                     "chunks": int(chunks),
@@ -1932,6 +2323,7 @@ class Engine:
             return job
 
         for r in (self._active_runners or ()):
+            mega = isinstance(r, MegaLaneRunner)
             for lane, req in enumerate(r.occupant):
                 if req is None:
                     continue
@@ -1943,15 +2335,19 @@ class Engine:
                        if self.numerics is not None else None)
                 e = _entry(req, remaining, int(r.lane_chunks[lane]),
                            lane_s, num)
-                snap = r.eng.snapshot_lane(lane, req.cfg.n)
+                # a mega occupant's field is its cropped owned field
+                snap = (r.eng.final_snapshot() if mega
+                        else r.eng.snapshot_lane(lane, req.cfg.n))
                 inflight_entries.append(e)
                 field_jobs.append(_field_job(
                     req.id, e["fingerprint"], remaining,
                     lambda s=snap: LaneEngine.extract(s), req.cfg))
         queued_entries: List[dict] = []
         with self._lock:
-            queued_reqs = [q2 for q in self._queues.values()
-                           for q2 in q.items()]
+            queues = list(self._queues.values())
+            if self._mega_queue is not None:
+                queues.append(self._mega_queue)
+            queued_reqs = [q2 for q in queues for q2 in q.items()]
         for req in sorted(queued_reqs, key=lambda q2: q2.seq):
             rst = req.restore
             if rst:
@@ -2033,6 +2429,13 @@ class Engine:
         try:
             runners = [_GroupRunner(self, key, q, writer)
                        for key, q in list(self._queues.items()) if q]
+            if self._mega_queue and self.mega_lanes > 0:
+                # one runner per occupied mega slot, round-robined with the
+                # bucket groups: a mega boundary's bookkeeping hides under
+                # packed chunks and vice versa
+                runners += [MegaLaneRunner(self, i, self._mega_queue, writer)
+                            for i in range(min(self.mega_lanes,
+                                               len(self._mega_queue)))]
             # engine checkpoints read the live runners and the writer from
             # the driving loop (scheduler-thread-confined)
             self._active_runners = tuple(runners)
@@ -2090,7 +2493,7 @@ class Engine:
 
     def results(self) -> List[dict]:
         """``run`` + records (the common library call)."""
-        if any(self._queues.values()):
+        if any(self._queues.values()) or self._mega_queue:
             self.run()
         return list(self._records)
 
@@ -2159,7 +2562,8 @@ class Engine:
         the condition until a submit (or drain) wakes it. Exits when
         draining AND idle; the writer drains on every exit path."""
         writer = async_io.SnapshotWriter(tracer=self.tracer)
-        runners: Dict[BucketKey, _GroupRunner] = {}
+        # bucket groups keyed by BucketKey, mega slots by ("mega-slot", i)
+        runners: Dict[object, object] = {}
         self._active_writer = writer
         t0 = wall_clock()
         try:
@@ -2191,13 +2595,24 @@ class Engine:
                     else:
                         r.maybe_grow()
                         r._fill()
+                if self._mega_queue and self.mega_lanes > 0:
+                    # mega slots appear with the first overflow request and
+                    # persist, like the bucket runners
+                    for i in range(self.mega_lanes):
+                        mr = runners.get(("mega-slot", i))
+                        if mr is None:
+                            runners[("mega-slot", i)] = MegaLaneRunner(
+                                self, i, self._mega_queue, writer)
+                        else:
+                            mr._fill()
                 self._active_runners = tuple(runners.values())
                 self._ckpt_tick()
                 live = [r for r in runners.values() if r.has_work()]
                 if not live:
                     with self._cond:
                         if (self._draining
-                                and not any(self._queues.values())):
+                                and not any(self._queues.values())
+                                and not self._mega_queue):
                             break
                         # parked: a submit()/begin_drain() notify wakes us;
                         # the timeout only bounds lost-wakeup worst cases
@@ -2366,20 +2781,23 @@ class Engine:
 
     # --- reporting --------------------------------------------------------
     def summary(self) -> dict:
-        """The reference's summary keys. Of these, ``mega_lanes`` and
-        ``mega_compiles`` are 0 (no mega-lane tier), ``step_compiles`` and
-        ``tail_compiles`` are 0 (nothing is compiled per bucket: the lane
-        kernels are built once per checkout, ``compile_s`` is the time to
-        load them). The port adds ``device``, ``lane_passes``, the lane
+        """The reference's summary keys. Of these, ``mega_compiles`` counts
+        mega machinery builds (nothing is compiled per chunk size), and
+        ``step_compiles`` and ``tail_compiles`` are 0 (nothing is compiled
+        per bucket: the lane kernels are built once per checkout,
+        ``compile_s`` is the time to load them and to build the mega
+        machinery). The port adds ``device``, ``lane_passes``, the lane
         kernel launches that the dispatched chunks cost by kernel,
         ``lane_passes_by_bucket``, the same by ``"<kernel> <bucket side>
-        <dtype>"``, and ``lane_chunks``, those chunks by kernel."""
+        <dtype>"``, ``lane_chunks``, those chunks by kernel, and
+        ``mega_chunks``, the mega chunks dispatched."""
         with self._lock:
             by_status = collections.Counter(r["status"] for r in self._records)
             by_placement = collections.Counter(
                 r["placement"] for r in self._records if r.get("placement"))
             n = len(self._records)
-            queued = sum(len(q) for q in self._queues.values())
+            queued = (sum(len(q) for q in self._queues.values())
+                      + (len(self._mega_queue) if self._mega_queue else 0))
         # the observatories' snapshots AFTER the engine lock is released
         obs = self.prof.summary(wall_clock())
         ns = self.numerics.snapshot() if self.numerics is not None else None
@@ -2406,8 +2824,9 @@ class Engine:
                     in sorted(self.lane_passes.items())},
                 "lane_chunks": dict(self.lane_chunks),
                 "placement": dict(by_placement),
-                "mega_lanes": 0,
-                "mega_compiles": 0,
+                "mega_lanes": self.mega_lanes,
+                "mega_compiles": self.mega_compiles,
+                "mega_chunks": self.mega_chunks,
                 "queued_now": queued,
                 "lane_grows": self.lane_grows,
                 "step_compiles": 0,

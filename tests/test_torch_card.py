@@ -290,6 +290,40 @@ def test_cuda_solve_on_card_is_the_plain_version(ndim):
     np.testing.assert_array_equal(got.T, solve(port, device="cpu").T)
 
 
+@pytest.mark.parametrize("ndim,dtype", [(2, "float32"), (2, "bfloat16"),
+                                        (3, "float32"), (3, "bfloat16")])
+def test_mega_machinery_on_the_card_is_its_plain_local_kernel(ndim, dtype):
+    """A mega-lane on 4 shards of the card: every boundary vector and the
+    final field equal those of the same machinery on the kernel's plain
+    bounded version, on the card (a fuse depth of 5 cuts each 16-step
+    chunk into blocks of 5, 5, 5 and the final step)."""
+    from heat_tpu_torch.serve.engine import MegaLaneEngine, fetch_boundary
+
+    cfg = HeatConfig(n=256 if ndim == 2 else 64, ndim=ndim, ntime=37,
+                     dtype=dtype, sigma=0.2 if ndim == 2 else 0.15,
+                     bc="edges", fuse_steps=5)
+
+    def drive():
+        eng = MegaLaneEngine(cfg, 4, 16, device="cuda", cache={})
+        bounds = [fetch_boundary(eng.dispatch_chunk(k), timeout_s=60)
+                  for k in (16, 16, 5)]
+        return bounds, fetch_boundary(eng.final_snapshot(), timeout_s=60)
+
+    name = cs._KERNELS[ndim]
+    cs.reset_launches()
+    got_b, got_T = drive()
+    assert cs.launches[name] > 0
+    plain = functools.partial(cs.ftcs_multistep_bounded_cuda, plain=True)
+    with mock.patch.object(sharded, "ftcs_multistep_bounded_cuda", plain):
+        cs.reset_launches()
+        want_b, want_T = drive()
+        assert cs.launches[name] == 0
+    assert [b[0, 0] for b in got_b] == [21, 5, 0]
+    for a, b in zip(got_b, want_b):
+        assert a.tobytes() == b.tobytes()
+    assert got_T.tobytes() == want_T.tobytes()
+
+
 def _sharded_field(cfg, **kw):
     return solve(cfg, device="cuda", virtual_devices=int(np.prod(cfg.mesh_shape)),
                  **kw).T

@@ -10,10 +10,11 @@ reference names jax), the ``kernel`` label's value (the chunk body:
 ``torch`` here, ``xla`` there), the time-valued samples (uptime, boundary
 wait, lane-seconds, latency, seconds per lane-step, compile seconds), and
 the compile counters (the reference compiles a program per chunk size;
-the port builds none). A bucket-overflow rejection carries the
-reference's reason without the mega-lane clause and ``hint`` (the port has
-no mega-lane tier yet). Every client call has a timeout, every drain a
-deadline, and every server is closed in a ``finally``.
+the port builds none). Both engines run with ``mega_lanes=0`` and the
+port's ``mega_device_count`` sees the reference's 8 CPU devices, so a
+bucket-overflow rejection carries the reference's whole reason and
+``hint``. Every client call has a timeout, every drain a deadline, and
+every server is closed in a ``finally``.
 """
 
 import json
@@ -35,6 +36,7 @@ from heat_tpu_torch import cli
 from heat_tpu_torch.config import HeatConfig
 from heat_tpu_torch.runtime import checkpoint as ckpt
 from heat_tpu_torch.serve import Engine, ServeConfig
+from heat_tpu_torch.serve import scheduler as sch
 from heat_tpu_torch.serve.gateway import Gateway, render_metrics
 from heat_tpu_torch.serve.probe import Prober, expected_probe_field
 
@@ -60,19 +62,15 @@ TIME_VALUED = ("heat_tpu_process_uptime_seconds",
                "heat_tpu_probe_last_error_norm",
                "heat_tpu_mem_")
 RECORD_TIME_KEYS = ("queue_wait_s", "solve_s", "steps_per_s", "trace_id",
-                    "usage", "hint")
-
-
-def _reason(v):
-    """A record's error up to the reference's mega-lane clause."""
-    return v.split("; mega-lane")[0] if isinstance(v, str) else v
+                    "usage")
 
 
 def _engine(port: bool, **kw):
-    kw = dict(dict(lanes=2, chunk=8, buckets=(16,), emit_records=False), **kw)
+    kw = dict(dict(lanes=2, chunk=8, buckets=(16,), emit_records=False,
+                   mega_lanes=0), **kw)
     if port:
         return Engine(ServeConfig(**kw), device="cpu")
-    return JEngine(JServeConfig(mega_lanes=0, **kw))
+    return JEngine(JServeConfig(**kw))
 
 
 def _call(base, path, data=None, method=None, headers=None):
@@ -172,7 +170,9 @@ def _session(port: bool, tmp_path):
     return out
 
 
-def test_every_route_answers_like_the_reference(tmp_path):
+def test_every_route_answers_like_the_reference(tmp_path, monkeypatch):
+    # the reference's mesh: conftest's 8 CPU devices
+    monkeypatch.setattr(sch, "mega_device_count", lambda device: 8)
     got, want = _session(True, tmp_path), _session(False, tmp_path)
     for name in got:
         assert got[name][0] == want[name][0], name
@@ -185,8 +185,8 @@ def test_every_route_answers_like_the_reference(tmp_path):
     for rid, r in recs_p.items():
         for k in set(r) | set(recs_j[rid]):
             if k not in RECORD_TIME_KEYS:
-                assert _reason(r.get(k)) == _reason(recs_j[rid].get(k)), (
-                    rid, k)
+                assert r.get(k) == recs_j[rid].get(k), (rid, k)
+    assert recs_p["c"]["hint"] == "enable --mega-lanes"
     # the solve response names the minted trace ids, one per submitted line
     tids = got["solve"][1]["X-Trace-Id"].split(",")
     assert sorted(tids) == sorted(r["trace_id"] for r in recs_p.values()
