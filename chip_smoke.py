@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke test of heat_tpu_torch: builds the CUDA kernels, holds them
 against their plain PyTorch versions byte for byte, drives the ``run`` path
-at the shipped sizes in 2D and 3D, the ``serve`` path, the kernel lab and
-the ``sharded`` backend, and checks the answer against the serial oracle.
+at the shipped sizes in 2D and 3D, the ``serve`` path, the fleet router over
+several ``serve`` processes, the kernel lab and the ``sharded`` backend, and
+checks the answer against the serial oracle.
 
 Usage, from the repository root on a host with one CUDA card::
 
@@ -223,6 +224,34 @@ a checkout of the repository, it exits non-zero and prints no result):
    kernels against the plain bounded version (boundary vector and field
    bytes), and the f32 chunk's deepest pass and its final 1-step pass
    timed beside the plain pass and the bound;
+5e. the fleet on the card: five port backends, ``python -m heat_tpu_torch
+   serve --listen 127.0.0.1:0`` processes at phase 5's arguments with
+   ``--json --engine-ckpt-interval 1024`` (b1 also ``--mega-lanes 1``;
+   b2 and b4, the drills' victims, every 256, so that each publishes a
+   checkpoint well inside its wave), started together and warmed with one
+   request of each bucket, dtype and rank sent directly; phase 5's 56
+   requests (under new ids) through the fleet router in this process
+   (``heat_tpu_torch.labs.fleet_lab.run_wave``) over 1, 2 and 4 backends
+   (b0..b3) and through ``python -m heat_tpu_torch fleet --backends b0,b1
+   --json`` (the CLI router, a process of its own, drained by ``POST
+   /drainz``: its ``fleet_summary`` line) over 2: every record ok, every
+   npz byte-equal to phase 5's (``check_sample`` too); the wall, the
+   served cell-steps/s and the placements per backend of each, beside
+   phase 5's direct serve; phase 5d's 4096^2 f32 x 8192 through a router
+   over b0 and b1: placed ``mega`` on b1 only, npz byte-equal to phase
+   5d's; the steal drill (``steal_drill``: b2 loaded, b3 joins through the
+   backends file, a forced ``Router.steal`` once b2 has published a
+   checkpoint with work pending) and the kill drill (``kill_drill``: b4,
+   fresh, SIGKILLed beside b1 once it has published a checkpoint of the
+   wave, so the survivor resumes a manifest of this wave), both on every
+   second request of phase 5's file: every request ok, none lost, none
+   twice, npz byte-equal, a flight dump; each surviving backend's summary
+   (lane passes, no lane-kernel fallback, b1's mega placement) and no
+   kernel library built during the phase; then the resilience lab
+   (``fleet_resilience_lab``: flap, stream-cut, hedge and deadline drills
+   over in-process engines and gateways on the card, f32, 12 requests):
+   no row lost or duplicated, bytes equal to a direct engine solve, the
+   p99 ratio and the hedge's win printed as measurements;
 6. the kernel lab's candidates L1-L5 (``lab2d``, ``lab3d``): every
    (kernel, variant, dtype) against its plain version on the card, bytes,
    at the JAX lab's check shapes, depths 1 and the deepest its TPU geometry
@@ -2926,6 +2955,319 @@ def phase_mega(smi, serve, runs):
     return out
 
 
+def fleet_copies(ids, prefix, dirs, ref: Path) -> list:
+    """The ids whose fleet outputs (``<prefix>-<id>.npz`` in any of
+    ``dirs``) are missing or not all byte-equal to ``ref/<id>.npz``."""
+    bad = []
+    for i in ids:
+        want = (ref / f"{i}.npz").read_bytes()
+        got = [p.read_bytes() for d in dirs
+               for p in [d / f"{prefix}-{i}.npz"] if p.exists()]
+        if not got or any(g != want for g in got):
+            bad.append(i)
+    return bad
+
+
+def drain_backend(b) -> None:
+    """``POST /drainz`` to a ``serve --listen`` backend: it finishes its
+    work, prints its summary and exits 0."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://{b.address}/drainz", data=b"",
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        r.read()
+
+
+def backend_summary(b, drained: bool, timeout=120.0) -> dict:
+    """The summary line of a ``serve --listen --json`` backend
+    (``fleet_lab.BackendProc``) once it has exited. A drained backend
+    exits 0; one drained to a checkpoint (a steal's victim) exits 1, its
+    requests unfinished there."""
+    rc = b.proc.wait(timeout)
+    lines = b.log.read_text(errors="replace").splitlines()
+    check(rc == (0 if drained else 1),
+          f"backend {b.name} exited {rc}: " + "\n".join(lines[-20:]))
+    return next(json.loads(x) for x in reversed(lines)
+                if x.startswith("{") and '"lane_passes"' in x)
+
+
+def phase_fleet(smi, serve):
+    """Phase 5e, the fleet on the card (see the module docstring): port
+    backends as ``serve --listen`` processes behind the fleet router, phase
+    5's file through 1, 2 (the ``fleet`` CLI) and 4 of them, the oversized
+    request on the mega-capable one, the steal and kill drills and the
+    resilience lab. Returns the numbers."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.labs import fleet_lab as fl
+    from heat_tpu_torch.labs import fleet_resilience_lab as frl
+    from heat_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    built = sorted(p.name for p in _build.build_dir().glob("lib*.so"))
+    reqs = [json.loads(x) for x in
+            (WORK / "requests.jsonl").read_text().splitlines()]
+    ids = [r["id"] for r in reqs]
+    ref = WORK / "serve-cuda"
+    work = fl.cell_steps(reqs)
+    root = WORK / "fleet"
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    args = (*SERVE_ARGS, "--json")
+    out = {"waves": {}}
+
+    def lines(prefix, rows=reqs):
+        return [dict(r, id=f"{prefix}-{r['id']}") for r in rows]
+
+    # the drills take every second request (2D f32, bf16 and 3D among
+    # them), to keep the whole script inside its time limit
+    half = reqs[::2]
+    half_ids = [r["id"] for r in half]
+
+    def phase5_field(line):
+        with np.load(ref / f"{line['id'].split('-', 1)[1]}.npz") as z:
+            return z["T"]
+
+    print(f"[phase 5e] 5 backends: python -m heat_tpu_torch serve --listen "
+          f"{' '.join(args)} --engine-ckpt-interval 1024 (b1 also "
+          f"--mega-lanes 1; b2 and b4 --engine-ckpt-interval 256)")
+    t0 = time.perf_counter()
+    # checkpoints every 1024 boundaries; 256 for the drills' victims (b2
+    # the steal's, b4 the kill's), whose first generation of their wave
+    # must come well inside it. b4 serves nothing before the kill drill,
+    # so every manifest in its directory is of that wave.
+    procs = [fl.BackendProc(name, root, env, serve_args=extra,
+                            ckpt_interval=every)
+             for name, extra, every in (
+                 ("b0", args, 1024),
+                 ("b1", (*args, "--mega-lanes", "1"), 1024),
+                 ("b2", args, 256), ("b3", args, 1024), ("b4", args, 256))]
+    b0, b1, b2, b3, b4 = procs
+    cli_router = None
+    try:
+        for b in procs:
+            b.wait_address(180)
+        for b in procs:
+            b.wait_healthy(60)
+        t_up = time.perf_counter() - t0
+        # first launches paid before any timed wave: one request of each
+        # bucket, dtype and rank, sent to every backend directly
+        warm = [dict(r, id=f"warm-{r['id']}", ntime=32) for r in
+                (reqs[0], reqs[1], reqs[2], reqs[3], reqs[40], reqs[48])]
+        threads = [threading.Thread(target=fl.warm_backend, args=(b, warm))
+                   for b in procs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+            check(not t.is_alive(), "a backend's warm-up hung")
+        print(f"  5 backends up in {t_up:.1f} s, warm in "
+              f"{time.perf_counter() - t0 - t_up:.1f} s more")
+
+        def wave(key, backends, recs, wall, snap):
+            per = {n: b["routed"] for n, b in snap["backends"].items()}
+            check(sorted(r["id"] for r in recs)
+                  == sorted(f"{key}-{i}" for i in ids)
+                  and all(r["status"] == "ok" for r in recs),
+                  f"fleet wave {key}: not every record ok")
+            bad = fleet_copies(ids, key, [b.dir for b in backends], ref)
+            check(not bad, f"fleet wave {key}: npz differ from phase 5's: "
+                           f"{bad}")
+            rate = work / wall
+            out["waves"][key] = dict(backends=len(backends), wall_s=wall,
+                                     cell_steps_per_s=rate, placed=per,
+                                     retries=snap["router"]["retries"])
+            print(f"  {len(backends)} backend(s): {len(recs)} records ok, "
+                  f"npz byte-equal to phase 5's, wall {wall:.3f} s, "
+                  f"{rate:.6g} cell-steps/s ({rate / serve['cell_steps_per_s']:.4f}x "
+                  f"phase 5's direct serve, {serve['wall_s']:.3f} s), placed "
+                  f"{per}, {snap['router']['retries']} retries")
+
+        # 1. phase 5's file through 1, 2 and 4 backends (the router in
+        # this process)
+        for key, backends in (("f1", [b0]), ("f2", [b0, b1]),
+                              ("f4", [b0, b1, b2, b3])):
+            wall, recs, snap = fl.run_wave(backends, lines(key))
+            wave(key, backends, recs, wall, snap)
+            if key == "f4":
+                sample = [0, 20, 40, 47, 48, 55]
+                check(fl.check_sample(backends, lines(key), sample,
+                                      reference=phase5_field),
+                      "fleet_lab.check_sample: a sample differs")
+
+        # 2. through 2 backends behind the fleet CLI in a process of its own
+        cli_router = subprocess.Popen(
+            [sys.executable, "-m", "heat_tpu_torch", "fleet", "--backends",
+             f"b0={b0.address},b1={b1.address}", "--health-interval", "0.5",
+             "--json"], cwd=WORK, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        import select
+
+        ready = select.select([cli_router.stdout], [], [], 120)[0]
+        first = cli_router.stdout.readline() if ready else ""
+        check("fleet router listening on http://" in first,
+              f"the fleet CLI did not come up: {first!r}")
+        base = "http://" + first.split("http://")[1].split()[0]
+
+        def status():
+            with urllib.request.urlopen(f"{base}/v1/status",
+                                        timeout=60) as r:
+                return json.loads(r.read())
+
+        check(fl.wait_for(lambda: all(b["probe_passes"] for b in
+                                      status()["backends"].values()), 60),
+              "the fleet CLI never probed its backends")
+        body = "".join(json.dumps(r) + "\n" for r in lines("c2")).encode()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(urllib.request.Request(
+                f"{base}/v1/solve", data=body), timeout=600) as r:
+            recs = [json.loads(x) for x in r.read().splitlines() if x]
+        wall = time.perf_counter() - t0
+        snap = status()
+        with urllib.request.urlopen(urllib.request.Request(
+                f"{base}/drainz", data=b""), timeout=60) as r:
+            r.read()
+        text, _ = cli_router.communicate(timeout=120)
+        fsum = json.loads(text.strip().splitlines()[-1])
+        check(cli_router.returncode == 0 and fsum["event"] == "fleet_summary"
+              and fsum["requests"] == len(ids) and fsum["duplicates"] == 0,
+              f"the fleet CLI's summary: {text[-2000:]}")
+        cli_router = None
+        wave("c2", [b0, b1], recs, wall, snap)
+        free, total = torch.cuda.mem_get_info()
+        out["card_used_gib"] = (total - free) / 2**30
+        w = {k: v["cell_steps_per_s"] for k, v in out["waves"].items()}
+        print(f"  scaling, the router in this process: 2 backends "
+              f"{w['f2'] / w['f1']:.4f}x and 4 backends "
+              f"{w['f4'] / w['f1']:.4f}x the 1-backend fleet's "
+              f"cell-steps/s; the 1-backend fleet "
+              f"{w['f1'] / serve['cell_steps_per_s']:.4f}x phase 5's direct "
+              f"serve; the fleet CLI's router over 2 backends "
+              f"{w['c2'] / w['f2']:.4f}x this process's; "
+              f"{out['card_used_gib']:.2f} GiB of the card in use with 5 "
+              f"backends resident, on {smi}")
+
+        # 3. the oversized request (phase 5d's 4096^2 f32) on b1 only
+        rt = fl.make_router([(b.name, b.address) for b in (b0, b1)])
+        try:
+            fl.wait_probed(rt)
+            mega = dict(MEGA_F32, id="fleet-mega")
+            t0 = time.perf_counter()
+            (rec,) = fl.post_stream(rt, [mega])
+            mwall = time.perf_counter() - t0
+            snap = rt.snapshot()
+        finally:
+            rt.close()
+        same = ((b1.dir / "fleet-mega.npz").read_bytes()
+                == (WORK / "serve-mega" / "mega-f32.npz").read_bytes())
+        check(rec["status"] == "ok" and rec["placement"] == "mega"
+              and snap["backends"]["b1"]["routed"] == 1
+              and snap["backends"]["b0"]["routed"] == 0
+              and not (b0.dir / "fleet-mega.npz").exists() and same,
+              f"the oversized request: {rec}, placed "
+              f"{ {n: b['routed'] for n, b in snap['backends'].items()} }, "
+              f"byte-equal {same}")
+        out["mega_wall_s"] = mwall
+        print(f"  4096^2 f32 x 8192 through the router: placed on b1 only "
+              f"(mega capable), placement {rec['placement']}, npz byte-equal "
+              f"to phase 5d's, {mwall:.3f} s")
+
+        # 4. the steal drill: b2 loaded, b3 joins, forced steal b2 -> b3
+        steal = fl.steal_drill(b2, b3, lines("st", half), root)
+        bad = fleet_copies(half_ids, "st", [b2.dir, b3.dir], ref)
+        check(steal["all_ok"] and steal["duplicates"] == 0 and not bad,
+              f"the steal drill: {steal}, npz differ {bad}")
+        out["steal"] = steal
+        print(f"  steal b2 -> b3 with {steal['pending_at_steal']} requests "
+              f"pending: {steal['recovered_requests']} resumed from "
+              f"generation {steal['generation']} + "
+              f"{steal['redriven_requests']} re-driven, recovery "
+              f"{steal['recovery_s']} s (drain {steal['drain_s']} s, resume "
+              f"{steal['resume_s']} s); all {len(half)} ok, no duplicate, npz "
+              f"byte-equal to phase 5's")
+        summaries = {"b2": backend_summary(b2, drained=False)}
+
+        # 5. the kill drill: SIGKILL b4 mid-wave, b1 survives
+        kill = fl.kill_drill([b4, b1], lines("kd", half), root / "flightrec")
+        bad = fleet_copies(half_ids, "kd", [b4.dir, b1.dir], ref)
+        check(kill["zero_lost"] and kill["zero_duplicates"]
+              and kill["victim_recovered"] and kill["flight_dumps"] >= 1
+              and kill["generation_at_kill"] > kill["generation_before"]
+              and not bad, f"the kill drill: {kill}, npz differ {bad}")
+        out["kill"] = kill
+        print(f"  kill b4 at its checkpoint generation "
+              f"{kill['generation_at_kill']} of this wave (before it "
+              f"{kill['generation_before']}), {kill['victim_delivered_before_kill']}"
+              f" of its records delivered: the survivor resumed "
+              f"{kill['resumed_requests']} request(s) from generation "
+              f"{kill['resumed_generation']}; {kill['ok']} of {len(half)} ok, "
+              f"none lost, none twice, {kill['flight_dumps']} flight dump, "
+              f"npz byte-equal; wave {kill['wall_s']} s, "
+              f"{kill['after_kill_s']} s after the kill")
+
+        # 6. the lane passes every surviving backend's engine dispatched
+        for b in (b0, b1, b3):
+            drain_backend(b)
+        for b in (b0, b1, b3):
+            summaries[b.name] = backend_summary(b, drained=True)
+        for name, s in sorted(summaries.items()):
+            check(s["lane_kernel_fallbacks"] == 0
+                  and s["lane_passes"].get("lanes2d", 0) > 0,
+                  f"backend {name}: {s['lane_passes']}, "
+                  f"{s['lane_kernel_fallbacks']} fallbacks")
+            print(f"  backend {name}: {s['requests']} requests, lane passes "
+                  f"{s['lane_passes']}, placement {s['placement']}, no "
+                  f"lane-kernel fallback, {s['compile_s']} s loading "
+                  f"kernels")
+        check(summaries["b1"]["placement"].get("mega", 0) >= 1,
+              "b1 served no mega-lane")
+    finally:
+        if cli_router is not None and cli_router.poll() is None:
+            cli_router.kill()
+            cli_router.wait(60)
+        for b in procs:
+            b.stop()
+
+    now = sorted(p.name for p in _build.build_dir().glob("lib*.so"))
+    check(now == built, f"a backend built a kernel library in the phase: "
+                        f"{sorted(set(now) - set(built))}")
+    print(f"  no backend built a kernel: the {len(built)} libraries of "
+          f"phase 1 served every backend")
+
+    # 7. the resilience lab at a small population, f32 on the lane kernels
+    # (in-process engines and gateways on the card); its timing gates are
+    # printed, not checked
+    t0 = time.perf_counter()
+    rdir = root / "resilience"
+    flap = frl.flap_drill(rdir, 12, frl.SINK_MS, "cuda", "float32")
+    cut = frl.cut_drill(rdir, 12, frl.SINK_MS // 2, "cuda", "float32")
+    hedge = frl.hedge_drill(rdir, frl.SINK_MS, "cuda", "float32")
+    dead = frl.deadline_drill(rdir, 4, 4, "cuda", "float32")
+    check(flap["availability"] == 1.0 and flap["bit_identical"]
+          and cut["zero_lost"] and cut["zero_duplicates"]
+          and hedge["status"] == "ok" and hedge["bit_identical"]
+          and dead["shed_exact"],
+          f"the resilience lab: {flap} {cut} {hedge} {dead}")
+    out["resilience"] = dict(flap=flap, cut=cut, hedge=hedge, deadline=dead)
+    print(f"  resilience lab (f32, 12 requests, {time.perf_counter() - t0:.1f}"
+          f" s): flap availability {flap['availability']}, p99 ratio "
+          f"{flap['p99_ratio']} (the reference's gate <= 1.5: a measurement "
+          f"here), {flap['breaker_transitions']} breaker transitions, "
+          f"{flap['steals']} steals; stream cut {cut['stream_cuts']}, "
+          f"{cut['ok']} of {cut['requests']} ok; hedge fired "
+          f"{hedge['fired']} won {hedge['won']} in {hedge['hedged_wall_s']} s "
+          f"(stall {hedge['stall_depth_s']} s); deadline {dead['shed_records']}"
+          f" shed, {dead['served_records']} served; every byte check equal")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[phase 5e] done in {out['phase_s']:.1f} s on {smi}")
+    return out
+
+
 def nan_bits_equal_cells(a, b):
     """Per cell: both NaN, or the same bytes."""
     return (a.isnan() & b.isnan()) | (bits(a) == bits(b))
@@ -3973,6 +4315,7 @@ def main() -> int:
         phase_serve_semantics(smi, serve)
         phase_serving_front(smi, serve)
         mega = phase_mega(smi, serve, runs)
+        phase_fleet(smi, serve)
         lab_errs = phase_lab_compare()
         lab_rows, lab_launches = phase_lab(smi)
         shard = phase_sharded(smi, mega["requests"]["mega-hip"]["digest"])

@@ -11,10 +11,26 @@ beside it: the same ``input.dat`` contract, configs, initial conditions,
 Entry points run on the card unless the caller asks for the CPU
 (``solve(cfg, device="cpu")``, ``--device cpu``). Nothing here imports JAX
 or ``heat_tpu``.
+
+The names below load their modules (and torch) on first use, so a module
+that needs no torch, such as ``fleet.placement``, imports without it.
 """
 
-from .backends import SolveResult, solve  # noqa: F401
-from .config import VARIANTS, HeatConfig, parse_input, variant_config  # noqa: F401
-from .grid import coords, initial_condition  # noqa: F401
+import importlib
 
 __version__ = "0.1.0"
+
+_EXPORTS = {"SolveResult": "backends", "solve": "backends",
+            "VARIANTS": "config", "HeatConfig": "config",
+            "parse_input": "config", "variant_config": "config",
+            "coords": "grid", "initial_condition": "grid"}
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f".{mod}", __name__), name)
+    globals()[name] = value
+    return value

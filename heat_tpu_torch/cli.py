@@ -12,8 +12,9 @@ Usage: ``python -m heat_tpu_torch run [--backend cuda] [--json]``,
 ``python -m heat_tpu_torch serve --requests FILE.jsonl [--json]`` (the
 serving engine: one ``<id>.npz`` per request with ``--out-dir``; with
 ``--listen HOST:PORT`` the online gateway, ``--resume DIR`` continues an
-engine checkpoint), ``python -m heat_tpu_torch trace FILE`` (a trace
-file's text summary), ``python -m heat_tpu_torch usage URL|FILE`` (the
+engine checkpoint), ``python -m heat_tpu_torch fleet --backends HOST:PORT,...`` (the fleet
+router over ``serve --listen`` gateways), ``python -m heat_tpu_torch
+trace FILE`` (a trace file's text summary), ``python -m heat_tpu_torch usage URL|FILE`` (the
 per-tenant usage ledger), ``python -m heat_tpu_torch launch -n N -- run
 --backend sharded ...`` (N worker processes in one ``torch.distributed``
 world, the reference's ``mpirun -np N``) and ``python -m heat_tpu_torch
@@ -377,6 +378,129 @@ def build_parser() -> argparse.ArgumentParser:
                             "accounts for are skipped")
     serve.add_argument("--json", action="store_true",
                        help="also print the summary as one JSON line")
+
+    fleet = sub.add_parser(
+        "fleet",
+        help="fleet router: one stdlib-HTTP front end over N "
+             "independent `serve --listen` gateways — edge "
+             "admission, burn-aware least-loaded placement fed from "
+             "each backend's GET /v1/status, fleet-wide /metrics + "
+             "/statusz + /v1/usage, health probes with retry-on-"
+             "alternate, and checkpoint-handoff work stealing "
+             "(drain a loaded backend to its engine manifest, resume "
+             "it on an idle one — bit-identical bytes across the "
+             "migration)")
+    fleet.add_argument("--backends", metavar="[NAME=]HOST:PORT,...",
+                       help="comma-separated backend gateways (each a "
+                            "`serve --listen` process); unnamed "
+                            "entries get positional names b0,b1,...")
+    fleet.add_argument("--backends-file", dest="backends_file",
+                       metavar="FILE",
+                       help="backend registry file: one [name=]host:port "
+                            "per line, '#' comments; re-read when its "
+                            "mtime changes, so new backends join the "
+                            "fleet live (removing a line never evicts a "
+                            "live backend)")
+    fleet.add_argument("--listen", default="127.0.0.1:0",
+                       metavar="HOST:PORT",
+                       help="router bind address (default 127.0.0.1:0 = "
+                            "ephemeral port, printed)")
+    fleet.add_argument("--fleet-policy", dest="fleet_policy",
+                       choices=["least-loaded", "round-robin"],
+                       default="least-loaded",
+                       help="placement policy: 'least-loaded' (default) "
+                            "ranks by predicted backlog seconds (cost "
+                            "model x queue work) with burn-aware "
+                            "demotion and mega-capability routing; "
+                            "'round-robin' is the A/B baseline")
+    fleet.add_argument("--health-interval", dest="health_interval",
+                       type=float, default=2.0, metavar="S",
+                       help="health-probe cadence: GET /healthz + "
+                            "/v1/status per backend every S seconds "
+                            "(default 2)")
+    fleet.add_argument("--steal-threshold", dest="steal_threshold",
+                       type=float, default=0.0, metavar="S",
+                       help="work-stealing imbalance threshold in "
+                            "predicted-backlog seconds: when "
+                            "max-min exceeds S and the victim has "
+                            "queued work, the router drains the victim "
+                            "to a checkpoint (/drainz?handoff=1) and "
+                            "resumes its manifest on the idlest backend "
+                            "(default 0 = automatic stealing off)")
+    fleet.add_argument("--steal-cooldown", dest="steal_cooldown",
+                       type=float, default=10.0, metavar="S",
+                       help="minimum seconds between automatic steals "
+                            "(thrash guard; default 10)")
+    fleet.add_argument("--cache-dir", dest="fleet_cache_dir",
+                       metavar="DIR",
+                       help="shared solve-cache dir (point it at the "
+                            "same --cache-dir the backends publish "
+                            "into): the router consults it read-only "
+                            "before placement — a fleet-wide full hit "
+                            "is served at the edge without touching any "
+                            "backend, a prefix hit steers placement to "
+                            "a cache-enabled backend")
+    fleet.add_argument("--ckpt-root", dest="ckpt_root", metavar="DIR",
+                       help="fallback checkpoint root: backend NAME's "
+                            "engine manifests under DIR/NAME when its "
+                            "status payload names no checkpoint dir "
+                            "(default: trust each backend's "
+                            "--engine-ckpt-dir as reported)")
+    fleet.add_argument("--inject", metavar="SPEC",
+                       help="fleet-scoped deterministic fault injection "
+                            "(runtime/faults.py grammar): "
+                            "backend-down@N[:backend=K] drops the TCP "
+                            "target at the Nth forwarded request "
+                            "(K names a backend; default = whichever "
+                            "was chosen); backend-slow:ms=M sleeps "
+                            "every forward M ms; "
+                            "backend-flap:period=MS[:backend=K] square-"
+                            "waves the target down/up per half-period; "
+                            "stream-cut@N[:backend=K] breaks the relay "
+                            "stream after N records while the backend "
+                            "stays alive; "
+                            "backend-partition[:ms=M][:backend=K] makes "
+                            "every connect hang M ms then time out")
+    fleet.add_argument("--breaker-trip", dest="breaker_trip", type=int,
+                       default=3, metavar="N",
+                       help="consecutive relay/probe errors that open a "
+                            "backend's circuit breaker (default 3); an "
+                            "open breaker excludes the backend from "
+                            "placement and stealing until the sine "
+                            "canary passes through the router path")
+    fleet.add_argument("--breaker-cooldown", dest="breaker_cooldown",
+                       type=float, default=5.0, metavar="S",
+                       help="seconds an open breaker waits before its "
+                            "half-open canary (default 5; doubles on "
+                            "every failed canary, capped at 120)")
+    fleet.add_argument("--retry-budget", dest="retry_budget",
+                       type=float, default=20.0, metavar="TOKENS",
+                       help="fleet-wide retry token bucket size "
+                            "(default 20): each batch re-placement "
+                            "spends one token, each delivered success "
+                            "refills 0.2 — a dry bucket sheds instead "
+                            "of amplifying overload")
+    fleet.add_argument("--hedge-factor", dest="hedge_factor",
+                       type=float, default=0.0, metavar="F",
+                       help="tail-latency hedging for the interactive "
+                            "class: duplicate a row onto a second "
+                            "breaker-closed backend once it has waited "
+                            "F x its predicted service time (+0.75s "
+                            "floor); first terminal record wins, the "
+                            "loser is cancelled at its next chunk "
+                            "boundary (default 0 = off)")
+    fleet.add_argument("--trace", metavar="FILE",
+                       help="export the ROUTER's event ring at drain: "
+                            "forward spans + synthesized backend solve "
+                            "spans per backend track — one fleet "
+                            "timeline (also GET /tracez live)")
+    fleet.add_argument("--trace-buffer", dest="trace_buffer", type=int,
+                       metavar="N",
+                       help="router event-ring capacity (default "
+                            f"{trace_mod.DEFAULT_BUFFER}); the ring is "
+                            "flight-dumped on backend loss; 0 disables")
+    fleet.add_argument("--json", action="store_true",
+                       help="also print a machine-readable summary line")
 
     usage = sub.add_parser(
         "usage",
@@ -830,6 +954,98 @@ def cmd_serve(args) -> int:
     return 0 if ok == summary["requests"] else 1
 
 
+def cmd_fleet(args) -> int:
+    """Run the fleet router (``fleet/router.py``) until drained: the
+    front end over N ``serve --listen`` backends. The router itself never
+    touches a device — stdlib HTTP and placement arithmetic — while each
+    backend serves on the card unless it was started with ``--device
+    cpu``."""
+    import time
+
+    from .config import parse_listen
+    from .fleet.registry import BackendRegistry, parse_backends
+    from .fleet.router import FleetConfig, Router
+
+    if not args.backends and not args.backends_file:
+        print("error: need --backends HOST:PORT,... and/or "
+              "--backends-file FILE", file=sys.stderr)
+        return 2
+    try:
+        listen = parse_listen(args.listen)
+        backends = parse_backends(args.backends) if args.backends else []
+        trace_path, trace_cap = trace_mod.resolve_trace(args.trace,
+                                                        args.trace_buffer)
+        fcfg = FleetConfig(policy=args.fleet_policy,
+                           health_interval_s=args.health_interval,
+                           steal_threshold_s=args.steal_threshold,
+                           steal_cooldown_s=args.steal_cooldown,
+                           ckpt_root=args.ckpt_root,
+                           cache_dir=args.fleet_cache_dir,
+                           inject=args.inject or "",
+                           breaker_trip=args.breaker_trip,
+                           breaker_cooldown_s=args.breaker_cooldown,
+                           retry_budget_cap=args.retry_budget,
+                           hedge_factor=args.hedge_factor,
+                           trace_buffer=trace_cap)
+        registry = BackendRegistry(backends,
+                                   backends_file=args.backends_file)
+        if not registry.snapshot():
+            raise ValueError("no backends: the --backends flag and the "
+                             "--backends-file are both empty")
+        rt = Router(registry, listen[0], listen[1], fcfg).start()
+    except (ValueError, OSError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    names = ", ".join(f"{b.name}={b.address}" for b in registry.snapshot())
+    master_print(f"fleet router listening on http://{rt.address} — "
+                 f"POST /v1/solve routes across [{names}] "
+                 f"(policy {fcfg.policy}, steal threshold "
+                 f"{fcfg.steal_threshold_s or 'off'}); GET /metrics "
+                 f"/statusz /v1/status /v1/usage /tracez; POST /drainz "
+                 f"stops admission")
+    try:
+        while not rt.draining:
+            time.sleep(0.25)
+        # admission stopped: let in-flight streams finish
+        deadline = time.monotonic() + fcfg.stream_timeout_s
+        while rt.pending_count() and time.monotonic() < deadline:
+            time.sleep(0.25)
+    except KeyboardInterrupt:
+        master_print("fleet: interrupt — admission stopped (backends "
+                     "keep their in-flight work; drain them "
+                     "individually)")
+        rt.request_drain()
+    snap = rt.snapshot()
+    if trace_path:
+        rt.tracer.export(trace_path)
+        master_print(f"wrote trace {trace_path} (open in Perfetto; "
+                     f"summary: python -m heat_tpu_torch trace "
+                     f"{trace_path})")
+    r = snap["router"]
+    master_print(f"fleet: drained — {r['requests']} routed, "
+                 f"{r['edge_rejected']} rejected at the edge, "
+                 f"{r['retries']} batch retries, {len(r['steals'])} "
+                 f"steal(s), {r['lost']} backend(s) lost")
+    if snap.get("cache") is not None:
+        master_print(f"fleet: solve cache — {r['cache_edge_hits']} edge "
+                     f"hit(s), {r['cache_prefix_hints']} prefix "
+                     f"placement hint(s)")
+    hd = r["hedges"]
+    if (r["deadline_shed"] or r["brownout_shed"] or r["stream_cuts"]
+            or hd["fired"] or r["retry_budget"]["denied"]):
+        master_print(f"fleet: resilience — {r['deadline_shed']} "
+                     f"deadline-shed, {r['brownout_shed']} brownout-"
+                     f"shed, {r['stream_cuts']} stream cut(s) "
+                     f"re-driven, {hd['fired']} hedge(s) fired "
+                     f"({hd['won']} won, {hd['cancelled']} cancelled), "
+                     f"{r['retry_budget']['denied']} retr(ies) denied "
+                     f"by the budget")
+    if args.json:
+        print(json.dumps({"event": "fleet_summary", **r}, sort_keys=True))
+    rt.close()
+    return 0
+
+
 def cmd_usage(args) -> int:
     """Render the per-tenant usage ledger as a table (or raw JSON) from a
     running gateway's ``GET /v1/usage`` or a saved stream of
@@ -1116,13 +1332,42 @@ def cmd_info(_args) -> int:
           f"overflow stays a rejection"
           + (", the single-device behavior); " if ndev <= 1 else "); ")
           + "mega side must divide the mesh axes")
+    # the fleet: one router process over N serve --listen gateways; the
+    # dynamic story (placements, steals, lost backends) lives on the
+    # router's /metrics and /statusz
+    from .fleet.placement import BURN_THRESHOLD, POLICIES
+    from .fleet.resilience import Breaker
+    from .fleet.router import FleetConfig
+
+    fc = FleetConfig()
+    print(f"fleet serving: python -m heat_tpu_torch fleet --backends "
+          f"host:port,... — edge admission + placement over per-backend "
+          f"GET /v1/status (policies {'|'.join(POLICIES)}; burn demotion "
+          f"at fast&slow > {BURN_THRESHOLD:g}, mega-capability routing), "
+          f"health probes with retry-on-alternate, fleet-wide /metrics "
+          f"/statusz /v1/usage, checkpoint-handoff work stealing "
+          f"(--steal-threshold S; /drainz?handoff=1 -> POST /v1/resume on "
+          f"the idlest backend, the same bytes)")
+    print(f"fleet resilience: per-backend circuit breakers (trip after "
+          f"{fc.breaker_trip} errors or {fc.breaker_burn_ticks} burn "
+          f"ticks, cooldown {fc.breaker_cooldown_s:g}s doubling to "
+          f"{Breaker.COOLDOWN_MAX_S:g}s; half-open re-admission via the "
+          f"sine canary through the router path), retry budget "
+          f"{fc.retry_budget_cap:g} tokens +{fc.retry_budget_ratio:g}"
+          f"/success with jittered backoff (base "
+          f"{fc.retry_backoff_s:g}s), X-Deadline-Ms propagation "
+          f"(edge-minted, decremented per hop; expired rows shed with "
+          f"zero device steps), --hedge-factor F interactive hedging "
+          f"(floor {fc.hedge_floor_s:g}s, loser cancelled via POST "
+          f"/v1/cancel), brownout sheds batch then standard when every "
+          f"backend burns")
     return 0
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     return {"run": cmd_run, "serve": cmd_serve, "launch": cmd_launch,
-            "usage": cmd_usage, "trace": cmd_trace,
+            "fleet": cmd_fleet, "usage": cmd_usage, "trace": cmd_trace,
             "info": cmd_info}[args.command](args)
 
 

@@ -64,9 +64,30 @@ off):
                                fingerprint check must quarantine and
                                recompute (fire-once).
 
-The grammar and the semantics of these kinds are
-``heat_tpu.runtime.faults``'s; its fleet kinds come with the slice that
-ports the fleet.
+Fleet-scoped kinds (the router's chaos drills, ``fleet/router.py``;
+the solo drive loop and the serving engine ignore them):
+
+- ``backend-down@N[:backend=K]`` — once the router has forwarded N
+                               requests, drop a backend's TCP target
+                               (connection refused from then on): K, or
+                               the backend the Nth forward chose.
+                               Fire-once.
+- ``backend-slow:ms=M``      — every router->backend forward sleeps M
+                               ms first.
+- ``backend-flap:period=M[:backend=K][:times=T]`` — square-wave backend
+                               K (default b0) down and up every M ms for
+                               T down half-periods (default 1), then up
+                               for good.
+- ``stream-cut@N[:backend=K]`` — sever the router's relay socket to K
+                               (default: the first relay to ask) after N
+                               records have streamed back, the backend
+                               alive (fire-once).
+- ``backend-partition[:backend=K][:ms=M]`` — every connect to K stalls M
+                               ms (default 1000), then times out: a
+                               partition, not a refusal.
+
+The grammar and the semantics of every kind are
+``heat_tpu.runtime.faults``'s.
 
 Specs come from ``--inject`` (``HeatConfig.inject``) or the
 ``HEAT_TPU_FAULTS`` env var; multiple faults are comma-separated, e.g.
@@ -100,9 +121,11 @@ RESTART_ENV_VAR = "HEAT_TPU_RESTART"
 # apart from a real rc=1 traceback death.
 CRASH_RC = 43
 
-_KINDS = ("crash", "nan", "ckpt-corrupt", "ckpt-truncate", "sink-error",
-          "sink-slow", "lane-nan", "fetch-hang", "perturb", "engine-kill",
-          "ckpt-manifest-corrupt", "cache-corrupt", "cache-stale")
+_KINDS = ("crash", "nan", "ckpt-corrupt", "ckpt-truncate",
+          "sink-error", "sink-slow", "lane-nan", "fetch-hang", "perturb",
+          "engine-kill", "ckpt-manifest-corrupt",
+          "backend-down", "backend-slow", "cache-corrupt", "cache-stale",
+          "backend-flap", "stream-cut", "backend-partition")
 
 
 @dataclasses.dataclass
@@ -117,6 +140,10 @@ class Fault:
                                 # (None = all)
     eps: float = 1e3            # perturb: added to one cell (finite, big
                                 # enough to escape any envelope tolerance)
+    backend: Optional[str] = None  # backend-down/flap/stream-cut/partition:
+                                # the named backend (None = see each kind)
+    period: float = 0.0         # backend-flap: half-period in ms
+    t0: Optional[float] = None  # backend-flap: epoch (first evaluation)
     fired: bool = False
 
 
@@ -161,19 +188,25 @@ def parse_spec(spec: str) -> List[Fault]:
         for kv in filter(None, tail.split(":")):
             key, eq, val = kv.partition("=")
             if not eq or key not in ("proc", "times", "ms", "restart",
-                                     "req", "eps"):
+                                     "req", "eps", "backend", "period"):
                 raise ValueError(
                     f"bad fault param {kv!r} in {entry!r}; keys are "
-                    f"proc=, times=, ms=, restart=, req=, eps=")
+                    f"proc=, times=, ms=, restart=, req=, eps=, backend=, "
+                    f"period=")
             try:
-                setattr(f, key, val if key == "req"
-                        else float(val) if key in ("ms", "eps")
+                setattr(f, key, val if key in ("req", "backend")
+                        else float(val) if key in ("ms", "eps", "period")
                         else int(val))
             except ValueError:
                 raise ValueError(f"bad value {val!r} for {key} in {entry!r}")
-        if (f.kind in ("crash", "nan", "lane-nan", "perturb", "engine-kill")
+        if (f.kind in ("crash", "nan", "lane-nan", "perturb", "engine-kill",
+                       "backend-down", "stream-cut")
                 and f.step is None):
             raise ValueError(f"fault {entry!r} needs a step: '{f.kind}@N'")
+        if f.kind == "backend-flap" and f.period <= 0:
+            raise ValueError(
+                f"fault {entry!r} needs a half-period: "
+                f"'backend-flap:period=MS'")
         faults.append(f)
     return faults
 
@@ -260,6 +293,73 @@ class FaultPlan:
                       f"{boundary} (spec {self.spec!r})",
                       file=sys.stderr, flush=True)
                 os.kill(os.getpid(), signal.SIGKILL)
+
+    # --- fleet faults (fleet/router.py chaos drills) ----------------------
+    def backend_slow(self) -> None:
+        """Called before every router->backend forward: each live
+        backend-slow fault sleeps its ``ms``."""
+        for f in self._live("backend-slow"):
+            if f.ms > 0:
+                time.sleep(f.ms / 1000.0)
+
+    def backend_down_target(self, nth: int) -> Optional[str]:
+        """Called once per forwarded request with the router-wide forward
+        counter: the first live backend-down fault whose ``@N`` ``nth``
+        reaches is spent (fire-once) and answers which TCP target to drop
+        — its ``backend=``, or ``""`` for 'whichever backend this Nth
+        forward chose'. ``None``: no fault fires here."""
+        for f in self._live("backend-down"):
+            if not f.fired and nth >= f.step:
+                f.fired = True
+                print(f"fault: injected backend-down at forward {nth} "
+                      f"(target {f.backend or '<routed>'}, "
+                      f"spec {self.spec!r})", file=sys.stderr, flush=True)
+                return f.backend or ""
+        return None
+
+    def backend_flap_states(self, now: float) -> Dict[str, bool]:
+        """Called from the router's health tick: for each live backend-flap
+        fault, is its target (default ``b0``) down at time ``now``? The
+        epoch is stamped on the first evaluation; the flap runs ``times``
+        down half-periods of ``period`` ms with up half-periods between,
+        then stays up. Returns {backend_name: down?}."""
+        states: Dict[str, bool] = {}
+        for f in self._live("backend-flap"):
+            if f.t0 is None:
+                f.t0 = now
+            half = f.period / 1000.0
+            phase = int((now - f.t0) // half) if half > 0 else 0
+            # phases 0, 2, 4, ... are down pulses, up in between; after
+            # `times` down pulses (phase >= 2*times - 1) up for good
+            down = phase < 2 * f.times - 1 and phase % 2 == 0
+            states[f.backend or "b0"] = down
+        return states
+
+    def stream_cut_fire(self, backend: str, nrecords: int) -> bool:
+        """Called from the relay's read loop with the count of records
+        already streamed back from ``backend``: the first live stream-cut
+        fault that targets it (or no backend) and whose ``@N`` is reached
+        is spent (fire-once) and answers True — sever the socket."""
+        for f in self._live("stream-cut"):
+            if f.fired or (f.backend is not None and f.backend != backend):
+                continue
+            if nrecords >= f.step:
+                f.fired = True
+                print(f"fault: injected stream-cut on backend {backend} "
+                      f"after {nrecords} records (spec {self.spec!r})",
+                      file=sys.stderr, flush=True)
+                return True
+        return False
+
+    def backend_partition_ms(self, backend: str) -> Optional[float]:
+        """Called before a router->backend HTTP request: the stall in ms
+        (default 1000) if a live backend-partition fault targets
+        ``backend`` (or no backend), else None. Not fire-once: a partition
+        lasts as long as the spec."""
+        for f in self._live("backend-partition"):
+            if f.backend is None or f.backend == backend:
+                return f.ms if f.ms > 0 else 1000.0
+        return None
 
     # --- checkpoint-sink faults (runtime.checkpoint.save) -----------------
     def sink_fault(self, step: int) -> None:
@@ -378,7 +478,15 @@ def plan_for(cfg=None) -> Optional[FaultPlan]:
     common case). ``cfg.inject`` wins over ``HEAT_TPU_FAULTS``. Plans cache
     per spec so firing state is shared across the drive loop and the
     checkpoint module within a process."""
-    spec = (getattr(cfg, "inject", "") or os.environ.get(ENV_VAR, "")).strip()
+    return plan_for_spec(getattr(cfg, "inject", "")
+                         or os.environ.get(ENV_VAR, ""))
+
+
+def plan_for_spec(spec: str) -> Optional[FaultPlan]:
+    """A plan for a raw spec string — the fleet router's ``--inject`` has
+    no HeatConfig to carry it. Same cache and firing state as
+    ``plan_for``; an empty spec gives None."""
+    spec = (spec or "").strip()
     if not spec:
         return None
     plan = _PLANS.get(spec)

@@ -435,3 +435,78 @@ def test_cache_prefix_seed_into_a_lane_kernel(case, tmp_path):
     assert launches["lanes3d" if case.get("ndim") == 3 else "lanes2d"] > 0
     _, want, _ = serve("torch", case["ntime"], tmp_path / "o2")
     assert got == want
+
+
+def test_fleet_router_over_two_card_gateways_matches_the_plain_body(
+        tmp_path):
+    """Two gateways whose engines run the lane kernels on the card behind
+    one router: the router spreads the lane matrix over both, every npz
+    holds the bytes of the plain lane body on the same card, and the lane
+    kernels launched."""
+    import http.client
+    import json
+    import time
+
+    from heat_tpu_torch.fleet.registry import BackendRegistry, parse_backends
+    from heat_tpu_torch.fleet.router import FleetConfig, Router
+    from heat_tpu_torch.serve.gateway import Gateway
+
+    reqs = (_matrix_requests(2, "float32", ("ghost", "edges"))
+            + _matrix_requests(2, "bfloat16", ("edges", "ghost"))
+            + _matrix_requests(3, "float32", ("ghost", "edges")))
+    lines = [dict(r, id=f"m{i}") for i, r in enumerate(reqs)]
+    faults.reset()
+    cuda_lanes.reset_launches()
+    gws, rt = [], None
+    try:
+        for i in range(2):
+            out = tmp_path / f"g{i}"
+            gws.append(Gateway(Engine(ServeConfig(
+                lanes=2, chunk=4, buckets=(12,), emit_records=False,
+                out_dir=str(out)), device="cuda"), "127.0.0.1", 0).start())
+        spec = ",".join(f"b{i}={gw.address}" for i, gw in enumerate(gws))
+        rt = Router(BackendRegistry(parse_backends(spec)), "127.0.0.1", 0,
+                    FleetConfig(health_interval_s=0.1)).start()
+        deadline = time.monotonic() + 60
+        while not all(b.status for b in rt.registry.snapshot()):
+            assert time.monotonic() < deadline, "no status probe"
+            time.sleep(0.05)
+        conn = http.client.HTTPConnection(rt.host, rt.port, timeout=120)
+        conn.request("POST", "/v1/solve", body="".join(
+            json.dumps(ln) + "\n" for ln in lines).encode())
+        recs = [json.loads(x) for x in conn.getresponse().read().splitlines()
+                if x.strip()]
+        conn.close()
+        assert sorted(r["id"] for r in recs) == sorted(ln["id"]
+                                                       for ln in lines)
+        assert all(r["status"] == "ok" for r in recs), recs
+        snap = rt.snapshot()
+        assert all(b["delivered"] > 0 for b in snap["backends"].values())
+        assert snap["router"]["duplicates"] == 0
+    finally:
+        if rt is not None:
+            rt.close()
+        for gw in gws:
+            try:
+                gw.request_drain()
+                gw.wait_drained(120)
+            finally:
+                gw.close()
+                gw.engine.shutdown(timeout=120)
+    assert cuda_lanes.launches["lanes2d"] > 0
+    assert cuda_lanes.launches["lanes3d"] > 0
+    plain = Engine(ServeConfig(lanes=2, chunk=4, buckets=(12,),
+                               lane_kernel="torch", emit_records=False,
+                               out_dir=str(tmp_path / "plain")),
+                   device="cuda")
+    for ln in lines:
+        r = dict(ln)
+        plain.submit(HeatConfig(**{k: v for k, v in r.items() if k != "id"}),
+                     request_id=r["id"])
+    assert all(r["status"] == "ok" for r in plain.results())
+    for ln in lines:
+        got = [tmp_path / f"g{i}" / f"{ln['id']}.npz" for i in range(2)
+               if (tmp_path / f"g{i}" / f"{ln['id']}.npz").exists()]
+        assert len(got) == 1
+        assert got[0].read_bytes() == \
+            (tmp_path / "plain" / f"{ln['id']}.npz").read_bytes()

@@ -44,7 +44,9 @@ def test_import_loads_no_jax():
                "heat_tpu_torch.labs.tune_on_chip, "
                "heat_tpu_torch.backends.sharded, heat_tpu_torch.parallel.comm, "
                "heat_tpu_torch.parallel.dist, heat_tpu_torch.parallel.halo, "
-               "heat_tpu_torch.parallel.mesh; "
+               "heat_tpu_torch.parallel.mesh, heat_tpu_torch.fleet.router, "
+               "heat_tpu_torch.labs.fleet_lab, "
+               "heat_tpu_torch.labs.fleet_resilience_lab; "
                "print(sorted(m for m in sys.modules "
                "if m.split('.')[0] in ('jax', 'jaxlib', 'heat_tpu')))")
     assert out.returncode == 0, out.stderr
