@@ -252,6 +252,27 @@ a checkout of the repository, it exits non-zero and prints no result):
    over in-process engines and gateways on the card, f32, 12 requests):
    no row lost or duplicated, bytes equal to a direct engine solve, the
    p99 ratio and the hedge's win printed as measurements;
+5f. the invariant guard (``phase_invariants``): ``python -m
+   heat_tpu_torch check`` and ``check --strict-allows`` (the AST rule
+   families and the CUDA-source rules; children started at the top of the
+   script, CPU only), each exit 0; ``python -m heat_tpu_torch audit
+   --json`` on the card (started right after the card-only cases), exit
+   0 under ``set_sync_debug_mode("error")``, every family with its
+   kernels and their launches printed, ``ftcs2d``, ``ftcs3d``,
+   ``lanes2d`` and ``lanes3d`` among them; phase 5's 56 requests served
+   again by ``serve`` in a child process with ``HEAT_TPU_LOCKCHECK=1
+   HEAT_TPU_RACECHECK=record``: rc 0, every record ok, every npz
+   byte-equal to phase 5's, lane kernels launched and no
+   ``lane_kernel_fallback``, zero lock-order violations and zero races
+   (the summary's ``invariant_guard``), its wall printed beside phase 5's
+   unarmed wall; and ``labs/fleet_resilience_lab.py --requests 12 --dtype
+   float32 --gates bytes`` armed the same way in a child process (the
+   fleet, gateway, engine, writer and observatory ranks; not the solve
+   cache's, which the card-only case
+   ``test_armed_engine_on_the_card_has_no_violation`` takes), started
+   last and waited for after phase 6's byte comparisons, which it
+   overlaps (``finish_invariants``; its timing gates are printed, not
+   checked): rc 0, its byte gates held, zero violations and zero races;
 6. the kernel lab's candidates L1-L5 (``lab2d``, ``lab3d``): every
    (kernel, variant, dtype) against its plain version on the card, bytes,
    at the JAX lab's check shapes, depths 1 and the deepest its TPU geometry
@@ -4174,6 +4195,207 @@ def phase_sharded(smi, mega_digest=None):
     return out
 
 
+def start_guard_checks() -> dict:
+    """``python -m heat_tpu_torch check`` and ``check --strict-allows`` as
+    child processes (CPU only: the AST tier reads the tree), started at the
+    top of the script; ``phase_invariants`` waits for them."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    procs = {}
+    for name, extra in (("check", ()), ("check --strict-allows",
+                                         ("--strict-allows",))):
+        log = open(WORK / f"{name.replace(' ', '')}.log", "w")
+        try:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "heat_tpu_torch", "check", *extra],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        finally:
+            log.close()
+    return procs
+
+
+def start_audit():
+    """``python -m heat_tpu_torch audit --json`` on the card as a child
+    process, started once the kernels are built (its families are a few
+    small dispatches); ``phase_invariants`` waits for it."""
+    log = open(WORK / "audit.log", "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-m", "heat_tpu_torch", "audit", "--json"],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+            stdout=log, stderr=subprocess.STDOUT)
+    finally:
+        log.close()
+
+
+def wait_child(proc, log: Path, what: str, timeout: float) -> str:
+    """Wait for ``proc`` at most ``timeout`` seconds (killed then) and
+    return its log; a child that fails or outlasts the wait fails the
+    phase."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    out = log.read_text()
+    check(rc == 0, f"{what} exited {rc}:\n{out[-4000:]}")
+    return out
+
+
+def armed_env() -> dict:
+    """The environment that arms the lock-order watchdog and the race
+    sanitizer (record mode: a race is logged and counted, not raised)."""
+    return {**os.environ, "PYTHONPATH": str(ROOT), "HEAT_TPU_LOCKCHECK": "1",
+            "HEAT_TPU_RACECHECK": "record"}
+
+
+def armed_serve_child() -> None:
+    """The child of phase 5f's armed serve: phase 5's file through the
+    same CLI entry point and the same wall clock as phase 5, written to
+    ``serve-armed.json``."""
+    rc, rows, summary, launches, wall = cli_serve_rows(
+        WORK / "requests.jsonl", WORK / "serve-armed", echo=False)
+    (WORK / "serve-armed.json").write_text(json.dumps(dict(
+        rc=rc, rows=rows, summary=summary, launches=launches, wall=wall)))
+
+
+def guard_clean(what: str, guard) -> str:
+    """Check an armed run's ``invariant_guard`` report: both checkers
+    armed, zero lock-order violations, zero races. Returns a line."""
+    check(guard is not None and guard["lockcheck"] and guard["racecheck"],
+          f"{what}: no armed invariant_guard report ({guard})")
+    check(guard["lock_order_violations"] == 0 and guard["races_detected"] == 0,
+          f"{what}: lock-order violations {guard['violations']}, races "
+          f"{guard['race_findings']}")
+    return (f"0 lock-order violations over {guard['lock_order_edges']} "
+            f"edge(s) (ranks taken: {guard['ranks_taken']}), 0 races on "
+            f"{guard['race_instrumented']} instrumented object(s)")
+
+
+def phase_invariants(smi, serve, checks: dict, audit_proc):
+    """Phase 5f, the invariant guard on the card (see the module
+    docstring). ``checks`` and ``audit_proc`` are the children
+    ``start_guard_checks`` and ``start_audit`` started; ``serve`` is phase
+    5's result. Returns the numbers and the armed resilience lab's child,
+    which ``finish_invariants`` waits for."""
+    t_phase = time.perf_counter()
+    out = {}
+    # 1. the AST tier over the tree
+    for name, proc in checks.items():
+        log = wait_child(proc, WORK / f"{name.replace(' ', '')}.log",
+                         f"python -m heat_tpu_torch {name}", 120)
+        last = log.strip().splitlines()[-1]
+        check("OK" in last and "0 violation(s)" in last,
+              f"{name}: {last!r}")
+        print(f"[phase 5f] python -m heat_tpu_torch {name}: {last}")
+
+    # 2. the program auditor on the card
+    log = wait_child(audit_proc, WORK / "audit.log",
+                     "python -m heat_tpu_torch audit --json", 180)
+    report = json.loads(log.strip().splitlines()[-1])
+    check(report["violations"] == 0 and report["device"].startswith("cuda")
+          and report["dispatched"] == report["families"],
+          f"audit: {report.get('violation_list')}")
+    launched = {}
+    for name, fam in sorted(report["programs"].items()):
+        for k, n in fam["launches"].items():
+            launched[k] = launched.get(k, 0) + n
+        print(f"  audit {name}: kernels {fam['kernels'] or ['none']}, "
+              f"launches {fam['launches']}")
+    check(all(launched.get(k, 0) > 0 for k in ("ftcs2d", "ftcs3d", "lanes2d",
+                                               "lanes3d")),
+          f"audit: kernels not launched: {launched}")
+    print(f"[phase 5f] audit --json on the card: {report['dispatched']} "
+          f"families, contracts {report['contracts']}, launch budget "
+          f"{report['budget']['enumerated']['total']} of "
+          f"{report['budget']['declared']}, 0 violations; launches "
+          f"{launched} ({report['card']})")
+    out["audit"] = dict(families=report["dispatched"], launches=launched)
+
+    # 3. phase 5's file served armed, in a child process
+    t0 = time.perf_counter()
+    log = open(WORK / "serve-armed.log", "w")
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import chip_smoke as c; c.armed_serve_child()"],
+            cwd=ROOT, env=armed_env(), stdout=log, stderr=subprocess.STDOUT)
+    finally:
+        log.close()
+    try:
+        wait_child(proc, WORK / "serve-armed.log", "the armed serve", 300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    res = json.loads((WORK / "serve-armed.json").read_text())
+    recs = [r for r in res["rows"] if r.get("event") == "serve_request"]
+    ids = [r["id"] for r in serve["records"]]
+    check(res["rc"] == 0 and len(recs) == len(ids)
+          and all(r["status"] == "ok" for r in recs),
+          f"armed serve: rc {res['rc']}, "
+          f"{[(r['id'], r['status']) for r in recs if r['status'] != 'ok']}")
+    bad = npz_differ(ids, WORK / "serve-cuda", WORK / "serve-armed")
+    check(not bad, f"armed serve: npz differ from phase 5's: {bad}")
+    falls = [r for r in res["rows"] if r.get("event") == "lane_kernel_fallback"]
+    check(not falls and not res["summary"]["lane_kernel_fallbacks"]
+          and res["launches"]["lanes2d"] > 0 and res["launches"]["lanes3d"] > 0,
+          f"armed serve: fallbacks {falls}, launches {res['launches']}")
+    line = guard_clean("armed serve", res["summary"].get("invariant_guard"))
+    print(f"[phase 5f] phase 5's {len(ids)} requests armed "
+          f"(HEAT_TPU_LOCKCHECK=1 HEAT_TPU_RACECHECK=record): every record "
+          f"ok, every npz byte-equal to phase 5's, launches "
+          f"{res['launches']}, no fallback; {line}")
+    print(f"  serve wall armed {res['wall']:.3f} s, unarmed (phase 5) "
+          f"{serve['wall_s']:.3f} s: {res['wall'] / serve['wall_s']:.4f}x "
+          f"(printed, not gated; child {time.perf_counter() - t0:.1f} s "
+          f"with start-up) on {smi}")
+    out["serve_wall_armed_s"] = res["wall"]
+    out["serve_wall_s"] = serve["wall_s"]
+
+    # 4. the resilience lab armed, in a child process that runs beside
+    # phase 6's byte comparisons (finish_invariants waits for it)
+    log = open(WORK / "resilience-armed.log", "w")
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "heat_tpu_torch.labs.fleet_resilience_lab",
+             "--requests", "12", "--dtype", "float32", "--gates", "bytes",
+             "--workdir", str(WORK / "resilience-armed"), "--out",
+             str(WORK / "fleet_resilience_armed.json")],
+            cwd=ROOT, env=armed_env(), stdout=log, stderr=subprocess.STDOUT)
+    finally:
+        log.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[phase 5f] done in {out['phase_s']:.1f} s on {smi} (the armed "
+          f"resilience lab runs on beside phase 6's byte comparisons)")
+    return out, proc
+
+
+def finish_invariants(proc, t_started: float) -> None:
+    """Wait for phase 5f's armed resilience lab (started at
+    ``t_started``) and check its record."""
+    t0 = time.perf_counter()
+    try:
+        wait_child(proc, WORK / "resilience-armed.log",
+                   "the armed resilience lab", 300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    rec = json.loads((WORK / "fleet_resilience_armed.json").read_text())
+    line = guard_clean("armed resilience lab", rec.get("invariant_guard"))
+    print(f"[phase 5f] fleet_resilience_lab --requests 12 --dtype float32 "
+          f"--gates bytes, armed: flap availability "
+          f"{rec['flap_availability']} bytes {rec['flap_bit_identical']}, "
+          f"cut lost 0 {rec['cut_zero_lost']} dup 0 "
+          f"{rec['cut_zero_duplicates']}, hedge bytes "
+          f"{rec['hedge_bit_identical']}, deadline exact "
+          f"{rec['deadline_shed_exact']}; p99 ratio {rec['flap_p99_ratio']} "
+          f"(printed, beside phase 6's byte comparisons); {line} "
+          f"({time.perf_counter() - t_started:.1f} s in all, "
+          f"{time.perf_counter() - t0:.1f} s waited for)")
+
+
 def phase_card_tests():
     """The card-only pytest cases (``tests/test_torch_card.py``, which
     imports neither JAX nor heat_tpu): every case must pass; a skip or a
@@ -4301,9 +4523,12 @@ def main() -> int:
         print(f"chip_smoke --worlds: ok in {time.perf_counter() - t0:.1f} s")
         return 0
     plain = start_plain_serve()
+    checks = start_guard_checks()
+    audit = lab_armed = None
     try:
         phase_build()
         phase_card_tests()
+        audit = start_audit()
         errs = phase_compare()
         serve_plain = plain_serve_result(plain)
         times = phase_times()
@@ -4316,13 +4541,17 @@ def main() -> int:
         phase_serving_front(smi, serve)
         mega = phase_mega(smi, serve, runs)
         phase_fleet(smi, serve)
+        _, lab_armed = phase_invariants(smi, serve, checks, audit)
+        t_armed = time.perf_counter()
         lab_errs = phase_lab_compare()
+        finish_invariants(lab_armed, t_armed)
         lab_rows, lab_launches = phase_lab(smi)
         shard = phase_sharded(smi, mega["requests"]["mega-hip"]["digest"])
     finally:
-        if plain.poll() is None:
-            plain.kill()
-            plain.wait()
+        for child in [plain, audit, lab_armed, *checks.values()]:
+            if child is not None and child.poll() is None:
+                child.kill()
+                child.wait()
         shutil.rmtree(WORK, ignore_errors=True)
     print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
 

@@ -549,6 +549,78 @@ def build_parser() -> argparse.ArgumentParser:
                         help="worker arguments, e.g.: -- run --backend "
                              "sharded --comm staged")
 
+    chk = sub.add_parser(
+        "check",
+        help="invariant guard: run the project-native static-analysis "
+             "suite (heat_tpu_torch/analysis) over the package source — "
+             "hot-path purity, lock discipline, kernel-path determinism, "
+             "CUDA kernel safety, record-schema drift, races. Exit 0 = "
+             "clean; pure AST, no device, runs in seconds")
+    chk.add_argument("--rules", metavar="LIST",
+                     help="comma-separated rule families to run "
+                          "(default: all; see --list-rules)")
+    chk.add_argument("--list-rules", action="store_true",
+                     help="print the rule-family table and exit")
+    chk.add_argument("--update-schemas", action="store_true",
+                     help="regenerate analysis/schemas/records.json and "
+                          "guards.json from the current source instead of "
+                          "gating against them — the intentional-drift "
+                          "workflow: commit the registry diff with the "
+                          "code change so the schema change is reviewed")
+    chk.add_argument("--root", metavar="DIR",
+                     help="package root to analyze (default: the "
+                          "installed heat_tpu_torch package directory)")
+    chk.add_argument("--json", action="store_true",
+                     help="machine-readable results (one JSON object: "
+                          "stats + violations)")
+    chk.add_argument("--strict-allows", action="store_true",
+                     help="fail on stale allow markers (markers whose "
+                          "rule no longer fires at that site, or whose "
+                          "rule id is unknown). Default: warn only — a "
+                          "stale marker silently pre-authorizes a future "
+                          "regression, but fixing it is a separate diff")
+    chk.add_argument("--dead-code", action="store_true",
+                     help="informational: list public package functions "
+                          "unreachable from any entry point (tests, "
+                          "benchmarks, module-level code, decorated "
+                          "defs) and exit 0 — the closure is "
+                          "conservative, so every listed function "
+                          "really is unreferenced")
+
+    aud = sub.add_parser(
+        "audit",
+        help="program auditor: dispatch every registered program family "
+             "(solo advance, packed lane chunk/tail/rollback/loader, "
+             "sharded mega-lane) at a small shape — on the card its hand "
+             "kernels, with --device cpu their plain versions — and "
+             "machine-check host syncs, buffer aliasing, dtype "
+             "discipline and the lane-kernel launch budget. Exit 0 = all "
+             "contracts hold")
+    aud.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                     help="where the families run (default cuda: raises "
+                          "without a card; cpu runs the plain versions)")
+    aud.add_argument("--update-digests", action="store_true",
+                     help="regenerate analysis/digests/launches.json "
+                          "from the current source instead of gating "
+                          "against it — the intentional-growth workflow: "
+                          "commit the registry diff with the code change "
+                          "so the budget change is reviewed")
+    aud.add_argument("--contracts", metavar="LIST",
+                     help="comma-separated contract families to check "
+                          "(default: all; see --list-contracts)")
+    aud.add_argument("--fast", action="store_true",
+                     help="run only the cheap contracts (sync, aliasing, "
+                          "launch budget), not the dtype sweep")
+    aud.add_argument("--list-contracts", action="store_true",
+                     help="print the contract-family table and exit")
+    aud.add_argument("--registry", metavar="FILE",
+                     help="launch-budget registry path (default: the "
+                          "committed heat_tpu_torch/analysis/digests/"
+                          "launches.json)")
+    aud.add_argument("--json", action="store_true",
+                     help="machine-readable report (one JSON object: "
+                          "families, launches, budget, violations)")
+
     sub.add_parser("info", help="show devices / kernel toolchain / "
                                 "native-lib / process-group status")
     return p
@@ -776,6 +848,17 @@ def _serve_report(summary: dict, ok: int, args) -> None:
                      f"({mem['source']}, {mem['samples']} sample(s), "
                      f"{mem['warnings']} leak warning(s)); "
                      f"{summary.get('flightrec_dumps', 0)} flight dump(s)")
+    from .runtime.debug import guard_report
+
+    guard = guard_report()
+    if guard is not None:
+        summary["invariant_guard"] = guard
+        master_print(f"invariant guard (armed): "
+                     f"{guard['lock_order_violations']} lock-order "
+                     f"violation(s) over {guard['lock_order_edges']} "
+                     f"observed edge(s), {guard['races_detected']} race(s) "
+                     f"on {guard['race_instrumented']} instrumented "
+                     f"object(s)")
     if args.json:
         master_print(json.dumps(summary, sort_keys=True))
 
@@ -1288,6 +1371,128 @@ def cmd_launch(args) -> int:
         os.environ.update(saved)
 
 
+def cmd_check(args) -> int:
+    """The invariant guard: run the AST-based checker suite over the
+    package source. Exit codes: 0 clean, 1 violations, 2 usage error."""
+    import dataclasses
+
+    from .analysis import RULE_DOCS, RULE_FAMILIES, run_checks
+
+    if args.list_rules:
+        for rid in sorted(RULE_FAMILIES):
+            print(f"{rid:<22} {RULE_DOCS[rid]}")
+        return 0
+    root = Path(args.root) if args.root else Path(__file__).resolve().parent
+    if not root.is_dir():
+        print(f"error: {root} is not a directory", file=sys.stderr)
+        return 2
+    if args.dead_code:
+        from .analysis.deadcode import dead_code_report
+        rows = dead_code_report(root)
+        if args.json:
+            print(json.dumps({"dead_code": rows}, sort_keys=True))
+            return 0
+        for row in rows:
+            print(f"{row['path']}:{row['line']}: {row['qualname']} — "
+                  "public function unreachable from any entry point")
+        print(f"heat-tpu-torch check --dead-code: {len(rows)} candidate(s) "
+              "(informational — the reachability closure is "
+              "conservative, so these really are unreferenced)")
+        return 0
+    rules = ([r.strip() for r in args.rules.split(",") if r.strip()]
+             if args.rules else None)
+    try:
+        violations, stats = run_checks(root, rules=rules,
+                                       update_schemas=args.update_schemas,
+                                       strict_allows=args.strict_allows)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps({"stats": stats,
+                          "violations": [dataclasses.asdict(v)
+                                         for v in violations]},
+                         sort_keys=True))
+        return 0 if not violations else 1
+    if not args.strict_allows:
+        for s in stats.get("stale_allows", ()):
+            print(f"warning: {s['path']}:{s['line']}: stale "
+                  f"allow[{s['rule']}] marker — {s['why']} "
+                  "(--strict-allows makes this fail)")
+    for v in violations:
+        print(v.format())
+    per = ", ".join(f"{r}={n}" for r, n in sorted(stats["per_rule"].items())
+                    if n) or "none"
+    verdict = "OK" if not violations else "FAILED"
+    print(f"heat-tpu-torch check: {verdict} — {stats['files']} file(s) and "
+          f"{stats['cuda_files']} CUDA source(s), "
+          f"{len(stats['rules'])} rule famil"
+          f"{'y' if len(stats['rules']) == 1 else 'ies'}, "
+          f"{stats['allow_markers']} allow marker(s), "
+          f"{stats['violations']} violation(s)"
+          + (f" ({per})" if violations else "")
+          + ("; schema registries rewritten — review & commit the diff"
+             if args.update_schemas else ""))
+    if violations:
+        print("each line is path:line: [rule] message; sanctioned "
+              "exceptions take a `# heat-tpu: allow[rule] reason` marker "
+              "(`// heat-tpu: ...` in a CUDA source)")
+    return 0 if not violations else 1
+
+
+def cmd_audit(args) -> int:
+    """The program auditor: dispatch every registered program family at a
+    small shape and machine-check the contracts the AST tier cannot see
+    (host syncs, buffer aliasing, dtype discipline, the launch budget).
+    Exit codes mirror ``check``: 0 clean, 1 violations, 2 usage error."""
+    import dataclasses
+
+    from .analysis.programs import CONTRACTS, FAST_CONTRACTS, audit
+
+    if args.list_contracts:
+        for cid, doc in sorted(CONTRACTS.items()):
+            print(f"{cid:<18} {doc}")
+        return 0
+    contracts = ([c.strip() for c in args.contracts.split(",") if c.strip()]
+                 if args.contracts else None)
+    if args.fast:
+        if contracts:
+            print("error: --fast and --contracts are mutually exclusive",
+                  file=sys.stderr)
+            return 2
+        contracts = list(FAST_CONTRACTS)
+    try:
+        violations, report = audit(device=args.device,
+                                   registry_path=args.registry,
+                                   update_digests=args.update_digests,
+                                   contracts=contracts)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        report["violation_list"] = [dataclasses.asdict(v)
+                                    for v in violations]
+        print(json.dumps(report, sort_keys=True))
+        return 0 if not violations else 1
+    for v in violations:
+        print(v.format())
+    enum = report["budget"]["enumerated"]
+    launched = sum(n for f in report["programs"].values()
+                   for n in f["launches"].values())
+    verdict = "OK" if not violations else "FAILED"
+    print(f"heat-tpu-torch audit: {verdict} — "
+          f"{report['dispatched']}/{report['families']} families "
+          f"dispatched on {report['device']} ({launched} kernel "
+          f"launch(es)), {len(report['contracts'])} contract"
+          f"{'' if len(report['contracts']) == 1 else 's'}, launch budget "
+          f"declared={report['budget']['declared']} "
+          f"enumerated={enum['total'] if enum else 'n/a'}, "
+          f"{report['violations']} violation(s)"
+          + ("; launch registry rewritten — review & commit the diff"
+             if args.update_digests else ""))
+    return 0 if not violations else 1
+
+
 def cmd_info(_args) -> int:
     import torch
 
@@ -1361,6 +1566,46 @@ def cmd_info(_args) -> int:
           f"(floor {fc.hedge_floor_s:g}s, loser cancelled via POST "
           f"/v1/cancel), brownout sheds batch then standard when every "
           f"backend burns")
+    # the invariant guard: the static-analysis suite, the committed
+    # registries, and whether THIS process's locks and shared objects are
+    # built with the dynamic watchdog / race sanitizer armed
+    from .analysis import RULE_FAMILIES
+    from .analysis.programs import (CONTRACTS, default_registry_path,
+                                    enumerate_launch_keys,
+                                    iter_program_specs)
+    from .analysis.programs import load_registry as _load_budget
+    from .analysis.races import load_guard_map
+    from .analysis.schema import load_registry
+    from .runtime import debug as _debug
+
+    _adir = Path(__file__).resolve().parent / "analysis"
+    _reg = load_registry(_adir / "schemas" / "records.json")
+    print(f"static analysis: {len(RULE_FAMILIES)} rule families "
+          f"(python -m heat_tpu_torch check: "
+          f"{', '.join(sorted(RULE_FAMILIES))}), schema registry "
+          f"{len((_reg or {}).get('events', {}))} event(s)"
+          + ("" if _reg else " — MISSING, run heat-tpu-torch check "
+             "--update-schemas") +
+          f"; lock-order watchdog "
+          f"{'ARMED' if _debug.lockcheck_enabled() else 'available'} "
+          f"(HEAT_TPU_LOCKCHECK=1; order "
+          + " < ".join(sorted(_debug.LOCK_RANKS,
+                              key=_debug.LOCK_RANKS.get)) + ")")
+    _gmap = load_guard_map(_adir / "schemas" / "guards.json")
+    print(f"race guard: guard map "
+          f"{len((_gmap or {}).get('fields', {}))} field(s)"
+          + ("" if _gmap else " — MISSING, run heat-tpu-torch check "
+             "--update-schemas") +
+          f"; race sanitizer "
+          f"{'ARMED' if _debug.racecheck_enabled() else 'available'} "
+          f"(HEAT_TPU_RACECHECK=1 raises, =record logs + flight-dumps)")
+    _budget = ((_load_budget(default_registry_path()) or {})
+               .get("launch_budget") or {})
+    print(f"program audit: {len(iter_program_specs())} program families "
+          f"(python -m heat_tpu_torch audit [--device cpu]: "
+          f"{', '.join(sorted(CONTRACTS))}), lane-kernel launch budget "
+          f"declared={_budget.get('max_launch_keys')} "
+          f"enumerated={enumerate_launch_keys()['total']}")
     return 0
 
 
@@ -1368,6 +1613,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     return {"run": cmd_run, "serve": cmd_serve, "launch": cmd_launch,
             "fleet": cmd_fleet, "usage": cmd_usage, "trace": cmd_trace,
+            "check": cmd_check, "audit": cmd_audit,
             "info": cmd_info}[args.command](args)
 
 

@@ -21,9 +21,10 @@ down.
 
 from __future__ import annotations
 
-import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
+
+from ..runtime import debug
 
 
 def parse_backends(spec: str) -> List[Tuple[str, str]]:
@@ -95,6 +96,7 @@ class Backend:
         self.retried = 0
         self.stolen_from = 0
         self.stolen_to = 0
+        debug.instrument_races(self, label="Backend")
 
     def __repr__(self) -> str:  # debugging/statusz ergonomics
         return (f"Backend({self.name}@{self.address} "
@@ -106,14 +108,13 @@ class BackendRegistry:
 
     def __init__(self, backends: List[Tuple[str, str]] = (),
                  backends_file=None):
-        self._lock = threading.Lock()   # rank: fleet (fleet < gateway
-                                        # < engine; never nests with the
-                                        # router's own fleet lock)
+        self._lock = debug.make_lock("fleet:registry")
         self._backends: Dict[str, Backend] = {}
         self._file = Path(backends_file) if backends_file else None
         self._file_mtime: Optional[float] = None
         for name, addr in backends:
             self._backends[name] = Backend(name, addr)
+        debug.instrument_races(self, label="BackendRegistry")
         if self._file is not None:
             self.refresh_file()
 

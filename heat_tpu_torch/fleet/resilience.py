@@ -29,8 +29,9 @@ no I/O, no threads; the router owns the clock and the canary."""
 from __future__ import annotations
 
 import random
-import threading
 from typing import List, Optional, Tuple
+
+from ..runtime import debug
 
 # /metrics gauge encoding (heat_tpu_fleet_breaker_state{backend=...})
 CLOSED, HALF_OPEN, OPEN = "closed", "half-open", "open"
@@ -57,7 +58,7 @@ class Breaker:
         self.trip_threshold = max(1, int(trip_threshold))
         self.base_cooldown_s = float(cooldown_s)
         self.burn_trip_ticks = max(1, int(burn_trip_ticks))
-        self._lock = threading.Lock()   # rank: fleet
+        self._lock = debug.make_lock(f"fleet:breaker-{backend}")
         self.state = CLOSED
         self.consecutive_errors = 0
         self.burn_ticks = 0
@@ -67,6 +68,7 @@ class Breaker:
         self.last_reason = ""
         self.transitions = 0
         self.canary_inflight = False
+        debug.instrument_races(self, label=f"Breaker[{backend}]")
 
     # --- feeds (router calls these holding no other fleet lock) ----------
     def note_success(self) -> None:
@@ -182,10 +184,11 @@ class RetryBudget:
     def __init__(self, cap: float = 20.0, ratio: float = 0.2):
         self.cap = float(cap)
         self.ratio = float(ratio)
-        self._lock = threading.Lock()   # rank: fleet
+        self._lock = debug.make_lock("fleet:budget")
         self.tokens = float(cap)
         self.taken = 0
         self.denied = 0
+        debug.instrument_races(self, label="RetryBudget")
 
     def take(self) -> bool:
         with self._lock:

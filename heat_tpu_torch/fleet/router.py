@@ -68,6 +68,7 @@ from typing import Dict, List, Optional, Set, Tuple
 from urllib.parse import parse_qs, urlsplit
 
 from ..runtime import checkpoint as ckpt_mod
+from ..runtime import debug
 from ..runtime import faults
 from ..runtime import prof as prof_mod
 from ..runtime import trace as trace_mod
@@ -168,7 +169,7 @@ class Router:
 
             self.solvecache = SolveCache(self.fcfg.cache_dir,
                                          readonly=True)
-        self._lock = threading.Lock()   # rank: fleet (outermost)
+        self._lock = debug.make_lock("fleet:router")
         # retry budget + per-backend breakers are self-locked at the
         # same fleet rank: their METHODS are only ever called while
         # holding no other fleet lock (the dict get-or-create below is
@@ -205,6 +206,10 @@ class Router:
         self._thread: Optional[threading.Thread] = None
         self._health: Optional[threading.Thread] = None
         self._stop = threading.Event()
+        debug.instrument_races(
+            self, label="Router",
+            exempt=frozenset({"registry", "httpd", "tracer", "fcfg",
+                              "solvecache", "_edge_ledger", "_budget"}))
 
     @property
     def address(self) -> str:

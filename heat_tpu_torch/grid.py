@@ -186,8 +186,9 @@ def initial_condition_device(cfg: HeatConfig, device, block=None) -> torch.Tenso
         io = axis(torch.arange(ranges[d].start, ranges[d].stop, device=device), d)
         m = (io >= lo_i) & (io <= hi_i)
         hot = m if hot is None else hot & m
-    two = torch.tensor(2.0, dtype=dt, device=device)
-    one = torch.tensor(1.0, dtype=dt, device=device)
+    # filled on the device: a host scalar's copy would fence the stream
+    two = torch.full((), 2.0, dtype=dt, device=device)
+    one = torch.full((), 1.0, dtype=dt, device=device)
     return torch.where(hot.expand(shape), two, one).contiguous()
 
 

@@ -28,6 +28,14 @@ deterministic enough to gate on. The engines serve on the card unless
   ``X-Deadline-Ms`` header end-to-end and complete.
 
     python -m heat_tpu_torch.labs.fleet_resilience_lab [--device cpu]
+        [--dtype float32] [--gates bytes]
+
+``--gates bytes`` gates only what the drills hold exactly (availability,
+bytes, zero lost or duplicate rows, the hedge's and the shed's outcome)
+and prints the timing gates; with ``HEAT_TPU_LOCKCHECK=1`` or
+``HEAT_TPU_RACECHECK=1|record`` in the environment the record carries the
+lock-order watchdog's and the race sanitizer's findings
+(``invariant_guard``), and any of them fails the lab.
 
 Every drill takes ``device`` and ``dtype`` arguments and returns its
 record, so a caller (``chip_smoke.py``) runs them at its own population;
@@ -340,6 +348,13 @@ def main(argv=None) -> int:
     ap.add_argument("--workdir", default=None)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the engines serve (default cuda)")
+    ap.add_argument("--dtype", default="float64",
+                    choices=["float64", "float32", "bfloat16"],
+                    help="the requests' dtype (default float64; float32 "
+                         "or bfloat16 serve on the lane kernels)")
+    ap.add_argument("--gates", choices=["all", "bytes"], default="all",
+                    help="'bytes' gates only the exact outcomes and prints "
+                         "the timing gates (default all)")
     args = ap.parse_args(argv)
 
     import tempfile
@@ -355,17 +370,19 @@ def main(argv=None) -> int:
 
     try:
         print("fleet_resilience_lab: flap drill", flush=True)
-        flap = flap_drill(workdir, args.requests, args.sink_ms, args.device)
+        flap = flap_drill(workdir, args.requests, args.sink_ms, args.device,
+                          args.dtype)
         print(f"fleet_resilience_lab: flap {flap}", flush=True)
         print("fleet_resilience_lab: stream-cut drill", flush=True)
-        cut = cut_drill(workdir, 24, args.sink_ms // 2, args.device)
+        cut = cut_drill(workdir, 24, args.sink_ms // 2, args.device,
+                        args.dtype)
         print(f"fleet_resilience_lab: cut {cut}", flush=True)
         print("fleet_resilience_lab: hedge drill", flush=True)
-        hedge = hedge_drill(workdir, args.sink_ms, args.device)
+        hedge = hedge_drill(workdir, args.sink_ms, args.device, args.dtype)
         print(f"fleet_resilience_lab: hedge {hedge}", flush=True)
         print("fleet_resilience_lab: deadline drill", flush=True)
         deadline = deadline_drill(workdir, expired=8, live=8,
-                                  device=args.device)
+                                  device=args.device, dtype=args.dtype)
         print(f"fleet_resilience_lab: deadline {deadline}", flush=True)
     finally:
         if tmp is not None:
@@ -374,7 +391,8 @@ def main(argv=None) -> int:
     rec = {
         "bench": "fleet_resilience_lab",
         "config": {"requests": args.requests, "sink_ms": args.sink_ms,
-                   "device": args.device,
+                   "device": args.device, "dtype": args.dtype,
+                   "gates": args.gates,
                    "backend": "in-process Engine+Gateway, lanes 2, "
                               "chunk 8, buckets (32,)",
                    "policy": "least-loaded (flap/cut/deadline), "
@@ -394,17 +412,33 @@ def main(argv=None) -> int:
         "deadline_shed_exact": bool(deadline["shed_exact"]),
         "breaker_steals_suppressed": bool(flap["steals_suppressed"]),
     }
+    from ..runtime.debug import guard_report
+
+    guard = guard_report()
+    if guard is not None:
+        rec["invariant_guard"] = guard
     write_atomic(Path(args.out), rec)
     print(json.dumps(rec, indent=2))
-    passed = (rec["flap_availability"] >= 0.99
-              and rec["flap_p99_ratio"] <= 1.5
-              and rec["flap_bit_identical"]
-              and rec["cut_zero_lost"]
-              and rec["cut_zero_duplicates"]
+    exact = (rec["flap_availability"] >= (1.0 if args.gates == "bytes"
+                                           else 0.99)
+             and rec["flap_bit_identical"]
+             and rec["cut_zero_lost"]
+             and rec["cut_zero_duplicates"]
+             and hedge["status"] == "ok"
+             and rec["hedge_bit_identical"]
+             and rec["deadline_shed_exact"])
+    timing = (rec["flap_p99_ratio"] <= 1.5
               and rec["hedges_won"] >= 1
-              and rec["hedge_bit_identical"]
-              and rec["deadline_shed_exact"]
               and rec["breaker_steals_suppressed"])
+    clean = guard is None or not (guard["lock_order_violations"]
+                                  or guard["races_detected"])
+    passed = exact and clean and (timing or args.gates == "bytes")
+    if guard is not None:
+        print(f"fleet_resilience_lab: invariant guard (armed) — "
+              f"{guard['lock_order_violations']} lock-order violation(s) "
+              f"over {guard['lock_order_edges']} edge(s), "
+              f"{guard['races_detected']} race(s) on "
+              f"{guard['race_instrumented']} instrumented object(s)")
     print(f"fleet_resilience_lab: {'OK' if passed else 'FAILED'} — flap "
           f"availability {rec['flap_availability']} p99x"
           f"{rec['flap_p99_ratio']} (gates >= 0.99, <= 1.5); cut "

@@ -41,6 +41,9 @@ PACKAGE_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+# plain, not a ranked debug.make_lock: it guards the libraries' build and
+# load, a leaf (no lock is taken under it) with no counterpart in the
+# reference's lock order
 _lock = threading.Lock()
 _libs: dict = {}
 

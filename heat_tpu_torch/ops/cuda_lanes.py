@@ -259,9 +259,10 @@ def _region_masks(L: int, m: int, n: torch.Tensor, bc_lo: int, nd: int):
 
 
 def _qnan(device) -> torch.Tensor:
-    """The f32 quiet NaN 0x7fc00000, by its bits."""
-    return torch.tensor(0x7FC00000, dtype=torch.int32,
-                        device=device).view(torch.float32)
+    """The f32 quiet NaN 0x7fc00000, by its bits (filled on the device: no
+    host-to-device copy, which would fence the stream)."""
+    return torch.full((), 0x7FC00000, dtype=torch.int32,
+                      device=device).view(torch.float32)
 
 
 def _lane_step(T: torch.Tensor, r: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
@@ -320,7 +321,7 @@ def lane_stats(prev: torch.Tensor, fields: torch.Tensor,
     max |fields - prev|, min, max and sum, each reduced in float32."""
     axes = tuple(range(1, fields.dim()))
     out32, prev32 = fields.float(), prev.float()
-    inf = torch.tensor(float("inf"), device=fields.device)
+    inf = torch.full((), float("inf"), device=fields.device)
     zero = torch.zeros((), device=fields.device)
     return torch.stack([
         torch.where(region, (out32 - prev32).abs(), zero).amax(dim=axes),

@@ -142,7 +142,7 @@ def _maskr(shape, bounds, r: float, device) -> torch.Tensor:
         axis = axis.view([-1 if e == d else 1 for e in range(nd)])
         frozen = axis if frozen is None else frozen | axis
     return torch.where(frozen, torch.zeros((), device=device),
-                       torch.tensor(r, dtype=torch.float32, device=device))
+                       torch.full((), r, dtype=torch.float32, device=device))
 
 
 def ftcs_multistep_2d_plain(T: torch.Tensor, r: float, ksteps: int,

@@ -56,8 +56,10 @@ def laplacian_interior(T: torch.Tensor) -> torch.Tensor:
 
 
 def _coef(r, dtype: torch.dtype, device) -> torch.Tensor:
-    """r rounded once to the accumulation dtype, as ``jnp.asarray(r, acc)``."""
-    return torch.tensor(r, dtype=dtype, device=device)
+    """r rounded once to the accumulation dtype, as ``jnp.asarray(r, acc)``.
+    Filled on the device (``torch.tensor`` of a host scalar is a
+    synchronous copy to the card)."""
+    return torch.full((), r, dtype=dtype, device=device)
 
 
 def ftcs_step_edges(T: torch.Tensor, r) -> torch.Tensor:

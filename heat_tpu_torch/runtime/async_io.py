@@ -37,6 +37,7 @@ import threading
 import time
 from typing import Callable, Optional
 
+from . import debug
 from .logging import master_print
 
 # Default queue depth: each entry pins one full-field device buffer, so the
@@ -123,8 +124,9 @@ class SnapshotWriter:
             maxsize=max(1, depth))
         self._thread: Optional[threading.Thread] = None
         # the one genuinely cross-thread cell: the worker publishes the
-        # first sink error, submit/drain consume it
-        self._exc_lock = threading.Lock()
+        # first sink error, submit/drain consume it. A ranked lock (not a
+        # bare flag) so the hand-off is visible to the race sanitizer.
+        self._exc_lock = debug.make_lock("writer:exc")
         self._exc: Optional[BaseException] = None
         self.retries = max(0, retries)
         self.retry_backoff_s = retry_backoff_s
@@ -133,6 +135,12 @@ class SnapshotWriter:
         self.submitted = 0
         self.completed = 0    # jobs RUN (successfully or not) — drained
         self.attempts = 0     # job executions incl. transient retries
+        # race sanitizer (no-op unless HEAT_TPU_RACECHECK): the exempt
+        # fields carry allow[races] markers below — instance-confined
+        # driver-side accounting the static client+driver union merges
+        debug.instrument_races(
+            self, label="SnapshotWriter",
+            exempt=frozenset({"wait_s", "submitted", "_thread"}))
 
     @property
     def hidden_s(self) -> float:
@@ -194,12 +202,13 @@ class SnapshotWriter:
         (backpressure — bounded memory beats a snapshot pileup). Re-raises
         the first pending writer error instead of queueing behind it."""
         self._raise_pending()
-        if self._thread is None:
+        if self._thread is None:  # heat-tpu: allow[races] instance-confined — each writer's submit/drain side runs on the one thread that constructed it; the static client+driver union merges distinct instances
             self._thread = threading.Thread(
                 target=self._worker, daemon=True, name="heat-snapshot-writer")
             self._thread.start()
         t0 = time.perf_counter()
         self._q.put(job)
+        # heat-tpu: allow[races] instance-confined — same single-driver accounting as _thread above; the worker thread never touches these fields
         self.wait_s += time.perf_counter() - t0
         self.submitted += 1
 
@@ -229,6 +238,7 @@ class SnapshotWriter:
                 self._thread.join(None if deadline is None else
                                   max(0.001, deadline - time.perf_counter()))
                 hung = self._thread.is_alive()
+            # heat-tpu: allow[races] instance-confined — drain runs on the writer's one driving thread; see submit
             self._thread = None  # abandoned if hung: daemon, dies with us
         self.wait_s += time.perf_counter() - t0
         if hung:

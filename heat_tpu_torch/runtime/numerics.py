@@ -35,8 +35,9 @@ Three detectors per lane:
   Best-effort by design (heat is NOT conserved here — flux through the
   walls is physics, not a fault), armed only after two observations.
 
-Thread-safety/lock-ordering contract: one small private lock (a plain
-``threading.Lock``), and this module NEVER takes the engine lock — the
+Thread-safety/lock-ordering contract: one small private lock (rank
+``observatory:numerics``, ``runtime/debug.make_lock``), and this module
+NEVER takes the engine lock — the
 scheduler calls in (engine -> numerics order only), and readers of
 ``snapshot()`` hold the numerics lock alone.
 """
@@ -45,10 +46,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import threading
 from typing import Dict, List, Optional
 
-from . import convergence
+from . import convergence, debug
 
 # Dtype-aware maximum-principle allowance, RELATIVE to the envelope
 # scale: per-step storage rounding can push a convex combination
@@ -107,7 +107,7 @@ class NumericsObservatory:
 
     def __init__(self, steady_tol: float):
         self.steady_tol = float(steady_tol)
-        self._lock = threading.Lock()
+        self._lock = debug.make_lock("observatory:numerics")
         self._lanes: Dict[str, _LaneState] = {}
         self.steady_total = 0
         self.violation_total = 0

@@ -60,6 +60,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from . import debug
+
 
 # --- /metrics histogram primitive (moved here from serve/policy.py so the
 # --- observatory owns its primitives without a runtime -> serve import;
@@ -89,7 +91,7 @@ class Histogram:
         self._counts = [0] * (len(self.buckets) + 1)  # +Inf tail
         self._sum = 0.0
         self._n = 0
-        self._lock = threading.Lock()  # rank: observatory:hist
+        self._lock = debug.make_lock("observatory:hist")
 
     def observe(self, v: float) -> None:
         with self._lock:
@@ -162,7 +164,7 @@ class CostModel:
     def __init__(self, alpha: float = COST_EWMA_ALPHA):
         self.alpha = float(alpha)
         self._entries: Dict[Tuple[str, int, int, str, str], _CostEntry] = {}
-        self._lock = threading.Lock()  # rank: observatory:cost
+        self._lock = debug.make_lock("observatory:cost")
 
     def observe(self, bucket: str, lanes: int, depth: int, k: int,
                 wall_s: float, kernel: str = "torch",
@@ -243,7 +245,7 @@ class CompileLog:
     def __init__(self, capacity: int = COMPILE_LOG_CAPACITY):
         self._events: collections.deque = collections.deque(maxlen=capacity)
         self._seen: set = set()
-        self._lock = threading.Lock()  # rank: observatory:compile
+        self._lock = debug.make_lock("observatory:compile")
         self.programs = 0
         self.total_s = 0.0
         self.first_s = 0.0       # wall spent on first-time keys
@@ -284,6 +286,8 @@ class CompileLog:
 
 
 _COMPILE_LOG: Optional[CompileLog] = None
+# plain: a double-checked singleton guard, held only to construct the
+# log (rank observatory; nothing is taken under it)
 _COMPILE_LOG_LOCK = threading.Lock()
 
 
@@ -342,7 +346,7 @@ class MemWatermark:
         self.min_growth = int(min_growth_bytes)
         self._samples: collections.deque = collections.deque(
             maxlen=self.window)
-        self._lock = threading.Lock()  # rank: observatory:mem
+        self._lock = debug.make_lock("observatory:mem")
         self.peak: Optional[int] = None
         self.last: Optional[int] = None
         self.source = "unavailable"
@@ -450,7 +454,7 @@ class UsageLedger:
 
     def __init__(self):
         self._cells: Dict[Tuple[str, str], _LedgerCell] = {}
-        self._lock = threading.Lock()  # rank: observatory:ledger
+        self._lock = debug.make_lock("observatory:ledger")
 
     def add(self, tenant: str, slo_class: str, status: str,
             usage: dict, placement: Optional[str] = None) -> None:
@@ -539,7 +543,7 @@ class BurnMonitor:
         self.threshold = float(threshold)
         self.cooldown_s = float(cooldown_s)
         self._classes: Dict[str, _ClassWindow] = {}
-        self._lock = threading.Lock()  # rank: observatory:burn
+        self._lock = debug.make_lock("observatory:burn")
 
     def _budget(self, cls: str) -> float:
         target = self.targets.get(cls, 0.95)

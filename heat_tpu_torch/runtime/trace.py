@@ -67,6 +67,7 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
+from . import debug
 from .logging import master_print
 
 # Ring capacity default: tuples are ~150 B, so the always-on recorder
@@ -112,10 +113,8 @@ class Tracer:
         self.enabled = self.capacity > 0
         self._buf: collections.deque = collections.deque(
             maxlen=max(1, self.capacity))
-        # track registry + export only; never taken on the event path.
-        # Lock rank: an observatory lock, taken after (or without) the
-        # engine lock, never before it
-        self._lock = threading.Lock()
+        # track registry + export only; never taken on the event path
+        self._lock = debug.make_lock("observatory:trace")
         self._procs: Dict[str, int] = {}    # process name -> pid
         self._tracks: Dict[Tuple[str, str], Tuple[int, int]] = {}
         self._track_names: Dict[Tuple[int, int], Tuple[str, str]] = {}
@@ -128,6 +127,12 @@ class Tracer:
                                             # never grep the filesystem)
         self.dropped_hint = False           # ring wrapped at least once
         self._appended = 0
+        # race sanitizer (no-op unless HEAT_TPU_RACECHECK): the exempt
+        # trio is the allow-marked lock-free ring — _append stays a
+        # zero-instrumentation hot path even when the sanitizer is armed
+        debug.instrument_races(
+            self, label="Tracer",
+            exempt=frozenset({"_buf", "_appended", "dropped_hint"}))
 
     # --- identity ---------------------------------------------------------
     def mint_trace_id(self) -> str:
@@ -224,10 +229,7 @@ class Tracer:
 
     def _append(self, ev: tuple) -> None:
         self._appended += 1
-        # lock-free by design: deque.append is GIL-atomic, and
-        # _appended/dropped_hint are advisory (a lost update only blurs
-        # the drop hint), so the span hot path takes no lock
-        if self._appended > self.capacity:
+        if self._appended > self.capacity:  # heat-tpu: allow[races] lock-free ring by design — deque.append is GIL-atomic and _appended/dropped_hint are advisory drop hints where a lost update only blurs the hint, so the span hot path takes no lock
             self.dropped_hint = True
         self._buf.append(ev)
 
@@ -351,6 +353,8 @@ def resolve_trace(path_flag: Optional[str],
 # --- process-global tracer (the solo drive() path) ----------------------------
 
 _GLOBAL: Optional[Tracer] = None
+# plain: a double-checked singleton guard, held only to construct or
+# swap the global tracer (rank observatory; nothing is taken under it)
 _GLOBAL_LOCK = threading.Lock()
 
 

@@ -105,7 +105,9 @@ def host_fetch(x) -> np.ndarray:
     if isinstance(x, PendingCopy):
         x = x.wait()
     if isinstance(x, torch.Tensor):
+        # heat-tpu: allow[hot-path-purity] THE sanctioned D2H seam itself
         return _to_numpy(x.detach().cpu())
+    # heat-tpu: allow[hot-path-purity] THE sanctioned D2H seam itself
     return np.asarray(x)
 
 
@@ -247,9 +249,11 @@ def make_lane_loader(key: BucketKey):
             if buf.device.type == "cuda":
                 field = field.pin_memory()
         corner.copy_(field, non_blocking=True)
-        r[lane] = r_new
-        n[lane] = n_new
-        remaining[lane] = steps_new
+        # fill_ on the device: an item assignment of a host scalar is a
+        # synchronous copy to the card, a fence per admission
+        r[lane].fill_(r_new)
+        n[lane].fill_(n_new)
+        remaining[lane].fill_(steps_new)
 
     return load
 
@@ -445,9 +449,9 @@ class LaneEngine:
         scalars; every other lane untouched. ``buf`` is only read, so the
         same snapshot row survives a second rollback."""
         self._fields[lane].copy_(buf)
-        self._r[lane] = float(r)
-        self._n[lane] = int(n)
-        self._rem[lane] = int(steps)
+        self._r[lane].fill_(float(r))
+        self._n[lane].fill_(int(n))
+        self._rem[lane].fill_(int(steps))
 
 
 def fetch_boundary(handle, timeout_s: Optional[float] = None, plan=None,
@@ -459,6 +463,7 @@ def fetch_boundary(handle, timeout_s: Optional[float] = None, plan=None,
     def fetch():
         if plan is not None:
             plan.maybe_fetch_hang(fetch_index)
+        # heat-tpu: allow[hot-path-purity] the watchdogged boundary D2H
         return host_fetch(handle)
 
     if timeout_s is None:
@@ -537,8 +542,8 @@ class MegaLaneEngine:
         self.reload()
 
     def _countdown(self, steps: int) -> torch.Tensor:
-        return torch.tensor([int(steps)], dtype=torch.int32,
-                            device=self._head)
+        return torch.full((1,), int(steps), dtype=torch.int32,
+                          device=self._head)
 
     def _blocks(self):
         mesh = self.comm.mesh

@@ -80,6 +80,7 @@ from typing import Optional
 from urllib.parse import parse_qs, urlsplit
 
 from ..config import SLO_CLASSES
+from ..runtime import debug
 from ..runtime import prof as prof_mod
 from ..runtime import trace as trace_mod
 from ..runtime.logging import master_print
@@ -648,9 +649,14 @@ class Gateway:
         self.host, self.port = self.httpd.server_address[:2]
         self._thread: Optional[threading.Thread] = None
         self._drainer: Optional[threading.Thread] = None
-        self._drain_lock = threading.Lock()   # rank: gateway (taken
-                                              # after the engine lock)
+        self._drain_lock = debug.make_lock("gateway:drain")
         self._drained = threading.Event()
+        # race sanitizer (no-op unless HEAT_TPU_RACECHECK): engine and
+        # httpd are object references on every handler's path — their
+        # own fields are watched by their own instrumentation
+        debug.instrument_races(
+            self, label="Gateway",
+            exempt=frozenset({"engine", "httpd"}))
 
     @property
     def address(self) -> str:

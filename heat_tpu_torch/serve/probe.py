@@ -38,6 +38,7 @@ import numpy as np
 
 from ..config import config_from_request
 from ..grid import initial_condition, sine_decay_factor
+from ..runtime import debug
 from ..runtime.logging import json_record, master_print
 
 # Reserved tenant for canary traffic: the usage ledger and queue-depth
@@ -76,7 +77,7 @@ class Prober:
         self.request = dict(DEFAULT_PROBE_REQUEST, **(request or {}))
         self.fail_after = int(fail_after)
         self.timeout_s = float(timeout_s)
-        self._lock = threading.Lock()   # rank: observatory
+        self._lock = debug.make_lock("observatory:prober")
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._seq = 0

@@ -129,6 +129,7 @@ from ..config import (DEFAULT_SLO_CLASS, DEFAULT_TENANT, LANE_KERNELS,
 from ..grid import ic_envelope, initial_condition_device
 from ..ops import cuda_lanes
 from ..runtime import async_io, faults
+from ..runtime import debug as debug_mod
 from ..runtime import checkpoint as ckpt_mod
 from ..runtime import convergence as conv_mod
 from ..runtime import numerics as numerics_mod
@@ -808,12 +809,18 @@ class _Runner:
         self._free(lane)
 
     def _boundary(self, seq: int, b: np.ndarray, snap, sync: bool) -> None:
-        """One fetched boundary's numerics and verdicts."""
+        """One fetched boundary's numerics and verdicts. A fenced round
+        (``sync``) counts the boundary before it judges, a dispatch-ahead
+        one after, as the reference orders each: ``engine-kill@N`` at a
+        request's final fenced boundary fires before it retires."""
         outer = self.outer
         if outer.numerics is not None:
             self._ingest_numerics(seq, b)
+        if sync:
+            outer._note_boundary()
         self._judge_lanes(seq, b[0], b[1], snap, sync=sync)
-        outer._note_boundary()
+        if not sync:
+            outer._note_boundary()
 
     def process_boundary(self) -> None:
         """Take one chunk boundary: fetch the OLDEST in-flight boundary
@@ -839,11 +846,12 @@ class _Runner:
             rem = b[0]
             if not np.array_equal(rem, predicted):
                 subject, contract = self._desync_names()
+                got, want = rem.tolist(), predicted.tolist()  # heat-tpu: allow[hot-path-purity] rem (the fetched boundary) and predicted (the host mirror) are numpy: no device read
                 raise RuntimeError(
                     f"serve dispatch-ahead desync for {subject}: device "
-                    f"remaining {rem.tolist()} != host-predicted "
-                    f"{predicted.tolist()} at chunk {seq} — the {contract} "
-                    f"contract broke; results cannot be trusted")
+                    f"remaining {got} != host-predicted {want} at chunk "
+                    f"{seq} — the {contract} contract broke; results "
+                    f"cannot be trusted")
             self._boundary(seq, b, snap, sync=False)
         else:
             # nothing in flight and nothing left to step: occupants whose
@@ -1411,8 +1419,10 @@ class Engine:
         # one engine-wide lock: records are mutated and emitted from both
         # the scheduler thread and the SnapshotWriter thread, and submit
         # pushes while the online scheduler thread pops; the condition the
-        # online loop and wait() callers sleep on shares it
-        self._lock = threading.Lock()
+        # online loop and wait() callers sleep on shares it. Created
+        # through runtime/debug.make_lock so HEAT_TPU_LOCKCHECK=1 arms the
+        # order watchdog on this exact lock.
+        self._lock = debug_mod.make_lock("engine")
         self._cond = threading.Condition(self._lock)
         self._listeners: List[Callable[[dict], None]] = []
         # online mode: a background scheduler thread drains continuously
@@ -1485,6 +1495,14 @@ class Engine:
                                        # admitted (gates _maybe_poison)
         self._fetch_seq = 0            # boundary-fetch counter (fetch-hang
                                        # @N addressing)
+        # race sanitizer (no-op unless HEAT_TPU_RACECHECK): exempt fields
+        # the committed guard map sanctions as benign — the idempotent
+        # mega-lane memo (allow-marked) and the typed object refs
+        debug_mod.instrument_races(
+            self, label="Engine",
+            exempt=frozenset({"_mega_lanes_resolved", "tracer", "prof",
+                              "numerics", "scfg", "prober",
+                              "solvecache"}))
 
     # --- admission --------------------------------------------------------
     def submit(self, cfg: HeatConfig, request_id: Optional[str] = None,
@@ -1857,6 +1875,7 @@ class Engine:
         auto (1 where ``mega_device_count`` is above 1, else 0), resolved
         once, at the first overflow admission, summary or scrape."""
         if self._mega_lanes_resolved is None:
+            # heat-tpu: allow[races] idempotent memo — every thread computes the same deterministic value from immutable config, and the publish is one GIL-atomic store; first-writer-wins needs no lock
             self._mega_lanes_resolved = (
                 self.scfg.mega_lanes if self.scfg.mega_lanes is not None
                 else (1 if mega_device_count(self.device) > 1 else 0))
@@ -2084,6 +2103,8 @@ class Engine:
             # take the terminal snapshot (engine -> observatory lock order)
             alert = self.prof.note_terminal(snap, now)
             if self.scfg.emit_records:
+                # heat-tpu: allow[lock-discipline] the engine lock IS the
+                # serialization point: record lines must not interleave
                 json_record("serve_request", **snap)
             self._cond.notify_all()
         if alert is not None:
@@ -2512,6 +2533,11 @@ class Engine:
         feeds lanes *while they run* — a request arriving between chunk
         boundaries is admitted at the next one. Idempotent while
         running."""
+        # background-thread debug plumbing: uncaught crashes in the
+        # scheduler/writer/handler threads become structured thread_crash
+        # records, and the race sanitizer's record mode can flight-dump
+        debug_mod.install_thread_excepthook()
+        debug_mod.set_flight_dump_hook(self._flight_dump)
         with self._lock:
             if self._thread is not None and self._thread.is_alive():
                 return self

@@ -50,13 +50,13 @@ import hashlib
 import json
 import os
 import shutil
-import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..config import HeatConfig
+from ..runtime import debug
 from ..runtime.checkpoint import (_from_storage, config_fingerprint,
                                   savez_compressed)
 from ..runtime.logging import json_record, master_print
@@ -116,8 +116,7 @@ class SolveCache:
         self.max_bytes = int(max_bytes or 0)
         self.readonly = readonly
         self._plan = plan
-        self._lock = threading.Lock()   # rank: cache (engine -> writer ->
-                                        # cache -> observatory)
+        self._lock = debug.make_lock("cache:solve")
         self._consults = 0
         self.hits_full = 0
         self.hits_prefix = 0
@@ -125,6 +124,8 @@ class SolveCache:
         self.puts = 0
         self.evictions = 0
         self.quarantined = 0
+        debug.instrument_races(self, label="SolveCache",
+                               exempt=frozenset({"dir", "_plan"}))
 
     # --- consult ----------------------------------------------------------
     def lookup(self, cfg: HeatConfig) -> Optional[dict]:

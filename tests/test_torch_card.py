@@ -510,3 +510,59 @@ def test_fleet_router_over_two_card_gateways_matches_the_plain_body(
         assert len(got) == 1
         assert got[0].read_bytes() == \
             (tmp_path / "plain" / f"{ln['id']}.npz").read_bytes()
+
+
+def test_audit_on_the_card_holds_every_contract():
+    """``audit`` on the card: every family dispatched under
+    ``set_sync_debug_mode("error")`` holds every contract, and the hand
+    kernels run."""
+    from heat_tpu_torch.analysis import programs
+
+    vs, report = programs.audit(device="cuda")
+    assert vs == [], [v.format() for v in vs]
+    assert report["dispatched"] == report["families"]
+    launched = {k for fam in report["programs"].values()
+                for k, n in fam["launches"].items() if n}
+    assert launched >= {"ftcs2d", "ftcs3d", "lanes2d", "lanes3d"}
+
+
+def test_armed_engine_on_the_card_has_no_violation(monkeypatch, tmp_path):
+    """An engine built with the lock-order watchdog and the race sanitizer
+    armed (raising mode) serves the lane matrix on the card, with the
+    solve cache on, to the bytes of the unarmed plain lane body: zero
+    inversions, zero races, and the engine, writer, cache and observatory
+    ranks all taken."""
+    from heat_tpu_torch.runtime import debug
+
+    reqs = (_matrix_requests(2, "float32", ("ghost", "edges"))
+            + _matrix_requests(3, "bfloat16", ("edges", "ghost")))
+    plain = Engine(ServeConfig(lanes=2, chunk=4, buckets=(12,),
+                               lane_kernel="torch", emit_records=False,
+                               keep_fields=True), device="cuda")
+    plain_ids = [plain.submit(HeatConfig(**r)) for r in reqs]
+    got = {r["id"]: r for r in plain.results()}
+    want = [got[i]["T"].tobytes() for i in plain_ids]
+    monkeypatch.setenv("HEAT_TPU_LOCKCHECK", "1")
+    monkeypatch.setenv("HEAT_TPU_RACECHECK", "1")
+    debug.reset_lock_order_stats()
+    debug.reset_race_stats()
+    try:
+        cuda_lanes.reset_launches()
+        eng = Engine(ServeConfig(lanes=2, chunk=4, buckets=(12,),
+                                 emit_records=False, keep_fields=True,
+                                 out_dir=str(tmp_path / "out"), cache=True,
+                                 cache_dir=str(tmp_path / "cache")),
+                     device="cuda")
+        ids = [eng.submit(HeatConfig(**r)) for r in reqs]
+        recs = {r["id"]: r for r in eng.results()}
+        assert all(recs[i]["status"] == "ok" for i in ids)
+        assert [recs[i]["T"].tobytes() for i in ids] == want
+        assert min(cuda_lanes.launches.values()) > 0
+        locks, races = debug.lock_order_stats(), debug.race_stats()
+    finally:
+        debug.reset_lock_order_stats()
+        debug.reset_race_stats()
+    assert locks["violations"] == [] and races["findings"] == []
+    assert set(locks["taken"]) >= {"engine", "writer", "cache",
+                                   "observatory"}
+    assert races["instrumented"] >= 4

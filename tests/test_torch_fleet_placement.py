@@ -417,14 +417,16 @@ def _imports(path):
 
 def test_fleet_modules_stay_import_light():
     """``placement`` and the package init import nothing; ``registry``
-    and ``resilience`` only the standard library; importing
-    ``fleet.placement`` loads neither torch nor the HTTP stack."""
+    and ``resilience`` only the standard library and ``runtime.debug``
+    (their ranked locks and race instrumentation, as the reference's);
+    importing them loads neither torch nor the HTTP stack."""
     pkg = _REPO / "heat_tpu_torch" / "fleet"
     assert list(_imports(pkg / "__init__.py")) == []
     assert set(_imports(pkg / "placement.py")) <= {"__future__", "typing"}
     for name in ("registry.py", "resilience.py"):
         assert set(_imports(pkg / name)) <= {
-            "__future__", "typing", "pathlib", "threading", "random"}, name
+            "__future__", "typing", "pathlib", "threading", "random",
+            "..runtime"}, name
     out = subprocess.run(
         [sys.executable, "-c",
          "import sys, heat_tpu_torch.fleet.placement, "
