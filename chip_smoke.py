@@ -273,6 +273,20 @@ a checkout of the repository, it exits non-zero and prints no result):
    last and waited for after phase 6's byte comparisons, which it
    overlaps (``finish_invariants``; its timing gates are printed, not
    checked): rc 0, its byte gates held, zero violations and zero races;
+5g. perfcheck on the card (``phase_perfcheck``), two children waited
+   for before phase 6 times anything: ``python -m
+   heat_tpu_torch.labs.serve_lane_kernel_lab --requests 16`` on the card
+   (``start_lane_lab``, started with the armed resilience lab beside
+   phase 6's byte comparisons; ``lanes2d`` against the plain lane body,
+   ``ftcs2d`` solo solves): ``bit_identical``, ``solo_sample_identical``
+   and ``zero_fallbacks`` true, both kernels launched; and ``python -m
+   heat_tpu_torch perfcheck --no-fresh`` over the committed lab records
+   (``heat_tpu_torch/labs/artifacts``; ``start_perfcheck``, no device,
+   started at the top of the script), every line printed: a ``FAIL`` of
+   a correctness check (an identity, zero-count, reconciliation,
+   quarantine, recovery, export or compile gate, a missing record) fails
+   the run; the speed and band checks named in ``PERFCHECK_SPEED`` are
+   printed under a heading of their own with their numbers;
 6. the kernel lab's candidates L1-L5 (``lab2d``, ``lab3d``): every
    (kernel, variant, dtype) against its plain version on the card, bytes,
    at the JAX lab's check shapes, depths 1 and the deepest its TPU geometry
@@ -405,6 +419,31 @@ LAB_BENCHES = (
 # own count (machine.py: 7 / 9 f32 operations per live cell-step)
 LANE_COST_ESTIMATE_OPS = {2: 11, 3: 13}
 LANE_R = {2: (0.25, 0.2, 0.1), 3: (1 / 6, 0.15, 0.1)}
+# phase 5g: the perfcheck checks whose FAIL is a speed or band reading, not
+# a correctness one ("<record>: <field>" for a record's gate, else the
+# check's name); each FAIL among them is printed with its number
+PERFCHECK_SPEED = frozenset((
+    "baseline overhead gate",
+    "serve_lab.json: aggregate_speedup",
+    "trace_overhead_lab.json: full_within_2pct_of_off",
+    "serve_chaos_lab.json: healthy_within_10pct",
+    "serve_frontend_lab.json: edf_vs_fifo_hit_rate_delta",
+    "serve_mega_lab.json: packed_within_10pct",
+    "serve_mega_lab.json: packed_within_10pct_of_serve_lab",
+    "numerics_overhead_lab.json: on_within_2pct_of_off",
+    "serve_steady_lab.json: throughput_multiplier",
+    "serve_cache_lab.json: warm_speedup",
+    "fleet_lab.json: speedup_2_backends",
+    "fleet_lab.json: monotone_at_4",
+    "fleet_resilience_lab.json: flap_availability",
+    "fleet_resilience_lab.json: flap_p99_ratio",
+    "fleet_resilience_lab.json: hedges_won",
+    "fleet_resilience_lab.json: breaker_steals_suppressed",
+    "lane-kernel cost band",
+    "lane-kernel card gate",
+    "calibration cross-check",
+    "static-prior band",
+))
 # phase 5: the serve main path's engine knobs
 SERVE_ARGS = ("--lanes", "8", "--chunk", "16", "--buckets", "256,512,1024")
 # phase 5's profile: each serve kernel's device time, by a pattern of its
@@ -512,22 +551,6 @@ def inner_bounds(shape) -> tuple:
 # --------------------------------------------------------------------------
 
 
-def ptxas_report(log: str) -> list:
-    """(function, registers, spill store bytes, spill load bytes) of each
-    kernel instance in an ``nvcc -Xptxas=-v`` log."""
-    out, fn, spill = [], None, (0, 0)
-    for line in log.splitlines():
-        if m := re.search(r"Compiling entry function '([^']+)'", line):
-            fn, spill = m[1], (0, 0)
-        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                            r"loads", line):
-            spill = (int(m[1]), int(m[2]))
-        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
-            out.append((fn, int(m[1]), *spill))
-            fn = None
-    return out
-
-
 def phase_build():
     import torch
 
@@ -543,7 +566,7 @@ def phase_build():
           f"{time.perf_counter() - t0:.3f} s (one nvcc each, in parallel: "
           f"{', '.join(f'{n} {t:.1f} s' for n, t in each.items())})")
     for name in _build.KERNELS:
-        funcs = ptxas_report(_build.build_log(name))
+        funcs = _build.ptxas_report(_build.build_log(name))
         regs = [f[1] for f in funcs]
         spills = sum(f[2] + f[3] for f in funcs)
         print(f"  ptxas {name}: {len(funcs)} kernel instances, {min(regs)}-"
@@ -4231,6 +4254,12 @@ def wait_child(proc, log: Path, what: str, timeout: float) -> str:
     """Wait for ``proc`` at most ``timeout`` seconds (killed then) and
     return its log; a child that fails or outlasts the wait fails the
     phase."""
+    return wait_child_rc(proc, log, what, timeout, (0,))
+
+
+def wait_child_rc(proc, log: Path, what: str, timeout: float, ok_rcs) -> str:
+    """``wait_child`` where any exit code in ``ok_rcs`` is a finished run
+    (a lab or gate that reports its failed checks with rc 1)."""
     try:
         rc = proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -4238,7 +4267,7 @@ def wait_child(proc, log: Path, what: str, timeout: float) -> str:
         proc.wait()
         rc = None
     out = log.read_text()
-    check(rc == 0, f"{what} exited {rc}:\n{out[-4000:]}")
+    check(rc in ok_rcs, f"{what} exited {rc}:\n{out[-4000:]}")
     return out
 
 
@@ -4396,6 +4425,100 @@ def finish_invariants(proc, t_started: float) -> None:
           f"{time.perf_counter() - t0:.1f} s waited for)")
 
 
+def start_child(name: str, *argv) -> subprocess.Popen:
+    """``python <argv>`` from the repository root, its output to
+    ``WORK/<name>.log``."""
+    log = open(WORK / f"{name}.log", "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, *argv], cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT)}, stdout=log,
+            stderr=subprocess.STDOUT)
+    finally:
+        log.close()
+
+
+def start_perfcheck() -> subprocess.Popen:
+    """Phase 5g's ``perfcheck --no-fresh`` over the committed lab records:
+    no device, so started at the top of the script."""
+    return start_child("perfcheck", "-m", "heat_tpu_torch", "perfcheck",
+                       "--no-fresh")
+
+
+def start_lane_lab() -> subprocess.Popen:
+    """Phase 5g's lane-kernel lab at 16 requests on the card, started
+    beside phase 6's byte comparisons."""
+    return start_child("lane-kernel-lab", "-m",
+                       "heat_tpu_torch.labs.serve_lane_kernel_lab",
+                       "--requests", "16", "--out",
+                       str(WORK / "serve_lane_kernel_lab.json"))
+
+
+def perfcheck_key(line: str) -> str:
+    """The check a ``perfcheck`` result line reports: ``"<record>:
+    <field>"`` for a record's gate, the check's name otherwise (an
+    informational check's name ends at its parenthesis)."""
+    name, _, detail = line[5:].partition(": ")
+    if name.endswith(".json"):
+        return f"{name}: {detail.split('=')[0]}"
+    return name.split(" (")[0]
+
+
+def phase_perfcheck(smi, perfcheck, lane_lab, t_started: float) -> dict:
+    """Phase 5g (see the module docstring): wait for the children of
+    ``start_perfcheck`` and ``start_lane_lab`` (the lab started at
+    ``t_started``) and check them."""
+    t0 = time.perf_counter()
+    try:
+        wait_child_rc(lane_lab, WORK / "lane-kernel-lab.log",
+                      "the lane-kernel lab", 300, (0, 1))
+        out = wait_child_rc(perfcheck, WORK / "perfcheck.log",
+                            "perfcheck --no-fresh", 120, (0, 1))
+    finally:
+        for proc in (perfcheck, lane_lab):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rec = json.loads((WORK / "serve_lane_kernel_lab.json").read_text())
+    launched = (rec["cuda"]["launches"]["lanes2d"],
+                rec["solo_cuda"]["launches"]["ftcs2d"])
+    check(rec["platform"] == "cuda" and rec["bit_identical"]
+          and rec["solo_sample_identical"] and rec["zero_fallbacks"]
+          and rec["cuda"]["ok"] == rec["torch"]["ok"] == 16
+          and min(launched) > 0 and rec["torch"]["launches"]["lanes2d"] == 0,
+          f"lane-kernel lab: bit_identical {rec['bit_identical']}, "
+          f"solo_sample_identical {rec['solo_sample_identical']}, "
+          f"zero_fallbacks {rec['zero_fallbacks']}, launches {launched}")
+    print(f"[phase 5g] serve_lane_kernel_lab --requests 16 on the card: "
+          f"bit_identical, solo_sample_identical, zero_fallbacks true; "
+          f"lanes2d {launched[0]} launches against the plain lane body, "
+          f"ftcs2d {launched[1]} in the solo solves; cuda "
+          f"{rec['cuda']['points_per_s']:.6g} cell-steps/s, torch "
+          f"{rec['torch']['points_per_s']:.6g}, solo cuda "
+          f"{rec['solo_cuda']['points_per_s']:.6g} (printed, not gated)")
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith(("OK   ", "FAIL "))]
+    tally = out.strip().splitlines()[-1] if out.strip() else ""
+    print("[phase 5g] python -m heat_tpu_torch perfcheck --no-fresh over "
+          "heat_tpu_torch/labs/artifacts:")
+    print("".join(f"    | {ln}\n" for ln in lines), end="")
+    print(f"    | {tally}")
+    fails = [ln for ln in lines if ln.startswith("FAIL ")]
+    wrong = [ln for ln in fails if perfcheck_key(ln) not in PERFCHECK_SPEED]
+    check(lines and tally.startswith("perfcheck: ") and not wrong,
+          f"perfcheck: correctness checks failed: {wrong or tally!r}")
+    slow = [ln for ln in fails if ln not in wrong]
+    print(f"[phase 5g] perfcheck speed and band checks that fail on the "
+          f"card ({len(slow)}; kept in PERF.md, not gated here):")
+    print("".join(f"    | {ln}\n" for ln in slow) or "    | none\n", end="")
+    phase_s = time.perf_counter() - t_started
+    print(f"[phase 5g] done: {len(lines) - len(fails)}/{len(lines)} checks "
+          f"OK, every correctness check OK; {phase_s:.1f} s since the "
+          f"children started, {time.perf_counter() - t0:.1f} s waited for, "
+          f"on {smi}")
+    return dict(phase_s=phase_s, fails=slow, launches=launched)
+
+
 def phase_card_tests():
     """The card-only pytest cases (``tests/test_torch_card.py``, which
     imports neither JAX nor heat_tpu): every case must pass; a skip or a
@@ -4524,7 +4647,8 @@ def main() -> int:
         return 0
     plain = start_plain_serve()
     checks = start_guard_checks()
-    audit = lab_armed = None
+    perfcheck = start_perfcheck()
+    audit = lab_armed = lane_lab = None
     try:
         phase_build()
         phase_card_tests()
@@ -4543,12 +4667,15 @@ def main() -> int:
         phase_fleet(smi, serve)
         _, lab_armed = phase_invariants(smi, serve, checks, audit)
         t_armed = time.perf_counter()
+        lane_lab = start_lane_lab()
         lab_errs = phase_lab_compare()
         finish_invariants(lab_armed, t_armed)
+        phase_perfcheck(smi, perfcheck, lane_lab, t_armed)
         lab_rows, lab_launches = phase_lab(smi)
         shard = phase_sharded(smi, mega["requests"]["mega-hip"]["digest"])
     finally:
-        for child in [plain, audit, lab_armed, *checks.values()]:
+        for child in [plain, audit, lab_armed, perfcheck, lane_lab,
+                      *checks.values()]:
             if child is not None and child.poll() is None:
                 child.kill()
                 child.wait()

@@ -66,6 +66,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import re
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -93,6 +94,9 @@ LAUNCH_KEY_DIMS: Tuple[str, ...] = ("kernel", "ndim", "bucket", "dtype",
                                     "bc", "tier", "depth")
 
 _FLOAT_DTYPES = ("float64", "float32", "bfloat16")
+# a cost-model bucket label: "<ndim>d/n<side>/<dtype>/<bc>"
+_BUCKET_RE = re.compile(r"(\d+)d/n(\d+)/([a-z0-9]+)/")
+_DTYPE_BYTES = {"float64": 8, "float32": 4, "bfloat16": 2}
 
 
 def compiled_depths() -> Dict[str, int]:
@@ -771,6 +775,32 @@ def check_family_launches(spec: ProgramSpec, obs: dict, device
                     f"{obs.get('launches')}) — the family fell back to its "
                     f"plain version"))
     return out
+
+
+# --- static cost model (the roofline prior) ---------------------------------
+
+def roofline_lane_step_bytes(ndim: int, n: int, dtype: str) -> int:
+    """One masked step over one lane's padded bucket buffer moves the
+    state twice: one read and one write of (B+2)^ndim cells (the stencil
+    is bandwidth-bound, so bytes are the cost)."""
+    return 2 * (n + 2) ** ndim * _DTYPE_BYTES[dtype]
+
+
+def lane_static_prior(bucket: str, kernel: str = "torch"
+                      ) -> Optional[float]:
+    """Static seconds-per-lane-step floor for a cost-model bucket label
+    (``2d/n256/float32/edges``): the roofline bytes over the H100's memory
+    rate in ``machine.PEAKS`` (3.35 TB/s), the card the port targets. The
+    kernel does not move the bandwidth bound; it only names the row. None
+    when the label does not parse."""
+    m = _BUCKET_RE.match(bucket)
+    if m is None or m.group(3) not in _DTYPE_BYTES:
+        return None
+    from ..machine import PEAKS
+
+    return roofline_lane_step_bytes(
+        int(m.group(1)), int(m.group(2)),
+        m.group(3)) / PEAKS["H100"].hbm_bytes_per_s
 
 
 # --- registry ----------------------------------------------------------------

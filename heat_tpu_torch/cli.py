@@ -17,8 +17,9 @@ router over ``serve --listen`` gateways), ``python -m heat_tpu_torch
 trace FILE`` (a trace file's text summary), ``python -m heat_tpu_torch usage URL|FILE`` (the
 per-tenant usage ledger), ``python -m heat_tpu_torch launch -n N -- run
 --backend sharded ...`` (N worker processes in one ``torch.distributed``
-world, the reference's ``mpirun -np N``) and ``python -m heat_tpu_torch
-info``.
+world, the reference's ``mpirun -np N``), ``python -m heat_tpu_torch
+perfcheck`` (the performance regression gate over the labs' committed
+records) and ``python -m heat_tpu_torch info``.
 """
 
 from __future__ import annotations
@@ -586,6 +587,38 @@ def build_parser() -> argparse.ArgumentParser:
                           "defs) and exit 0 — the closure is "
                           "conservative, so every listed function "
                           "really is unreferenced")
+
+    pc = sub.add_parser(
+        "perfcheck",
+        help="performance regression gate: re-validate every committed "
+             "lab record's gates (heat_tpu_torch/labs/artifacts), run a "
+             "fresh observatory-overhead lab and the armed lockcheck and "
+             "racecheck waves, compare the lab against the committed "
+             "baseline within a tolerance band, and cross-check the "
+             "online cost model against the static roofline prior")
+    pc.add_argument("--fresh", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="run a fresh prof_overhead_lab and the armed "
+                         "waves and compare them to the committed baseline "
+                         "(--no-fresh = only re-validate the committed "
+                         "records; fast)")
+    pc.add_argument("--tolerance", type=float, default=0.5,
+                    help="relative band for fresh-vs-baseline throughput "
+                         "(default 0.5 = within 50%% either way; the hard "
+                         "gates are the labs' own)")
+    pc.add_argument("--baseline",
+                    help="baseline prof_overhead_lab JSON (default: the "
+                         "committed one in --artifacts)")
+    pc.add_argument("--artifacts", metavar="DIR",
+                    help="directory of the lab records (default: the "
+                         "committed heat_tpu_torch/labs/artifacts)")
+    pc.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where --fresh runs the lab and the waves "
+                         "(default cuda: raises without a card)")
+    pc.add_argument("--requests", type=int,
+                    help="--fresh: the lab's population (default its 64)")
+    pc.add_argument("--repeats", type=int,
+                    help="--fresh: the lab's runs per mode (default its 3)")
 
     aud = sub.add_parser(
         "audit",
@@ -1371,6 +1404,360 @@ def cmd_launch(args) -> int:
         os.environ.update(saved)
 
 
+# the committed lab records perfcheck re-validates, with each record's
+# gates: (field, predicate on the recorded value)
+PERFCHECK_GATES = (
+    ("serve_lab.json",
+     (("bit_identical_sample", lambda v: v is True),
+      ("one_compile_per_bucket_lane_tier", lambda v: v is True),
+      ("aggregate_speedup", lambda v: (v or 0) >= 3.0))),
+    ("trace_overhead_lab.json",
+     (("full_within_2pct_of_off", lambda v: v is True),
+      ("trace_export_nonempty", lambda v: v is True))),
+    ("serve_chaos_lab.json",
+     (("bit_identical_healthy_sample", lambda v: v is True),
+      ("healthy_within_10pct", lambda v: v is True),
+      ("all_poisoned_quarantined", lambda v: v is True))),
+    ("serve_frontend_lab.json",
+     (("edf_vs_fifo_hit_rate_delta", lambda v: (v or -1) >= 0),)),
+    ("serve_lane_kernel_lab.json",
+     (("bit_identical", lambda v: v is True),
+      ("solo_sample_identical", lambda v: v is True),
+      ("zero_fallbacks", lambda v: v is True))),
+    ("lane_kernel_build_check.json",
+     (("all_compile", lambda v: v is True),)),
+    ("serve_mega_lab.json",
+     (("mega_bit_identical", lambda v: v is True),
+      ("zero_overflow_rejections", lambda v: v is True),
+      ("packed_within_10pct", lambda v: v is True),
+      ("packed_within_10pct_of_serve_lab", lambda v: v is True))),
+    ("numerics_overhead_lab.json",
+     (("on_within_2pct_of_off", lambda v: v is True),
+      ("bit_identical_depth0", lambda v: v is True),
+      ("bit_identical_depth2", lambda v: v is True),
+      ("probe_verification_ok", lambda v: v is True))),
+    ("serve_steady_lab.json",
+     (("throughput_multiplier", lambda v: (v or 0) >= 1.5),
+      ("steady_bit_identical", lambda v: v is True),
+      ("colane_bit_identical", lambda v: v is True),
+      ("zero_added_transfers", lambda v: v is True))),
+    ("serve_resume_lab.json",
+     (("resumed_bit_identical", lambda v: v is True),
+      ("zero_resteps", lambda v: v is True),
+      ("resumed_requests_recovered", lambda v: v is True))),
+    ("serve_cache_lab.json",
+     (("warm_speedup", lambda v: (v or 0) >= 5.0),
+      ("full_hit_bit_identical", lambda v: v is True),
+      ("prefix_delta_exact", lambda v: v is True),
+      ("prefix_bit_identical", lambda v: v is True),
+      ("cache_off_bit_identical", lambda v: v is True))),
+    ("fleet_lab.json",
+     (("speedup_2_backends", lambda v: (v or 0) >= 1.7),
+      ("monotone_at_4", lambda v: v is True),
+      ("fleet_bit_identical", lambda v: v is True),
+      ("kill_zero_lost", lambda v: v is True),
+      ("kill_zero_duplicates", lambda v: v is True),
+      ("steal_recovered_requests", lambda v: (v or 0) >= 1),
+      ("steal_recovery_s", lambda v: v is not None))),
+    ("fleet_resilience_lab.json",
+     (("flap_availability", lambda v: (v or 0) >= 0.99),
+      ("flap_p99_ratio", lambda v: v is not None and v <= 1.5),
+      ("flap_bit_identical", lambda v: v is True),
+      ("cut_zero_lost", lambda v: v is True),
+      ("cut_zero_duplicates", lambda v: v is True),
+      ("hedges_won", lambda v: (v or 0) >= 1),
+      ("hedge_bit_identical", lambda v: v is True),
+      ("deadline_shed_exact", lambda v: v is True),
+      ("breaker_steals_suppressed", lambda v: v is True))),
+)
+
+
+def _band_ok(ratio: float, tolerance: float) -> bool:
+    """Symmetric relative band: ratio within [1-t, 1/(1-t)]."""
+    lo = 1.0 - tolerance
+    return lo <= ratio <= 1.0 / lo
+
+
+def _armed_waves(env_var: str, armed_value: str, device) -> dict:
+    """Best-of-2 walls of one serve wave (12 f32 requests at 48^2, lanes 4,
+    chunk 8) unarmed and armed (``env_var=armed_value``), interleaved
+    off/on/off/on in this process: the flag is read when a lock or an
+    instrumented object is created, so each wave's engine takes its own
+    mode."""
+    import os
+    import time
+
+    from .serve import Engine, ServeConfig
+
+    def wave() -> float:
+        eng = Engine(ServeConfig(lanes=4, chunk=8, buckets=(64,),
+                                 emit_records=False), device=device)
+        for _ in range(12):
+            eng.submit(HeatConfig(n=48, ntime=96, dtype="float32",
+                                  ic="hat", bc="edges"))
+        t0 = time.perf_counter()
+        eng.run()
+        return time.perf_counter() - t0
+
+    walls = {"off": [], "on": []}
+    prev = os.environ.pop(env_var, None)
+    try:
+        for mode in ("off", "on", "off", "on"):
+            if mode == "on":
+                os.environ[env_var] = armed_value
+            else:
+                os.environ.pop(env_var, None)
+            walls[mode].append(wave())
+    finally:
+        if prev is None:
+            os.environ.pop(env_var, None)
+        else:
+            os.environ[env_var] = prev
+    return walls
+
+
+def cmd_perfcheck(args) -> int:
+    """The performance regression gate, in three layers, strict to
+    informational:
+
+    1. re-validate every committed lab record's own gates
+       (``PERFCHECK_GATES``: a hand-edited or stale record fails loudly);
+    2. with ``--fresh``, run ``python -m heat_tpu_torch.labs.
+       prof_overhead_lab`` on ``--device``, require its gates and its rate
+       within ``--tolerance`` of the committed baseline, and run the
+       lock-order watchdog's and race sanitizer's overhead waves (zero
+       inversions and zero findings are hard);
+    3. cross-check the lane-kernel A/B's cost rows against its walls, and
+       the learned cost model against a calibration (where the port has
+       one) and against the auditor's static roofline prior. A speed
+       check on the kernels, the calibration and the prior are hard on a
+       ``cuda`` record, informational on the CPU.
+
+    Prints one ``OK``/``FAIL`` line a check and the tally; exits 0 when
+    every check passes, 1 otherwise, 2 without a baseline."""
+    import os
+    import re
+    import subprocess
+    import tempfile
+
+    from .labs._util import ARTIFACTS, REPO
+
+    adir = Path(args.artifacts) if args.artifacts else ARTIFACTS
+    baseline_path = (Path(args.baseline) if args.baseline
+                     else adir / "prof_overhead_lab.json")
+    results: list = []
+
+    def check(ok: bool, name: str, detail: str) -> None:
+        results.append((ok, f"{name}: {detail}"))
+
+    if not baseline_path.exists():
+        print(f"error: baseline {baseline_path} not found (run python -m "
+              f"heat_tpu_torch.labs.prof_overhead_lab first, or pass "
+              f"--baseline)", file=sys.stderr)
+        return 2
+    base = json.loads(baseline_path.read_text())
+    check(base.get("on_within_2pct_of_off") is True,
+          "baseline overhead gate",
+          f"observatory-on within 2% of off "
+          f"(recorded {100 * base.get('on_overhead_frac', 0):+.2f}%)")
+    check(bool(base.get("bit_identical_depth0"))
+          and bool(base.get("bit_identical_depth2")),
+          "baseline bit-identity",
+          "npz outputs identical with observatory on vs off at depths "
+          "0 and 2")
+    check(base.get("usage_reconciles") is True, "baseline usage ledger",
+          "ledger totals == sum of per-record usage stamps")
+
+    for fname, gates in PERFCHECK_GATES:
+        p = adir / fname
+        if not p.exists():
+            check(False, fname, "committed artifact missing")
+            continue
+        d = json.loads(p.read_text())
+        for field, pred in gates:
+            check(bool(pred(d.get(field))), fname, f"{field}={d.get(field)}")
+
+    fresh = None
+    if args.fresh:
+        from .backends import resolve_device
+        from .runtime import debug as _debug
+
+        device = resolve_device(args.device)
+        with tempfile.TemporaryDirectory(prefix="perfcheck_") as tmp:
+            out = Path(tmp) / "fresh.json"
+            cmd = [sys.executable, "-m", "heat_tpu_torch.labs.prof_overhead_lab",
+                   "--out", str(out), "--device", device.type]
+            for flag, v in (("--requests", args.requests),
+                            ("--repeats", args.repeats)):
+                if v is not None:
+                    cmd += [flag, str(v)]
+            env = {**os.environ, "PYTHONPATH": str(REPO) + os.pathsep
+                   + os.environ.get("PYTHONPATH", "")}
+            rc = subprocess.call(cmd, env=env, cwd=str(REPO),
+                                 stdout=subprocess.DEVNULL)
+            check(rc == 0 and out.exists(), "fresh lab run",
+                  f"prof_overhead_lab exited rc={rc}")
+            if out.exists():
+                fresh = json.loads(out.read_text())
+        if fresh is not None:
+            check(fresh.get("on_within_2pct_of_off") is True,
+                  "fresh overhead gate",
+                  f"{100 * fresh.get('on_overhead_frac', 0):+.2f}% "
+                  f"(gate <= +2%)")
+            check(bool(fresh.get("bit_identical_depth0"))
+                  and bool(fresh.get("bit_identical_depth2")),
+                  "fresh bit-identity", "npz on-vs-off at depths 0 and 2")
+            b_pts = (base.get("on") or {}).get("points_per_s") or 0
+            f_pts = (fresh.get("on") or {}).get("points_per_s") or 0
+            if b_pts and f_pts:
+                ratio = f_pts / b_pts
+                check(_band_ok(ratio, args.tolerance),
+                      "fresh-vs-baseline band",
+                      f"throughput ratio {ratio:.3f} (tolerance "
+                      f"±{100 * args.tolerance:.0f}%)")
+            else:
+                check(False, "fresh-vs-baseline band",
+                      "points_per_s missing from lab output")
+
+        # the lock-order watchdog's cost on a serve wave must stay at
+        # noise level, and the armed waves must record no inversion
+        _debug.reset_lock_order_stats()
+        walls = _armed_waves("HEAT_TPU_LOCKCHECK", "1", device)
+        ratio = min(walls["on"]) / min(walls["off"])
+        check(_band_ok(ratio, max(args.tolerance, 0.5)),
+              "lockcheck overhead",
+              f"serve wave with the lock-order watchdog armed runs at "
+              f"{ratio:.3f}x the unarmed wall (noise-level band)")
+        stats = _debug.lock_order_stats()
+        check(not stats["violations"], "lockcheck inversions",
+              f"zero lock-order inversions under the armed waves "
+              f"(saw {len(stats['violations'])}; edges observed: "
+              f"{len(stats['edges'])})")
+
+        # the race sanitizer likewise ("record" logs a finding instead of
+        # raising, so a regression fails the check rather than the wave)
+        _debug.reset_race_stats()
+        walls = _armed_waves("HEAT_TPU_RACECHECK", "record", device)
+        ratio = min(walls["on"]) / min(walls["off"])
+        check(_band_ok(ratio, max(args.tolerance, 0.5)),
+              "racecheck overhead",
+              f"serve wave with the race sanitizer armed runs at "
+              f"{ratio:.3f}x the unarmed wall (noise-level band)")
+        rstats = _debug.race_stats()
+        check(not rstats["findings"], "racecheck findings",
+              f"zero race findings under the armed waves "
+              f"(saw {len(rstats['findings'])}; objects instrumented: "
+              f"{rstats['instrumented']})")
+        _debug.reset_race_stats()
+
+    # the lane-kernel A/B's cost rows: each side keyed by its own kernel,
+    # their cuda/torch cost ratio consistent with the walls', and on a
+    # card record the kernels must have won outright
+    lane_path = adir / "serve_lane_kernel_lab.json"
+    if lane_path.exists():
+        lane = json.loads(lane_path.read_text())
+
+        def agg_s_per_lane_step(side: dict):
+            # work-weighted mean over the side's kernel-keyed cost rows
+            wall = steps = 0.0
+            for e in side.get("cost_model") or []:
+                m = e.get("mean_s_per_lane_step")
+                if m and e.get("wall_s"):
+                    wall += e["wall_s"]
+                    steps += e["wall_s"] / m
+            return wall / steps if steps else None
+
+        keyed_ok = all(
+            {e.get("kernel") for e in
+             (lane.get(side) or {}).get("cost_model") or []} <= {side}
+            for side in ("cuda", "torch"))
+        check(keyed_ok, "lane-kernel cost rows",
+              "each A/B side's cost-model rows carry its own kernel key")
+        sides = {k: lane.get(k) or {} for k in ("cuda", "torch")}
+        agg_c = agg_s_per_lane_step(sides["cuda"])
+        agg_t = agg_s_per_lane_step(sides["torch"])
+        wall_c = sides["cuda"].get("wall_s", 0) - sides["cuda"].get(
+            "compile_s", 0)
+        wall_t = sides["torch"].get("wall_s", 0) - sides["torch"].get(
+            "compile_s", 0)
+        if agg_c and agg_t and wall_c > 0 and wall_t > 0:
+            # the cost rows (chunk service) and the walls (end to end with
+            # host bookkeeping) see the same A/B through different lenses:
+            # a dilution factor is fine, an order of magnitude is a lie
+            ratio = (agg_c / agg_t) / (wall_c / wall_t)
+            check(0.25 <= ratio <= 4.0, "lane-kernel cost band",
+                  f"cost-model cuda/torch ratio vs set-up-excluded wall "
+                  f"ratio within 4x (consistency {ratio:.3f})")
+        else:
+            check(False, "lane-kernel cost band",
+                  "cost-model rows or walls missing from the artifact")
+        if str(lane.get("platform")) == "cuda":
+            check(lane.get("cuda_beats_torch") is True,
+                  "lane-kernel card gate",
+                  f"cuda_vs_torch={lane.get('cuda_vs_torch')} (the lane "
+                  f"kernels must beat the plain lane body on the card)")
+        else:
+            check(True, "lane-kernel perf (informational, platform="
+                  f"{lane.get('platform')})",
+                  f"cuda_vs_torch={lane.get('cuda_vs_torch')}, "
+                  f"cuda_vs_solo={lane.get('cuda_vs_solo')}")
+
+    rec = fresh or base
+    cm = rec.get("cost_model") or []
+    on_card = str(rec.get("platform", "")) == "cuda"
+    # the learned model against a calibration of the card, where the port
+    # has one (no calibration is committed yet: the check is skipped)
+    cal_path = adir / "calibration_h100.json"
+    if cal_path.exists() and cm:
+        cal = json.loads(cal_path.read_text())
+        cal_pts = (cal.get("sweep_2d") or {}).get("points_per_s")
+        for e in cm:
+            m = re.match(r"(\d)d/n(\d+)/", e["bucket"])
+            per = e.get("ewma_s_per_lane_step")
+            if not m or not per or not cal_pts:
+                continue
+            ndim, side = int(m.group(1)), int(m.group(2))
+            implied = side**ndim / per
+            ratio = implied / cal_pts
+            line = (f"bucket {e['bucket']}: cost model implies "
+                    f"{implied:.3e} pts/s = {100 * ratio:.2f}% of the "
+                    f"calibrated stencil rate")
+            if on_card:
+                check(0.25 <= ratio <= 4.0, "calibration cross-check", line)
+            else:
+                check(True, "calibration cross-check (informational, "
+                      f"platform={rec.get('platform')})", line)
+
+    # the learned model against the auditor's static roofline prior (a
+    # bytes-over-bandwidth floor, no measurement): agreement within an
+    # order of magnitude catches a units bug in either
+    if cm:
+        from .runtime.prof import static_prior_s_per_lane_step
+
+        for e in cm:
+            per = e.get("ewma_s_per_lane_step")
+            prior = static_prior_s_per_lane_step(
+                e.get("bucket", ""), e.get("kernel", "torch"))
+            if not per or not prior:
+                continue
+            ratio = per / prior
+            line = (f"bucket {e['bucket']}: learned "
+                    f"{per:.3e}s/lane-step = {ratio:.2f}x the static "
+                    f"roofline prior {prior:.3e}s")
+            if on_card:
+                check(0.1 <= ratio <= 10.0, "static-prior band", line)
+            else:
+                check(True, "static-prior band (informational, "
+                      f"platform={rec.get('platform')})", line)
+
+    failed = [line for ok, line in results if not ok]
+    for ok, line in results:
+        print(("OK   " if ok else "FAIL ") + line)
+    print(f"perfcheck: {'OK' if not failed else 'FAILED'} — "
+          f"{len(results) - len(failed)}/{len(results)} checks passed")
+    return 0 if not failed else 1
+
+
 def cmd_check(args) -> int:
     """The invariant guard: run the AST-based checker suite over the
     package source. Exit codes: 0 clean, 1 violations, 2 usage error."""
@@ -1614,7 +2001,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     return {"run": cmd_run, "serve": cmd_serve, "launch": cmd_launch,
             "fleet": cmd_fleet, "usage": cmd_usage, "trace": cmd_trace,
             "check": cmd_check, "audit": cmd_audit,
-            "info": cmd_info}[args.command](args)
+            "perfcheck": cmd_perfcheck, "info": cmd_info}[args.command](args)
 
 
 if __name__ == "__main__":

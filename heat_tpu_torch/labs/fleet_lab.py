@@ -52,21 +52,15 @@ import threading
 import time
 from pathlib import Path
 
-REPO = Path(__file__).resolve().parents[2]
+from . import _util
+from ._util import ARTIFACTS, REPO, write_atomic
+
 LISTEN_RE = re.compile(r"listening on http://([0-9.]+):(\d+)")
 MANIFEST_RE = re.compile(r"engine_gen(\d{8})\.json$")
 SINK_MS = 200
 # the reference lab's backend: lanes 4, chunk 16, buckets (32, 48)
 SERVE_ARGS = ("--lanes", "4", "--chunk", "16", "--buckets", "32,48")
 TIMEOUT = 600.0
-
-
-def write_atomic(out: Path, obj) -> None:
-    """Temp file + rename, so a killed run leaves no truncated JSON."""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(".tmp")
-    tmp.write_text(json.dumps(obj, indent=2))
-    os.replace(tmp, out)
 
 
 def require(cond, msg: str) -> None:
@@ -163,12 +157,10 @@ class BackendProc:
 
 
 def build_requests(count: int, dtype: str = "float64"):
-    """The reference serve lab's population: three grid sides, two
-    diffusivities, varying step counts (chunk multiples)."""
-    sides = (24, 32, 48)
-    return [dict(n=sides[i % len(sides)], ntime=96 + 16 * (i % 3),
-                 dtype=dtype, bc="edges", ic=("hat", "hat_small")[i % 2],
-                 nu=(0.05, 0.1)[(i // 3) % 2]) for i in range(count)]
+    """The serve lab's population (``_util.build_requests``) as request
+    keyword dicts."""
+    return [dict(n=c.n, ntime=c.ntime, dtype=c.dtype, bc=c.bc, ic=c.ic,
+                 nu=c.nu) for c in _util.build_requests(count, dtype)]
 
 
 def build_lines(count: int, prefix: str, sink_ms: int = SINK_MS):
@@ -447,7 +439,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--sink-ms", type=int, default=SINK_MS)
-    ap.add_argument("--out", default=str(REPO / "_smoke" / "fleet_lab.json"))
+    ap.add_argument("--out", default=str(ARTIFACTS / "fleet_lab.json"))
     ap.add_argument("--workdir", default=None,
                     help="scratch dir (default: a fresh TemporaryDirectory)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -527,6 +519,7 @@ def main(argv=None) -> int:
         speedup4 = walls[1] / walls[4] if walls[4] > 0 else None
         rec = {
             "bench": "fleet_lab",
+            **_util.stamp(args.device),
             "config": {"requests": args.requests,
                        "sink_ms": args.sink_ms,
                        "device": args.device,

@@ -52,8 +52,8 @@ import sys
 import time
 from pathlib import Path
 
-from .fleet_lab import (REPO, direct_solve, require, wait_for,
-                        wait_probed, write_atomic)
+from ._util import ARTIFACTS, stamp, write_atomic
+from .fleet_lab import direct_solve, require, wait_for, wait_probed
 
 SINK_MS = 120
 TIMEOUT = 600.0
@@ -343,7 +343,7 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=36,
                     help="wave size for the flap drill")
     ap.add_argument("--sink-ms", type=int, default=SINK_MS)
-    ap.add_argument("--out", default=str(REPO / "_smoke"
+    ap.add_argument("--out", default=str(ARTIFACTS
                                          / "fleet_resilience_lab.json"))
     ap.add_argument("--workdir", default=None)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -390,6 +390,7 @@ def main(argv=None) -> int:
 
     rec = {
         "bench": "fleet_resilience_lab",
+        **stamp(args.device),
         "config": {"requests": args.requests, "sink_ms": args.sink_ms,
                    "device": args.device, "dtype": args.dtype,
                    "gates": args.gates,

@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -111,17 +112,18 @@ def build(name: str) -> Path:
     return so
 
 
-def build_all() -> dict:
-    """Build every kernel's library at once, one ``nvcc`` each, all started
-    together; returns {name: seconds its build took} (about 0 for a library
-    already built)."""
+def build_all(names=KERNELS) -> dict:
+    """Build the libraries of ``names`` (default every kernel) at once, one
+    ``nvcc`` each, all started together; returns {name: seconds its build
+    took} (about 0 for a library already built)."""
     def timed(name: str) -> float:
         t = time.perf_counter()
         build(name)
         return time.perf_counter() - t
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        return dict(zip(KERNELS, pool.map(timed, KERNELS)))
+    names = tuple(names)
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(timed, names)))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -138,3 +140,19 @@ def build_log(name: str) -> str:
     last build of ``name`` in this checkout, or "" if none."""
     p = build_dir() / f"{name}.log"
     return p.read_text() if p.exists() else ""
+
+
+def ptxas_report(log: str) -> list:
+    """(function, registers, spill store bytes, spill load bytes) of each
+    kernel instance in a ``build_log`` (``-Xptxas=-v``)."""
+    out, fn, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            fn, spill = m[1], (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spill = (int(m[1]), int(m[2]))
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+            out.append((fn, int(m[1]), *spill))
+            fn = None
+    return out

@@ -694,3 +694,27 @@ class Observatory:
                 "mem": self.mem.snapshot(),
                 "slo_burn": self.burn.snapshot(now),
                 "compile": compile_log().summary()}
+
+
+# -- static prior -----------------------------------------------------------
+
+_STATIC_PRIOR_CACHE: Dict[Tuple[str, str], Optional[float]] = {}
+
+
+def static_prior_s_per_lane_step(bucket: str,
+                                 kernel: str = "torch") -> Optional[float]:
+    """The program auditor's measurement-free floor on seconds per lane
+    step for one cost-model bucket label (``"2d/n512/float32/edges"``):
+    the lane's bytes over the H100's memory rate
+    (``analysis.programs.lane_static_prior``). ``perfcheck`` bands the
+    learned cost model against it: agreement within an order of magnitude
+    catches a units bug in either. None when the label does not parse or
+    the auditor cannot be imported; cached (pure arithmetic)."""
+    key = (bucket, kernel)
+    if key not in _STATIC_PRIOR_CACHE:
+        try:
+            from ..analysis.programs import lane_static_prior
+            _STATIC_PRIOR_CACHE[key] = lane_static_prior(bucket, kernel)
+        except ImportError:
+            _STATIC_PRIOR_CACHE[key] = None
+    return _STATIC_PRIOR_CACHE[key]

@@ -47,6 +47,10 @@ def test_import_loads_no_jax():
                "heat_tpu_torch.parallel.mesh, heat_tpu_torch.fleet.router, "
                "heat_tpu_torch.labs.fleet_lab, "
                "heat_tpu_torch.labs.fleet_resilience_lab, "
+               "heat_tpu_torch.labs.serve_lab, heat_tpu_torch.labs.serve_mega_lab, "
+               "heat_tpu_torch.labs.serve_lane_kernel_lab, "
+               "heat_tpu_torch.labs.lane_kernel_build_check, "
+               "heat_tpu_torch.labs.prof_overhead_lab, "
                "heat_tpu_torch.analysis, heat_tpu_torch.analysis.programs, "
                "heat_tpu_torch.runtime.debug; "
                "print(sorted(m for m in sys.modules "
