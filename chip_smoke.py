@@ -102,6 +102,19 @@ a checkout of the repository, it exits non-zero and prints no result):
    same steps, and against the ``torch`` backend's on the card (the serial
    oracle's f32 arithmetic: same order, two roundings) at the reference's
    f32 tolerance scaled by steps (5e-6 per 30 steps);
+3b. ``calibrate`` on the card, in this process
+   (``heat_tpu_torch.calibrate.run``): the memory stream (256 MiB f32, 256
+   in-place passes a call), the 2D sweep (4096^2 f32 x 8192, 16 steps a
+   pass) and the 3D sweep (512^3 f32 x 1024, 8 a pass), each through the
+   two-point protocol; the record trustworthy with every rate fitted, the
+   stream at most 1.05 x the data sheet's 3.35 TB/s, the 2D sweep's rate
+   within 10% of phase 3's 4096^2 f32 x 8192 rate; the pass lists the
+   loaded calibration gives at 512^3 and 1024^3, f32 and bf16, beside
+   ``machine.DEFAULT``'s (no timing); and, touching no device, ``plan``
+   for configs/hip.dat and its ``mpi_cuda`` variant (rc 0, the config,
+   mesh and halo lines) and ``viz`` of a small .dat file (the PNG
+   written, or, without matplotlib, a non-zero exit naming it and no
+   file);
 4. configs/serial.dat (1024^2, 30 steps) on ``cuda`` in f32, and a 64^3 f32
    solve at sigma 0.15 under edges and ghost BC for 50 steps, each written
    to soln.dat and read back, against the serial numpy oracle at the
@@ -946,6 +959,95 @@ def phase_main_path(smi):
     del got, oracle
     torch.cuda.empty_cache()
     return runs
+
+
+def phase_calibrate(smi, runs) -> dict:
+    """Phase 3b: ``calibrate`` on the card, then ``plan`` and ``viz``
+    through the CLI without a device."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from heat_tpu_torch import calibrate, cli, machine
+    from heat_tpu_torch.io import write_dat
+    from heat_tpu_torch.ops import pass_schedule
+
+    t0 = time.perf_counter()
+    path = WORK / "calibration.json"
+    print("[phase 3b] calibrate on the card")
+    rec = calibrate.run(path)
+    cal_s = time.perf_counter() - t0
+    check(rec["trustworthy"] and rec["fit_complete"],
+          f"calibrate: trustworthy {rec['trustworthy']}, fit_complete "
+          f"{rec['fit_complete']} (stream fell back: "
+          f"{rec['stream']['floor_fallback']}, 2D overhead-dominated: "
+          f"{rec['sweep_2d']['overhead_dominated']}, 3D: "
+          f"{rec['sweep_3d']['overhead_dominated']})")
+    hbm = rec["stream"]["hbm_bytes_per_s"]
+    sheet = machine.PEAKS["H100"].hbm_bytes_per_s
+    rate2 = rec["sweep_2d"]["points_per_s"]
+    run2 = runs["4096 f32"]["points_per_s"]
+    print(f"  stream {hbm:.6g} B/s ({hbm / sheet:.4f} of the data sheet's "
+          f"{sheet:.3g}); 2D {rate2:.6g} points/s ({rate2 / run2:.4f} of "
+          f"phase 3's {run2:.6g}); 3D {rec['sweep_3d']['points_per_s']:.6g} "
+          f"points/s; fitted vpu {rec['chip_model']['vpu_ops_per_s']:.6g}, "
+          f"ops3d {rec['chip_model']['ops_rate_3d']:.6g}; vs_table "
+          f"{ {k: v for k, v in rec['vs_table'].items() if k != 'basis'} } "
+          f"on {smi}; {cal_s:.1f} s")
+    check(hbm <= 1.05 * sheet, f"calibrate: stream {hbm:.6g} B/s exceeds "
+                               f"1.05 x the data sheet's {sheet:.3g}")
+    check(abs(rate2 / run2 - 1) <= 0.10,
+          f"calibrate: 2D sweep {rate2:.6g} points/s is not within 10% of "
+          f"phase 3's {run2:.6g}")
+    fitted = machine.from_calibration(path)
+    lists = {}
+    try:
+        for label, model in (("DEFAULT", machine.DEFAULT),
+                             ("calibrated", fitted)):
+            machine.override(model)
+            lists[label] = {f"{n}^3 {dt}": pass_schedule.passes((n,) * 3, dt, 16)
+                            for n in (512, 1024)
+                            for dt in ("float32", "bfloat16")}
+    finally:
+        machine.override(None)
+    for key in lists["DEFAULT"]:
+        print(f"  passes of 16 steps at {key}: calibrated "
+              f"{lists['calibrated'][key]}, DEFAULT {lists['DEFAULT'][key]}")
+
+    # plan and viz through the CLI: no device is touched
+    for argv in (["plan", "--input", str(ROOT / "configs" / "hip.dat")],
+                 ["plan", "--input", str(ROOT / "configs" / "hip.dat"),
+                  "--variant", "mpi_cuda"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        out = buf.getvalue()
+        print(f"  plan hip.dat {' '.join(argv[3:])}: "
+              + " | ".join(out.strip().splitlines()))
+        check(rc == 0 and out.startswith("config: n=32768^2"),
+              f"{' '.join(argv)} exited {rc}: {out!r}")
+        if "--variant" in argv:
+            check("mesh:" in out and "halo:" in out and "kernel" in out,
+                  f"plan --variant mpi_cuda printed {out!r}")
+    dat, png = WORK / "viz.dat", WORK / "viz.png"
+    x = np.linspace(0.0, 2.0, 16)
+    write_dat(dat, (x, x), 1.0 + np.outer(np.sin(x), np.sin(x)))
+    err = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err):
+        rc = cli.main(["viz", str(dat), "--save", str(png)])
+    if rc == 0:
+        check(png.exists() and png.stat().st_size > 0,
+              "viz exited 0 without writing its PNG")
+        print(f"  viz: wrote {png.stat().st_size} B of PNG")
+    else:
+        check("matplotlib" in err.getvalue() and not png.exists(),
+              f"viz exited {rc} without naming matplotlib: "
+              f"{err.getvalue()!r}")
+        print(f"  viz: exit {rc}, {err.getvalue().strip()}")
+    print(f"[phase 3b] {time.perf_counter() - t0:.1f} s")
+    return {"record": rec, "passes": lists, "seconds": cal_s}
 
 
 def phase_oracle():
@@ -4659,6 +4761,7 @@ def main() -> int:
         errs.update(phase_lane_compare())
         times.update(phase_lane_times())
         runs = phase_main_path(smi)
+        phase_calibrate(smi, runs)
         phase_oracle()
         serve = phase_serve(smi, serve_plain)
         phase_serve_semantics(smi, serve)

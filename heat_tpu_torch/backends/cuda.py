@@ -85,6 +85,53 @@ def make_advance(cfg: HeatConfig):
     return advance, warm
 
 
+def launches_per_solve(cfg: HeatConfig) -> int:
+    """Kernel launches of one solve of ``cfg`` from step 0, the warm-up not
+    counted: the drive loop's chunks (``common.event_interval``), each cut
+    as ``advance`` cuts it, each multistep call cut by its wrapper into the
+    reference's passes (on the ghost-padded shape, or per wrap-padded
+    chunk). 0 where the plain torch step runs."""
+    from ..ops import pass_schedule
+    from ..ops.cuda_stencil import periodic_pad_width
+    from .common import event_interval
+
+    dt = torch_dtype(cfg.dtype)
+    shape = cfg.shape
+    kf = fuse_depth(cfg)
+
+    def multi(k: int) -> int:
+        if cfg.bc == "edges":
+            return (len(pass_schedule.passes(shape, dt, k))
+                    if kernel_available(shape, dt) else 0)
+        if cfg.bc == "ghost":
+            padded = tuple(s + 2 for s in shape)
+            return (len(pass_schedule.passes(padded, dt, k))
+                    if kernel_available(shape, dt)
+                    and kernel_available(padded, dt) else 0)
+        cap = periodic_pad_width(shape, k)
+        widths = {min(cap, k), k % cap or cap}
+        if not all(kernel_available(tuple(s + 2 * w for s in shape), dt)
+                   for w in widths):
+            return 0
+        total, done = 0, 0
+        while done < k:
+            w = min(cap, k - done)
+            total += len(pass_schedule.passes(
+                tuple(s + 2 * w for s in shape), dt, w))
+            done += w
+        return total
+
+    def advance(k: int) -> int:
+        if kf <= 1:
+            return k * multi(1)
+        n_fused, rem = divmod(k, kf)
+        return n_fused * multi(kf) + rem * multi(1)
+
+    chunk = min(event_interval(cfg), max(cfg.ntime, 1))
+    full, rem = divmod(cfg.ntime, chunk)
+    return full * advance(chunk) + (advance(rem) if rem else 0)
+
+
 def kernel_label(cfg: HeatConfig, device) -> str:
     """What steps the field: the timing record's ``kernel``."""
     if cfg.dtype == "float64":
@@ -99,8 +146,10 @@ def kernel_label(cfg: HeatConfig, device) -> str:
 
 @register("cuda")
 def solve(cfg: HeatConfig, T0: Optional[np.ndarray] = None, device=None,
-          **_) -> SolveResult:
+          fetch: bool = True, warm_exec: bool = False,
+          two_point_repeats: int = 0, **_) -> SolveResult:
     T, start_step = resolve_initial_field(cfg, T0, device)
     advance, warm = make_advance(cfg)
     return drive(cfg, T, advance, warm, start_step=start_step,
-                 kernel=kernel_label(cfg, T.device))
+                 kernel=kernel_label(cfg, T.device), fetch=fetch,
+                 warm_exec=warm_exec, two_point_repeats=two_point_repeats)

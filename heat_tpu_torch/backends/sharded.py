@@ -449,6 +449,30 @@ def fuse_depth_sharded(cfg: HeatConfig, axis_sizes) -> int:
     return max(1, min(want, local_min))
 
 
+def launches_per_solve(cfg: HeatConfig, axis_sizes) -> int:
+    """Kernel launches of one solve of ``cfg`` from step 0 with the kernel
+    on every shard of a mesh of ``axis_sizes`` and the indep exchange, the
+    warm-up not counted: the drive loop's chunks, each cut into blocks of
+    ``kf`` steps and a remainder block, each block's call on the padded
+    shard cut into the reference's passes."""
+    from ..ops import pass_schedule
+    from .common import event_interval
+
+    kf = fuse_depth_sharded(cfg, axis_sizes)
+    padded = tuple(cfg.n // s + 2 * kf for s in axis_sizes)
+    dt = torch_dtype(cfg.dtype)
+
+    def advance(k: int) -> int:
+        n_fused, rem = divmod(k, kf)
+        return (n_fused * len(pass_schedule.passes(padded, dt, kf))
+                + (len(pass_schedule.passes(padded, dt, rem)) if rem else 0))
+
+    chunk = min(event_interval(cfg), max(cfg.ntime, 1))
+    full, rem = divmod(cfg.ntime, chunk)
+    return int(np.prod(axis_sizes)) * (full * advance(chunk)
+                                       + (advance(rem) if rem else 0))
+
+
 def _auto_chunk_2d(cfg: HeatConfig, axis_sizes) -> int:
     """Per-pass depth of the 2D kernel at the ghost-padded shard shape of
     the deepest candidate halo (``_auto_chunk_2d``, sharded.py:1060)."""
@@ -692,7 +716,8 @@ def _announce(cfg: HeatConfig, comm) -> None:
 @register("sharded")
 def solve(cfg: HeatConfig, T0: Optional[np.ndarray] = None, device=None,
           comm=None, virtual_devices: Optional[int] = None,
-          **_) -> SolveResult:
+          fetch: bool = True, warm_exec: bool = False,
+          two_point_repeats: int = 0, **_) -> SolveResult:
     comm = comm or make_comm(cfg, device, virtual_devices)
     mesh = comm.mesh
     validate_divisible(cfg.n, mesh)
@@ -727,7 +752,8 @@ def solve(cfg: HeatConfig, T0: Optional[np.ndarray] = None, device=None,
         label = _kernel_label(kernel, cfg, comm)
 
     res = drive(cfg, state, advance, warm, start_step=start_step,
-                kernel=label, ops=SHARD_OPS)
+                kernel=label, ops=SHARD_OPS, fetch=fetch,
+                warm_exec=warm_exec, two_point_repeats=two_point_repeats)
     res.gsum = comm.broadcast(res.gsum)
     if res.gsum is not None:
         res.gsum_dtype = "float64"

@@ -31,9 +31,11 @@ def make_step(cfg: HeatConfig):
 
 @register("torch")
 def solve(cfg: HeatConfig, T0: Optional[np.ndarray] = None, device=None,
-          **_) -> SolveResult:
+          fetch: bool = True, warm_exec: bool = False,
+          two_point_repeats: int = 0, **_) -> SolveResult:
     step = make_step(cfg)
     T, start_step = resolve_initial_field(cfg, T0, device)
     return drive(cfg, T, lambda t, k: run_steps(t, k, step),
                  warm=lambda t, k: step(t), start_step=start_step,
-                 kernel="torch-step")
+                 kernel="torch-step", fetch=fetch, warm_exec=warm_exec,
+                 two_point_repeats=two_point_repeats)

@@ -654,8 +654,47 @@ def build_parser() -> argparse.ArgumentParser:
                      help="machine-readable report (one JSON object: "
                           "families, launches, budget, violations)")
 
+    viz = sub.add_parser("viz", help="render a .dat file as a 3D surface "
+                                     "(needs matplotlib)")
+    viz.add_argument("datfile")
+    viz.add_argument("--save", default="sol.png")
+    viz.add_argument("--ndim", type=int, choices=[2, 3], default=2,
+                     help="3: render the mid-plane slice of an x-y-z-T file")
+
     sub.add_parser("info", help="show devices / kernel toolchain / "
                                 "native-lib / process-group status")
+
+    plan = sub.add_parser(
+        "plan", help="explain what the framework would run for a config: "
+                     "kernel, the shape it sees, its passes and launches, "
+                     "mesh, halo traffic (touches no device)")
+    plan.add_argument("--input", default="input.dat")
+    plan.add_argument("--variant", choices=sorted(VARIANTS))
+    plan.add_argument("--backend", choices=["serial", "torch", "cuda",
+                                            "sharded"])
+    plan.add_argument("--dtype", choices=["float64", "float32", "bfloat16"])
+    plan.add_argument("--ndim", type=int, choices=[2, 3])
+    plan.add_argument("--mesh", type=_parse_mesh)
+    plan.add_argument("--fuse-steps", type=int)
+    plan.add_argument("--local-kernel", choices=["auto", "torch", "cuda"])
+    plan.add_argument("--ic", choices=["hat", "hat_half", "hat_small",
+                                       "uniform", "zero"])
+    plan.add_argument("--bc", choices=["edges", "ghost", "periodic"])
+    plan.add_argument("--comm", choices=["direct", "staged"])
+
+    cal = sub.add_parser(
+        "calibrate",
+        help="fit the pass planner's chip model on the card (a memory "
+             "stream and the 2D/3D stencil sweeps, seconds on an H100) and "
+             "write a record that HEAT_CHIP_CALIBRATION=<path> hands to "
+             "the planner")
+    cal.add_argument("--out", default="calibration.json")
+    cal.add_argument("--quick", action="store_true",
+                     help="tiny shapes (harness check; rates not "
+                          "representative even on the card)")
+    cal.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                     help="where the sweeps run (default cuda; a cpu record "
+                          "is labelled untrustworthy)")
     return p
 
 
@@ -1880,6 +1919,171 @@ def cmd_audit(args) -> int:
     return 0 if not violations else 1
 
 
+def cmd_plan(args) -> int:
+    """What the port would run for a config, without touching a device:
+    the reference's ``config:``, stability, ``topology:``, ``mesh:`` and
+    ``halo:`` lines (the same arithmetic and refusals), and a ``kernel:``
+    line: the stencil kernel, the shape it sees (ghost or wrap padded, or
+    the padded shard), its passes (``ops/pass_schedule``), launches per
+    solve and its tile and segments as ``csrc/`` launches them."""
+    import numpy as np
+
+    path = Path(args.input)
+    if not path.exists():
+        print(f"error: {path} not found", file=sys.stderr)
+        return 2
+    cfg = parse_input(path)
+    if args.variant:
+        cfg = variant_config(args.variant, cfg)
+    cfg = _apply_overrides(cfg, args)
+
+    print(f"config: n={cfg.n}^{cfg.ndim} dtype={cfg.dtype} "
+          f"ntime={cfg.ntime} backend={cfg.backend}")
+    _warn_if_unstable(cfg)
+    if cfg.bc == "periodic":
+        # the pbc=.true. topology (mpi_cart_create periods,
+        # mpi+cuda/heat.F90:76,97): closed ring, nothing pinned
+        print("topology: periodic (torus) — bc_value unused, "
+              "total heat conserved exactly")
+    item = {"float64": 8, "float32": 4, "bfloat16": 2}[cfg.dtype]
+
+    mesh_shape = w = None
+    if cfg.backend == "sharded":
+        from .backends.sharded import fuse_depth_sharded
+        from .parallel.mesh import auto_mesh_shape
+
+        mesh_shape = cfg.mesh_shape
+        assumed = ""
+        if mesh_shape is None:
+            mesh_shape = auto_mesh_shape(8, cfg.ndim)
+            assumed = " (auto; assuming 8 devices)"
+        if len(mesh_shape) != cfg.ndim:
+            print(f"error: mesh {mesh_shape} must have {cfg.ndim} dims",
+                  file=sys.stderr)
+            return 2
+        for s in mesh_shape:
+            if cfg.n % s != 0:
+                print(f"error: grid {cfg.n} does not divide evenly over "
+                      f"mesh axis of size {s} (run would reject this too)",
+                      file=sys.stderr)
+                return 2
+        w = fuse_depth_sharded(cfg, mesh_shape)
+        local = tuple(cfg.n // s for s in mesh_shape)
+        print(f"mesh: {mesh_shape}{assumed}, "
+              f"local block {'x'.join(map(str, local))}")
+
+    if cfg.backend in ("cuda", "sharded"):
+        from .ops.cuda_stencil import kernel_available, periodic_pad_width
+        from .utils import torch_dtype
+
+        dt = torch_dtype(cfg.dtype)
+        if cfg.backend == "sharded":
+            # the run path's gate (sharded.resolve_local_kernel): the
+            # kernel at the padded shard shape
+            shape = tuple(l + 2 * w for l in local)
+            gate_ok = kernel_available(shape, dt)
+            if cfg.local_kernel == "cuda" and not gate_ok:
+                print(f"error: local_kernel='cuda' does not support "
+                      f"dtype={cfg.dtype!r} at this size (run would reject "
+                      f"this too)", file=sys.stderr)
+                return 2
+            if cfg.local_kernel == "torch" or not gate_ok or cfg.parity_order:
+                print(f"kernel: torch mini-step path (local_kernel="
+                      f"{cfg.local_kernel}, cuda gate "
+                      f"{'ok' if gate_ok else 'unavailable'})")
+            else:
+                from .backends.sharded import launches_per_solve
+
+                print("kernel (on the card; auto takes the torch step on "
+                      "the CPU): " + _kernel_summary(
+                          shape, cfg.dtype, w,
+                          launches_per_solve(cfg, mesh_shape),
+                          f"block on each of {int(np.prod(mesh_shape))} "
+                          f"shards"))
+        else:
+            from .backends.cuda import fuse_depth, launches_per_solve
+
+            kf = fuse_depth(cfg)
+            shape = cfg.shape
+            gate_ok = kernel_available(shape, dt)
+            if cfg.bc == "ghost" and gate_ok:
+                shape = tuple(s + 2 for s in shape)  # frozen ghost ring
+            elif cfg.bc == "periodic" and gate_ok:
+                # the wrap ring of the fused call's width, as
+                # ftcs_multistep_periodic_cuda pads it
+                ring = periodic_pad_width(shape, kf)
+                shape = tuple(s + 2 * ring for s in shape)
+            if not kernel_available(shape, dt):
+                why = ("f64" if cfg.dtype == "float64"
+                       else "no 3D kernel plan")
+                print(f"kernel: torch-step ({why}) — the stencil kernels "
+                      f"have no path here; the plain PyTorch step runs, as "
+                      f"the reference takes its XLA step")
+            else:
+                print("kernel: " + _kernel_summary(
+                    shape, cfg.dtype, kf, launches_per_solve(cfg),
+                    "call"))
+
+    if cfg.backend == "sharded":
+        slab_cells = 2 * w * sum(
+            int(np.prod(local)) // l for l in local)
+        print(f"halo: width {w} every {w} steps -> "
+              f"{slab_cells * item / 2**10:.1f} KiB sent/shard/exchange "
+              f"({slab_cells * item / w / 2**10:.2f} KiB/step amortized)")
+    return 0
+
+
+def _kernel_summary(shape, dtype: str, ksteps: int, launches: int,
+                    unit: str) -> str:
+    """The kernel of a fused call of ``ksteps`` steps on ``shape``: its
+    passes (``pass_schedule``; the first is the reference's ``plan_summary``
+    per-pass chunk), launches per solve, and its tile and segments as the
+    launch code defines them (``cuda_lab.STREAM_2D`` / ``STREAM_3D``: the
+    segment length is picked per field on the card, from its resident
+    blocks)."""
+    from .ops import pass_schedule
+    from .ops.cuda_lab import STREAM_2D, STREAM_3D
+
+    passes = pass_schedule.passes(shape, dtype, ksteps)
+    if len(shape) == 2:
+        lz, rw = STREAM_2D
+        name = "ftcs2d"
+        tile = (f"tile: {rw}-wide column regions, 4 cells a thread "
+                f"(256-wide over four warps at depth > 16)")
+    else:
+        lz, ty, tx = STREAM_3D
+        name = "ftcs3d"
+        tile = f"tile: {ty}x{tx} (mid, col) output tiles"
+    return (f"{name} on {'x'.join(map(str, shape))} {dtype}; passes "
+            f"{passes} per {ksteps}-step {unit} (per-pass chunk "
+            f"{passes[0]}); {launches} launches per solve; {tile}, "
+            f"segments of up to {lz} rows, sized on the card to fill whole "
+            f"waves")
+
+
+def cmd_viz(args) -> int:
+    from .viz import MissingDependency, render_dat
+
+    try:
+        out = render_dat(args.datfile, args.save, ndim=args.ndim)
+    except MissingDependency as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    print(f"wrote {out}")
+    return 0
+
+
+def cmd_calibrate(args) -> int:
+    from .calibrate import run as calibrate_run
+
+    try:
+        rec = calibrate_run(args.out, quick=args.quick, device=args.device)
+    except RuntimeError as e:  # no card where one was asked for
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    return 0 if rec.get("fit_complete") else 1
+
+
 def cmd_info(_args) -> int:
     import torch
 
@@ -1906,6 +2110,19 @@ def cmd_info(_args) -> int:
           f"into {_build.build_dir()})")
     print(f"native fastio: "
           f"{'available' if native_available() else 'unavailable (numpy fallback)'}")
+    import os
+
+    from . import machine
+
+    chip = machine.current()
+    cal = os.environ.get("HEAT_CHIP_CALIBRATION")
+    print(f"planner model: {chip.label} — "
+          + (f"calibration {cal}" if cal else
+             "machine.DEFAULT, the reference's off-TPU table "
+             "(HEAT_CHIP_CALIBRATION unset)")
+          + f"; HBM {chip.hbm_bytes_per_s / 1e9:.0f} GB/s, 2D "
+          f"{chip.vpu_ops_per_s:.3g} ops/s, 3D {chip.ops_rate_3d:.3g} "
+          f"ops/s (pass depths only; bounds use the data sheet)")
     print(describe())
     # two-tier placement: where a bucket-overflow request goes on THIS
     # host — the mesh a mega-lane would span and the auto default
@@ -2001,7 +2218,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     return {"run": cmd_run, "serve": cmd_serve, "launch": cmd_launch,
             "fleet": cmd_fleet, "usage": cmd_usage, "trace": cmd_trace,
             "check": cmd_check, "audit": cmd_audit,
-            "perfcheck": cmd_perfcheck, "info": cmd_info}[args.command](args)
+            "perfcheck": cmd_perfcheck, "info": cmd_info, "plan": cmd_plan,
+            "viz": cmd_viz, "calibrate": cmd_calibrate}[args.command](args)
 
 
 if __name__ == "__main__":

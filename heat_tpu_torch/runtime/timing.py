@@ -14,6 +14,7 @@ clock reading around device work follows a ``sync``.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
@@ -44,29 +45,50 @@ class TwoPointResult(tuple):
         return (self[0], self[1], self.fell_back)
 
 
-def two_point_rate(call, x, work, repeats: int = 2):
-    """(rate_corrected, rate_raw) for ``call`` doing ``work`` units/call,
-    timed with CUDA events on the current stream.
+def two_point_rate(call, x, work, repeats: int = 2, fence=None):
+    """(rate_corrected, rate_raw) for ``call`` doing ``work`` units/call.
 
     One call (T1) and two back-to-back calls (T2) are timed; a fixed
     per-measurement cost cancels in T2-T1. When T2-T1 < 20% of T1 the
     measurement is overhead-dominated and the raw single-call rate is
     returned instead, flagged on ``fell_back``. The output is recycled as
     the next input (timing does not care about values).
+
+    A tensor on the card is timed with CUDA events on the current stream.
+    Anything else (a CPU tensor, or a state spread over several devices,
+    where ``fence`` waits for all of it) is timed by the host clock around
+    the calls, each measurement ended by ``fence`` (default ``sync``): the
+    reference's protocol.
     """
     x = call(x)  # warm
-    sync(x)
-    best1 = best2 = float("inf")
-    for _ in range(repeats):
-        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        e0.record()
-        x = call(x)
-        e1.record()
-        x = call(call(x))
-        e2.record()
-        e2.synchronize()
-        best1 = min(best1, e0.elapsed_time(e1) / 1e3)
-        best2 = min(best2, e1.elapsed_time(e2) / 1e3)
+    if fence is None and getattr(x, "device", None) is not None \
+            and x.device.type == "cuda":
+        sync(x)
+        best1 = best2 = float("inf")
+        for _ in range(repeats):
+            e0, e1, e2 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(3))
+            e0.record()
+            x = call(x)
+            e1.record()
+            x = call(call(x))
+            e2.record()
+            e2.synchronize()
+            best1 = min(best1, e0.elapsed_time(e1) / 1e3)
+            best2 = min(best2, e1.elapsed_time(e2) / 1e3)
+    else:
+        fence = fence or sync
+        fence(x)
+        best1 = best2 = float("inf")
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            x = call(x)
+            fence(x)
+            best1 = min(best1, time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            x = call(call(x))
+            fence(x)
+            best2 = min(best2, time.perf_counter() - t0)
     raw = work / best1
     diff = best2 - best1
     if diff <= 0.2 * best1:
@@ -81,6 +103,14 @@ class Timing:
     solve_s: float = 0.0          # solve-only wall clock
     steps: int = 0
     points: int = 0               # grid points updated per step
+    # The overhead-corrected rate of the two-point protocol
+    # (``two_point_rate``) over the solve's chunk, run on a copy of the
+    # final state when the solve asked for ``two_point_repeats > 0``; None
+    # otherwise. ``two_point_fell_back`` is True where the protocol's noise
+    # floor fired and the rate above is the raw single-call one (a rate
+    # ``calibrate`` must not fit), None where it did not run.
+    points_per_s_two_point: float | None = None
+    two_point_fell_back: bool | None = None
     # Async I/O pipeline accounting (None when no async writer ran):
     # overlap_s is the checkpoint D2H + disk wall time hidden behind
     # compute, io_wait_s what the drive loop paid (backpressure + final drain).

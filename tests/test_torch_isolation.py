@@ -52,7 +52,10 @@ def test_import_loads_no_jax():
                "heat_tpu_torch.labs.lane_kernel_build_check, "
                "heat_tpu_torch.labs.prof_overhead_lab, "
                "heat_tpu_torch.analysis, heat_tpu_torch.analysis.programs, "
-               "heat_tpu_torch.runtime.debug; "
+               "heat_tpu_torch.runtime.debug, heat_tpu_torch.machine, "
+               "heat_tpu_torch.calibrate, heat_tpu_torch.viz, "
+               "heat_tpu_torch.labs.exchange_lab, "
+               "heat_tpu_torch.labs.recovery_lab; "
                "print(sorted(m for m in sys.modules "
                "if m.split('.')[0] in ('jax', 'jaxlib', 'heat_tpu')))")
     assert out.returncode == 0, out.stderr
