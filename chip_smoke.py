@@ -120,6 +120,16 @@ a checkout of the repository, it exits non-zero and prints no result):
    to soln.dat and read back, against the serial numpy oracle at the
    reference's f32 cross-backend tolerance (atol 5e-6,
    tests/test_backends.py);
+4b. the on-card certification, ``heat_tpu_torch.labs.chip_check.main``
+   (the port of ``benchmarks/chip_check.py``; its record in the scratch
+   directory): the reference's 23 cases through the backends' own entry
+   points — 2D n=200 x 24 steps (no multiple of the streamed tile) on
+   ``torch`` and ``cuda`` under edges/ghost/periodic in f32 and bf16,
+   fuse 0 and 1 on ``cuda``; 3D 48^3 x 10 at sigma 0.15 on ``cuda``, f32
+   and bf16; ``sharded`` 256^2 x 20 f32 on a 1x1 mesh under each BC —
+   each against the serial oracle in f32 (5e-6 f32, 5e-2 bf16): all 23
+   rows ok, ``ftcs2d`` and ``ftcs3d`` launched (counts and seconds
+   printed);
 5. the serve main path, ``heat_tpu_torch.cli.main(["serve", "--requests",
    F, "--out-dir", D, "--json", "--lanes", "8", "--chunk", "16",
    "--buckets", "256,512,1024"])`` with the lane launch counts zeroed just
@@ -180,9 +190,10 @@ a checkout of the repository, it exits non-zero and prints no result):
    fails the hung group, serve exits 1 well inside the hang;
 5c. the serving front, through ``python -m heat_tpu_torch serve`` at phase
    5's arguments: (1) ``--listen 127.0.0.1:0 --cache on
-   --engine-ckpt-interval 64 --probe-interval 1`` in a process of its own,
-   phase 5's file POSTed to ``/v1/solve`` as one NDJSON stream: every
-   streamed record equal to phase 5's offline record but for the keys
+   --engine-ckpt-interval 64 --probe-interval 1`` in a process of its own
+   (started together with (3)'s server, both listening before anything
+   is timed), phase 5's file POSTed to ``/v1/solve`` as one NDJSON
+   stream: every streamed record equal to phase 5's offline record but for the keys
    that follow the wall clock or the arrival order (queue_wait_s, solve_s,
    steps_per_s, trace_id, path, lane, usage.chunks, usage.lane_s), every
    npz byte-equal to phase 5's, the default tenant's usage steps, chunks
@@ -194,12 +205,12 @@ a checkout of the repository, it exits non-zero and prints no result):
    fresh server with the cache off and ``--engine-ckpt-interval 64``,
    ``POST /drainz?handoff=1`` once its first generation is published,
    then ``serve --resume`` in a new process: every npz byte-equal to
-   phase 5's, every resumed record marked ``resumed``; the
-   ``ckpt-manifest-corrupt`` fault on a copy's handoff manifest: the
-   resume falls back one generation, byte-equal; ``cache-corrupt`` and
-   ``cache-stale`` on a cache holding one request's entry: quarantined,
-   recomputed byte-equal; (4) phase 5's file with the observatories at
-   the reference's defaults (``--prof on``, the ring on) and with
+   phase 5's, every resumed record marked ``resumed``; beside that
+   child, in this process: the ``ckpt-manifest-corrupt`` fault on a
+   copy's handoff manifest: the resume falls back one generation,
+   byte-equal; ``cache-corrupt`` and ``cache-stale`` on a cache holding
+   one request's entry: quarantined, recomputed byte-equal; (4) phase
+   5's file with the observatories at the reference's defaults (``--prof on``, the ring on) and with
    ``--prof off --trace-buffer 0``, two pairs in turns: walls, boundary
    counts, npz byte-equal; (5) one run with ``--trace``: the ``trace``
    subcommand's summary and the split of a chunk's host time (boundary
@@ -350,8 +361,13 @@ a checkout of the repository, it exits non-zero and prints no result):
    --comm direct``, a 1-rank NCCL world): their ``soln.dat`` and
    ``soln#####.dat`` files and gsum equal to ``--virtual-devices 2`` in
    this process; ``launch -n 2 ... --comm direct`` refuses, naming
-   ``--comm staged``. Every hip.dat and 512^3 run also with ``--exchange
-   overlap`` (the interior on the kernel while the halo flies, then the
+   ``--comm staged``. These five worlds (with the restarted world and its
+   clean twin below) are child processes started together right after
+   the build, each in a directory of its own, beside the card-only tests
+   and phase 2's byte comparisons, and waited for before phase 2 times
+   anything (``start_worlds``, ``finish_worlds``); phase 7 checks them, so
+   their points/s come from a card they shared. Every hip.dat and 512^3
+   run also with ``--exchange overlap`` (the interior on the kernel while the halo flies, then the
    rim regions), its field equal to indep's and the single run's, its
    launches those of the interior and every region in their own passes;
    bf16 overlap at 8192^2 and 256^3 equal to the plain bounded version;
@@ -371,6 +387,20 @@ a checkout of the repository, it exits non-zero and prints no result):
    each kernel's ms per pass at a corner shard's shape and at an overlap
    face region's beside its plain version and bound.
 
+``python3 chip_smoke.py --labs`` builds the kernels and runs, one after
+another in this process, the ports of the measuring labs of
+``benchmarks/`` at their card sizes (``LAB_RUNS``), each record written to
+``heat_tpu_torch/labs/artifacts/``: ``chip_check``; ``ckpt_overlap
+--backend cuda --n 4096`` (256 steps, a checkpoint every 32);
+``overlap_ab`` (16384^2 x 512 on 1x1, fuse 16 and 32);
+``collective_overhead`` (post and add chains, the fit over fuse 1, 8, 16
+and 32 beside an exchange alone); ``weak_scaling --local-n 16384`` and
+``--virtual 4`` (200 steps); ``sharded3d_check`` (512^3 x 960, auto, 8
+and 32). Each lab's identity gates (``lab_gates``: bytes, fuse depths,
+kernels launched) fail the run; its headline is printed, its speed gates
+with it, not checked. The last lines are the ``nvidia-smi`` line and
+``{"ok": true, ...}``.
+
 ``python3 chip_smoke.py --worlds`` on a host with several cards builds the
 kernels and runs only ``phase_worlds``: worlds of one rank per card,
 direct (NCCL) and staged, against the same shards in one process; on four
@@ -379,9 +409,10 @@ overlap`` beside indep (sums equal, points/s of each); and a checkpointed
 world of one rank per card crashed and restarted by ``launch
 --max-restarts 2`` (files and sums equal to the uninterrupted world).
 
-The last two lines: the ``nvidia-smi`` line is printed before a JSON
-object with one entry per kernel and main-path shape, and the very last
-line is ``{"ok": true, "device": {...}}``.
+The default run prints the seconds of each phase before its last three
+lines: the ``nvidia-smi`` line, a JSON object with one entry per kernel
+and main-path shape, and the very last line, ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -578,6 +609,15 @@ def phase_build():
     print(f"[phase 1] {', '.join(_build.KERNELS)} built for sm_90a in "
           f"{time.perf_counter() - t0:.3f} s (one nvcc each, in parallel: "
           f"{', '.join(f'{n} {t:.1f} s' for n, t in each.items())})")
+    # the .dat writer's library, built before phase 7's worlds start: the
+    # held-against files are then all written by the one native writer
+    from heat_tpu_torch.io import native
+
+    t0 = time.perf_counter()
+    check(native.native_available(), "the native .dat writer (io/native, "
+                                     "make and g++) did not build or load")
+    print(f"  native .dat writer {native._SO.name} ready in "
+          f"{time.perf_counter() - t0:.3f} s")
     for name in _build.KERNELS:
         funcs = _build.ptxas_report(_build.build_log(name))
         regs = [f[1] for f in funcs]
@@ -1088,6 +1128,30 @@ def phase_oracle():
         check(err <= F32_ATOL, f"3D {bc} cuda solve off the serial oracle")
         errs[f"64^3 {bc}"] = err
     return errs
+
+
+def phase_chip_check(smi):
+    """Phase 4b: the on-card certification lab (``labs/chip_check.py``)
+    through its entry point, its record in WORK: every backend x BC x
+    dtype x rank case of the reference's chip check at small sizes
+    through the backends' own entry points, against the serial oracle
+    (5e-6 f32, 5e-2 bf16); all 23 rows ok, ``ftcs2d`` and ``ftcs3d``
+    launched."""
+    from heat_tpu_torch.labs import chip_check
+
+    print("[phase 4b] python -m heat_tpu_torch.labs.chip_check")
+    t0 = time.perf_counter()
+    out = WORK / "chip_check.json"
+    rc = chip_check.main(["--out", str(out)])
+    rec = json.loads(out.read_text())
+    launches = rec["launches"]
+    print(f"[phase 4b] chip_check: {rec['passed']} of {len(rec['rows'])} rows "
+          f"ok, launches {launches}, {rec['seconds']:.1f} s of cases, "
+          f"{time.perf_counter() - t0:.1f} s in all on {smi}")
+    check(rc == 0 and rec["passed"] == len(rec["rows"]) == 23,
+          f"chip_check: {rec['failed']} rows failed (rc {rc})")
+    check(launches["ftcs2d"] > 0 and launches["ftcs3d"] > 0,
+          f"chip_check did not launch both kernels: {launches}")
 
 
 def lane_case(nd, B, dtype, k, seed):
@@ -2206,7 +2270,9 @@ class Server:
     pipe never fills. Every call goes through ``call`` with a timeout, and
     every status it answers is kept (a 5xx fails the phase)."""
 
-    def __init__(self, *args):
+    def __init__(self, *args, wait: bool = True):
+        """Start the process; unless ``wait`` is False, wait until it
+        listens (``ready``)."""
         import threading
 
         self.proc = subprocess.Popen(
@@ -2215,18 +2281,24 @@ class Server:
             cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         self.lines, self.statuses = [], []
-        ready = threading.Event()
+        self.listening = threading.Event()
 
         def drain():
             for line in self.proc.stdout:
                 self.lines.append(line.rstrip("\n"))
                 if "gateway listening on http://" in line:
-                    ready.set()
-            ready.set()
+                    self.listening.set()
+            self.listening.set()
 
         self.reader = threading.Thread(target=drain, daemon=True)
         self.reader.start()
-        ready.wait(180)
+        if wait:
+            self.ready()
+
+    def ready(self) -> None:
+        """Wait (up to 180 s) until the gateway listens; sets ``base``, its
+        address."""
+        self.listening.wait(180)
         addr = next((x.split("http://")[1].split()[0] for x in self.lines
                      if "gateway listening on http://" in x), None)
         if addr is None:
@@ -2359,16 +2431,75 @@ def trace_split(path: Path, busy_s):
     return split
 
 
+def front_faults(serve, body: str, cache: Path, ref_dir: Path, ck2: Path,
+                 path: Path, gen: int) -> None:
+    """Phase 5c's fault cases (byte checks, nothing timed): the handoff
+    manifest of ``gen`` corrupted in the copy ``ck2`` and resumed in this
+    process (the fallback to generation ``gen - 1``); ``cache-corrupt``
+    and ``cache-stale`` on two of phase 5's requests, each from a cache
+    holding its entry alone."""
+    from heat_tpu_torch import HeatConfig
+    from heat_tpu_torch.runtime import checkpoint as ckpt
+    from heat_tpu_torch.runtime import faults
+
+    # the ckpt-manifest-corrupt fault on the copy's handoff manifest: the
+    # resume quarantines it and falls back one generation
+    faults.FaultPlan(f"ckpt-manifest-corrupt@{gen}").damage_manifest(
+        ck2 / path.name, gen)
+    prev = json.loads((ck2 / f"engine_gen{gen - 1:08d}.json").read_text())
+    o4 = WORK / "front-out-fallback"
+    rc, rows, summ = in_process_serve("--resume", str(ck2), "--out-dir",
+                                      str(o4))
+    recs4 = [r for r in rows if r.get("event") == "serve_request"]
+    want4 = sorted(e["id"] for e in prev["inflight"] + prev["queued"])
+    check(rc == 0 and (ck2 / f"{path.name}.corrupt").exists()
+          and sorted(r["id"] for r in recs4) == want4,
+          f"the fallback resume (rc {rc})")
+    ndiff = npz_differ(want4, o4, ref_dir)
+    check(not ndiff, f"fallback resume npz differ: {ndiff}")
+    print(f"  ckpt-manifest-corrupt@{gen}: generation {gen} quarantined, "
+          f"the resume fell back to generation {gen - 1} and finished its "
+          f"{len(want4)} requests byte-equal to phase 5's")
+    # the cache faults on two of phase 5's requests, each in a cache dir
+    # that holds its full entry alone (the gateway's dir also holds the
+    # checkpoints' prefix entries): quarantined, recomputed byte-equal
+    small = sorted((r for r in serve["records"] if r["ndim"] == 2
+                    and r["dtype"] == "float32"),
+                   key=lambda r: r["n"] ** 2 * r["ntime"])[:2]
+    src = {json.loads(x)["id"]: json.loads(x) for x in body.splitlines()}
+    for kind, r in zip(("cache-corrupt", "cache-stale"), small):
+        req = src[r["id"]]
+        fp = ckpt.config_fingerprint(HeatConfig(**{
+            k: v for k, v in req.items() if k != "id"}))
+        one_cache = WORK / f"front-cache-{kind}"
+        one_cache.mkdir()
+        for f in cache.glob(f"{fp}-{req['ntime']:08d}.*"):
+            shutil.copy(f, one_cache / f.name)
+        check(len(list(one_cache.iterdir())) == 2, f"{kind}: no entry")
+        one = WORK / f"front-{kind}.jsonl"
+        one.write_text(json.dumps(dict(req, id=f"{r['id']}-{kind}")) + "\n")
+        o5 = WORK / f"front-out-{kind}"
+        rc, rows, summ = in_process_serve(
+            "--requests", str(one), "--out-dir", str(o5), "--cache", "on",
+            "--cache-dir", str(one_cache), "--inject", kind)
+        (rec,) = [x for x in rows if x.get("event") == "serve_request"]
+        check(rc == 0 and rec["status"] == "ok" and not rec["cached"]
+              and summ["cache"]["quarantined"] == 1,
+              f"{kind}: the entry was not quarantined and recomputed")
+        check((o5 / f"{rec['id']}.npz").read_bytes()
+              == (ref_dir / f"{r['id']}.npz").read_bytes(),
+              f"{kind}: the recomputed npz differs from phase 5's")
+        print(f"  {kind}: entry quarantined, {r['id']} recomputed "
+              f"byte-equal")
+
+
 def phase_serving_front(smi, serve):
     """Phase 5c: the serving front on the card (see the module docstring):
     ``serve --listen`` with the cache, engine checkpoints and the prober;
     the repeat from the cache; the handoff drain and ``serve --resume``;
     the observatories' cost; the trace's split of a chunk's host time;
     ``run --trace``."""
-    import numpy as np
-
     from heat_tpu_torch.runtime import checkpoint as ckpt
-    from heat_tpu_torch.runtime import faults
 
     t_phase = time.perf_counter()
     reqfile = WORK / "requests.jsonl"
@@ -2385,8 +2516,15 @@ def phase_serving_front(smi, serve):
           f"--engine-ckpt-interval 64 --probe-interval 1")
     srv = Server("--out-dir", str(o1), "--cache", "on", "--cache-dir",
                  str(cache), "--engine-ckpt-interval", "64",
-                 "--probe-interval", "1")
+                 "--probe-interval", "1", wait=False)
+    # (3)'s server, started beside this one and idle until (3): the two
+    # start-ups overlap, and both listen before anything is timed
+    ck, o3 = WORK / "front-ckpt", WORK / "front-out-handoff"
+    nxt = Server("--out-dir", str(o3), "--engine-ckpt-interval", "64",
+                 "--engine-ckpt-dir", str(ck), wait=False)
     try:
+        srv.ready()
+        nxt.ready()
         t0 = time.perf_counter()
         st, text = srv.call("/v1/solve", body.encode())
         wall1 = time.perf_counter() - t0
@@ -2469,6 +2607,9 @@ def phase_serving_front(smi, serve):
               f"{int(passed)} pass / 0 fail")
         srv.call("/drainz", b"")
         rc = srv.wait()
+    except BaseException:
+        nxt.stop()
+        raise
     finally:
         srv.stop()
     summary = json.loads(srv.lines[-1])
@@ -2482,12 +2623,10 @@ def phase_serving_front(smi, serve):
 
     # 3. handoff: a fresh server, the cache off; /drainz?handoff=1 once its
     # first engine checkpoint is published, then serve --resume elsewhere
-    ck, o3 = WORK / "front-ckpt", WORK / "front-out-handoff"
     print("[phase 5c] handoff: serve --listen --engine-ckpt-interval 64, "
           "/drainz?handoff=1 after the first generation, then serve "
           "--resume in a new process")
-    srv = Server("--out-dir", str(o3), "--engine-ckpt-interval", "64",
-                 "--engine-ckpt-dir", str(ck))
+    srv = nxt
     try:
         st, _ = srv.call("/v1/solve?wait=0", body.encode())
         check(st == 202, f"/v1/solve?wait=0 answered {st}")
@@ -2514,14 +2653,25 @@ def phase_serving_front(smi, serve):
           "the manifest's done set is not the records'")
     ck2 = WORK / "front-ckpt-corrupt"
     shutil.copytree(ck, ck2)
-    proc = subprocess.run(
-        [sys.executable, "-m", "heat_tpu_torch", "serve", "--resume",
-         str(ck), "--out-dir", str(o3), "--json", *SERVE_ARGS],
-        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
-        capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0, f"serve --resume exited {proc.returncode}: "
-                                f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
-    resumed = [json.loads(x) for x in proc.stdout.splitlines()
+    # the resume in a child process, beside the fallback and the cache
+    # faults below (byte checks all, nothing timed)
+    resume_log = WORK / "front-resume.log"
+    with open(resume_log, "w") as log:
+        resume = subprocess.Popen(
+            [sys.executable, "-m", "heat_tpu_torch", "serve", "--resume",
+             str(ck), "--out-dir", str(o3), "--json", *SERVE_ARGS],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+            stdout=log, stderr=subprocess.STDOUT)
+    try:
+        front_faults(serve, body, cache, ref_dir, ck2, path, gen)
+        rc = resume.wait(timeout=600)
+    finally:
+        if resume.poll() is None:
+            resume.kill()
+            resume.wait()
+    text = resume_log.read_text()
+    check(rc == 0, f"serve --resume exited {rc}: {text[-4000:]}")
+    resumed = [json.loads(x) for x in text.splitlines()
                if x.startswith('{"') and '"serve_request"' in x]
     check(sorted(r["id"] for r in resumed) == sorted(set(ids) - done_before)
           and all(r["status"] == "ok" and r["resumed"] for r in resumed),
@@ -2530,59 +2680,9 @@ def phase_serving_front(smi, serve):
     check(not ndiff, f"handoff + resume npz differ from phase 5's: {ndiff}")
     print(f"  handoff at generation {gen}: {len(inflight)} lanes in flight, "
           f"{len(man['queued'])} queued, {len(man['done'])} done; the "
-          f"resume finished {len(resumed)} (every in-flight record resumed), "
-          f"all {len(ids)} npz byte-equal to phase 5's")
-    # the ckpt-manifest-corrupt fault on the copy's handoff manifest: the
-    # resume quarantines it and falls back one generation
-    faults.FaultPlan(f"ckpt-manifest-corrupt@{gen}").damage_manifest(
-        ck2 / path.name, gen)
-    prev = json.loads((ck2 / f"engine_gen{gen - 1:08d}.json").read_text())
-    o4 = WORK / "front-out-fallback"
-    rc, rows, summ = in_process_serve("--resume", str(ck2), "--out-dir",
-                                      str(o4))
-    recs4 = [r for r in rows if r.get("event") == "serve_request"]
-    want4 = sorted(e["id"] for e in prev["inflight"] + prev["queued"])
-    check(rc == 0 and (ck2 / f"{path.name}.corrupt").exists()
-          and sorted(r["id"] for r in recs4) == want4,
-          f"the fallback resume (rc {rc})")
-    ndiff = npz_differ(want4, o4, ref_dir)
-    check(not ndiff, f"fallback resume npz differ: {ndiff}")
-    print(f"  ckpt-manifest-corrupt@{gen}: generation {gen} quarantined, "
-          f"the resume fell back to generation {gen - 1} and finished its "
-          f"{len(want4)} requests byte-equal to phase 5's")
-    # the cache faults on two of phase 5's requests, each in a cache dir
-    # that holds its full entry alone (the gateway's dir also holds the
-    # checkpoints' prefix entries): quarantined, recomputed byte-equal
-    from heat_tpu_torch import HeatConfig
-
-    small = sorted((r for r in serve["records"] if r["ndim"] == 2
-                    and r["dtype"] == "float32"),
-                   key=lambda r: r["n"] ** 2 * r["ntime"])[:2]
-    src = {json.loads(x)["id"]: json.loads(x) for x in body.splitlines()}
-    for kind, r in zip(("cache-corrupt", "cache-stale"), small):
-        req = src[r["id"]]
-        fp = ckpt.config_fingerprint(HeatConfig(**{
-            k: v for k, v in req.items() if k != "id"}))
-        one_cache = WORK / f"front-cache-{kind}"
-        one_cache.mkdir()
-        for f in cache.glob(f"{fp}-{req['ntime']:08d}.*"):
-            shutil.copy(f, one_cache / f.name)
-        check(len(list(one_cache.iterdir())) == 2, f"{kind}: no entry")
-        one = WORK / f"front-{kind}.jsonl"
-        one.write_text(json.dumps(dict(req, id=f"{r['id']}-{kind}")) + "\n")
-        o5 = WORK / f"front-out-{kind}"
-        rc, rows, summ = in_process_serve(
-            "--requests", str(one), "--out-dir", str(o5), "--cache", "on",
-            "--cache-dir", str(one_cache), "--inject", kind)
-        (rec,) = [x for x in rows if x.get("event") == "serve_request"]
-        check(rc == 0 and rec["status"] == "ok" and not rec["cached"]
-              and summ["cache"]["quarantined"] == 1,
-              f"{kind}: the entry was not quarantined and recomputed")
-        check((o5 / f"{rec['id']}.npz").read_bytes()
-              == (ref_dir / f"{r['id']}.npz").read_bytes(),
-              f"{kind}: the recomputed npz differs from phase 5's")
-        print(f"  {kind}: entry quarantined, {r['id']} recomputed "
-              f"byte-equal")
+          f"resume (a child beside the fault cases above) finished "
+          f"{len(resumed)} (every in-flight record resumed), all {len(ids)} "
+          f"npz byte-equal to phase 5's")
 
     # 4. the observatories' cost: phase 5's file with the reference's
     # defaults (--prof on, the ring on) and with both off, in turns
@@ -3744,36 +3844,99 @@ def single_run(input_dat, args):
     return json.loads(out.strip().splitlines()[-1]), got[-1]
 
 
-def launch_world(where: Path, input_dat: str, n: int, *args,
-                 launch_args=()):
+def start_launch_world(where: Path, input_dat: str, n: int, *args,
+                       launch_args=()) -> subprocess.Popen:
     """``python -m heat_tpu_torch launch -n <n> [launch_args] -- run ...``
-    in ``where``."""
+    started in ``where`` and not waited for: its output goes to
+    ``where/launch.out`` and ``launch.err``, and a watcher thread notes
+    when it exits (``world_result`` collects it)."""
+    import threading
+
     where.mkdir(parents=True, exist_ok=True)
     (where / "input.dat").write_text(input_dat)
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
-    return subprocess.run(
-        [sys.executable, "-m", "heat_tpu_torch", "launch", "-n", str(n),
-         "--deadline", "300", *launch_args, "--", "run", "--backend",
-         "sharded", *args],
-        cwd=where, env=env, capture_output=True, text=True, timeout=700)
+    with open(where / "launch.out", "w") as out, \
+            open(where / "launch.err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "heat_tpu_torch", "launch", "-n", str(n),
+             "--deadline", "300", *launch_args, "--", "run", "--backend",
+             "sharded", *args],
+            cwd=where, env=env, stdout=out, stderr=err, text=True,
+            start_new_session=True)
+    proc.where, proc.t0, proc.t_end, proc.result = (where, time.perf_counter(),
+                                                    None, None)
+
+    def watch():
+        proc.wait()
+        proc.t_end = time.perf_counter()
+
+    proc.watcher = threading.Thread(target=watch, daemon=True)
+    proc.watcher.start()
+    return proc
+
+
+def stop_world(proc) -> None:
+    """Kill a world's launcher and the ranks it started (its session)."""
+    import signal
+
+    if proc.poll() is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def world_result(proc, timeout: float = 700.0):
+    """Wait for a world of ``start_launch_world`` (killed past
+    ``timeout`` seconds from its start): a ``CompletedProcess`` with its
+    output, and ``wall_s``, its seconds from start to exit, start-up
+    included. Collected once; later calls return the same result."""
+    if proc.result is None:
+        try:
+            proc.wait(timeout=max(1.0, proc.t0 + timeout
+                                  - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            stop_world(proc)
+        proc.watcher.join()
+        res = subprocess.CompletedProcess(
+            proc.args, proc.returncode,
+            (proc.where / "launch.out").read_text(),
+            (proc.where / "launch.err").read_text())
+        res.wall_s = proc.t_end - proc.t0
+        proc.result = res
+    return proc.result
+
+
+def launch_world(where: Path, input_dat: str, n: int, *args,
+                 launch_args=()):
+    """``start_launch_world`` waited for: its ``world_result``."""
+    return world_result(start_launch_world(where, input_dat, n, *args,
+                                           launch_args=launch_args))
 
 
 RESTART_ARGS = ("--checkpoint-every", "8", "--async-io", "off")
 RESTART_RE = re.compile(r"^launch: restart (\{.*\})$", re.M)
 
 
-def restarted_world(key, input_dat, n_proc, args, names, crash="crash@20:proc=1"):
-    """A checkpointed world crashed by ``crash`` under ``launch
-    --max-restarts 2``, beside the same world uninterrupted: the soln
+def start_restarted_world(key, input_dat, n_proc, args, run,
+                          crash="crash@20:proc=1") -> subprocess.Popen:
+    """One of ``restarted_world``'s two worlds started: ``run`` is
+    ``clean`` (uninterrupted) or ``crash`` (``--inject crash``), both
+    checkpointed under ``launch --max-restarts 2``."""
+    extra = () if run == "clean" else ("--inject", crash)
+    return start_launch_world(WORK / f"restart_{key}_{run}", input_dat, n_proc,
+                              *args, *RESTART_ARGS, *extra,
+                              launch_args=("--max-restarts", "2"))
+
+
+def check_restarted_world(key, worlds: dict, names):
+    """The checks of a crashed world against its clean twin (``worlds``:
+    ``clean`` and ``crash`` from ``start_restarted_world``): the soln
     files ``names`` and gsum equal, exactly one ``launch_restart`` record,
     resuming at 16 (the crash fires at the 24-step boundary, before that
     boundary's checkpoint). Returns both worlds' records."""
     recs = {}
-    for run, extra in (("clean", ()), ("crash", ("--inject", crash))):
-        where = WORK / f"restart_{key}_{run}"
-        t_w = time.perf_counter()
-        proc = launch_world(where, input_dat, n_proc, *args, *RESTART_ARGS,
-                            *extra, launch_args=("--max-restarts", "2"))
+    for run in ("clean", "crash"):
+        proc = world_result(worlds[run])
         check(proc.returncode == 0, f"{key} {run} world rc "
                                     f"{proc.returncode}: {proc.stderr[-2000:]}")
         rec = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -3781,7 +3944,7 @@ def restarted_world(key, input_dat, n_proc, args, names, crash="crash@20:proc=1"
               and sum(rec["launches"].values()) > 0,
               f"{key} {run} world ran {rec['kernel']}")
         restarts = [json.loads(m) for m in RESTART_RE.findall(proc.stderr)]
-        recs[run] = (rec, restarts, where, time.perf_counter() - t_w, proc)
+        recs[run] = (rec, restarts, worlds[run].where, proc.wall_s, proc)
     (clean, _, cdir, _, _), (crash_rec, restarts, xdir, wall, proc) = (
         recs["clean"], recs["crash"])
     check(not recs["clean"][1], f"{key}: the clean world restarted")
@@ -3802,6 +3965,65 @@ def restarted_world(key, input_dat, n_proc, args, names, crash="crash@20:proc=1"
     check("resumed from shard checkpoints at step 16" in proc.stdout,
           f"{key}: the world did not resume from the shard files")
     return clean, crash_rec
+
+
+def restarted_world(key, input_dat, n_proc, args, names, crash="crash@20:proc=1"):
+    """A checkpointed world crashed by ``crash`` under ``launch
+    --max-restarts 2``, beside the same world uninterrupted, one after the
+    other (``check_restarted_world``'s checks). Returns both worlds'
+    records."""
+    worlds = {}
+    for run in ("clean", "crash"):
+        worlds[run] = start_restarted_world(key, input_dat, n_proc, args, run,
+                                            crash)
+        world_result(worlds[run])
+    return check_restarted_world(key, worlds, names)
+
+
+# phase 7's multi-process worlds at 2048^2, started right after the build
+# (``start_worlds``) and checked in phase 7
+WORLD_DAT = "2048 0.25 0.05 1.0 64 1\n"
+WORLD_ARGS = ("--variant", "hip", "--dtype", "float32", "--heartbeat-every",
+              "0", "--json", "--report-sum")
+MP_WORLDS = (("2 ranks staged", 2, ("--mesh", "2x1", "--comm", "staged")),
+             ("1 rank direct", 1, ("--comm", "direct")))
+RESTART_KEY = "2048^2 2 ranks staged"
+
+
+def start_worlds() -> dict:
+    """Phase 7's five worlds at 2048^2, started together as child
+    processes, each in a directory of its own (``launch`` runs torchrun
+    ``--standalone``, which picks its own rendezvous port): 2 ranks staged
+    over gloo and 1 rank direct (a 1-rank NCCL world), each held to
+    ``--virtual-devices 2`` in phase 7; 2 ranks direct, which must refuse
+    on one card; the checkpointed 2-rank staged world clean and crashed at
+    step 20 by rank 1. ``main`` starts them after the build, beside the
+    card-only tests and phase 2's byte comparisons (none of which times
+    anything) and waits for them (``finish_worlds``) before phase 2 times
+    anything; their points/s come from a card they shared."""
+    worlds = {key: start_launch_world(WORK / f"mp_{n_proc}", WORLD_DAT,
+                                      n_proc, *WORLD_ARGS, *extra)
+              for key, n_proc, extra in MP_WORLDS}
+    worlds["2 ranks direct"] = start_launch_world(
+        WORK / "mp_direct2", WORLD_DAT, 2, *WORLD_ARGS, "--mesh", "2x1",
+        "--comm", "direct", launch_args=("--max-restarts", "0"))
+    for run in ("clean", "crash"):
+        worlds[run] = start_restarted_world(
+            RESTART_KEY, WORLD_DAT, 2,
+            WORLD_ARGS + ("--mesh", "2x1", "--comm", "staged"), run)
+    return worlds
+
+
+def finish_worlds(worlds: dict) -> None:
+    """Wait for ``start_worlds``'s children; phase 7 checks them."""
+    t0 = time.perf_counter()
+    for proc in worlds.values():
+        world_result(proc)
+    print(f"[phase 7] the five 2048^2 worlds (children beside the card-only "
+          f"tests and phase 2's byte comparisons) done, waited "
+          f"{time.perf_counter() - t0:.1f} s for them; seconds from start to "
+          f"exit: " + ", ".join(f"{k} {world_result(p).wall_s:.1f}"
+                                for k, p in worlds.items()))
 
 
 def intervals_overlap_us(a, b) -> float:
@@ -3919,12 +4141,13 @@ def overlap_window(key, c, mesh, kf, comm, smi, blocks=3):
     return res
 
 
-def phase_sharded(smi, mega_digest=None):
+def phase_sharded(smi, mega_digest=None, worlds=None):
     """Phase 7, the sharded backend: hip.dat at full width (2x2 shards on
     the one card, staged and direct) and 512^3 (2x2x1) against the
     single-device cuda runs, bytes; the formulations at 8192^2; bf16
     against the plain bounded version on the card; the bounded kernels
-    with shard bounds; the multi-process worlds; exchange times.
+    with shard bounds; the multi-process worlds (``worlds``, from
+    ``start_worlds``; started here when None); exchange times.
     ``mega_digest`` is the sha256 of phase 5d's hip.dat mega-lane field
     (2x2 shards), held against the first 2x2 run's."""
     import functools
@@ -4221,26 +4444,25 @@ def phase_sharded(smi, mega_digest=None):
               f"shards at depths {sorted(depths)}")
     print(f"  {nreg} overlap region cases, 0 differing bytes")
 
-    # 6. the multi-process worlds at 2048^2: launch -n 2 staged over gloo
-    # (two ranks share the card), launch -n 1 direct (a 1-rank NCCL
-    # world), against --virtual-devices 2 in this process; launch -n 2
-    # direct must refuse (NCCL puts one rank on one GPU)
-    dat = "2048 0.25 0.05 1.0 64 1\n"
-    args = ("--variant", "hip", "--dtype", "float32", "--heartbeat-every",
-            "0", "--json", "--report-sum")
-    out_l, _ = cli_run(dat, *args, "--virtual-devices", "2", "--mesh", "2x1",
-                       "--comm", "staged", backend="sharded")
+    # 6. the multi-process worlds at 2048^2 (``start_worlds``): launch -n 2
+    # staged over gloo (two ranks share the card), launch -n 1 direct (a
+    # 1-rank NCCL world), against --virtual-devices 2 in this process;
+    # launch -n 2 direct must refuse (NCCL puts one rank on one GPU); a
+    # checkpointed 2-rank world crashed at step 20 by rank 1 and restarted
+    # by the supervisor. Alone (worlds None), the worlds start here.
+    if worlds is None:
+        worlds = start_worlds()
+    out_l, _ = cli_run(WORLD_DAT, *WORLD_ARGS, "--virtual-devices", "2",
+                       "--mesh", "2x1", "--comm", "staged",
+                       backend="sharded")
     rec_l = json.loads(out_l.strip().splitlines()[-1])
     local = WORK / "mp_local"
     local.mkdir()
     for f in WORK.glob("soln*.dat"):
         f.rename(local / f.name)
-    for key, n_proc, extra in (("2 ranks staged", 2, ("--mesh", "2x1",
-                                                      "--comm", "staged")),
-                               ("1 rank direct", 1, ("--comm", "direct"))):
-        where = WORK / f"mp_{n_proc}"
-        t_w = time.perf_counter()
-        proc = launch_world(where, dat, n_proc, *args, *extra)
+    for key, n_proc, _ in MP_WORLDS:
+        proc = world_result(worlds[key])
+        where = worlds[key].where
         print("".join(f"    | {line}\n" for line in
                       proc.stdout.splitlines()[-4:]), end="")
         check(proc.returncode == 0,
@@ -4250,28 +4472,25 @@ def phase_sharded(smi, mega_digest=None):
               f"launch {key} ran {rec['kernel']}")
         names = ["soln.dat"] + (["soln00000.dat", "soln00001.dat"]
                                 if n_proc == 2 else [])
-        same = all((where / f).read_bytes() == (local / f).read_bytes()
-                   for f in names)
+        differ = [f for f in names
+                  if (where / f).read_bytes() != (local / f).read_bytes()]
+        same = not differ
         print(f"  launch {key}: gsum {rec['gsum']!r} (in-process "
               f"{rec_l['gsum']!r}), {', '.join(names)} equal: {same}, "
-              f"{rec['points_per_s']:.6g} points/s, "
-              f"{time.perf_counter() - t_w:.1f} s with start-up")
+              f"{rec['points_per_s']:.6g} points/s on a card shared with "
+              f"the other worlds, {proc.wall_s:.1f} s with start-up")
         check(same and rec["gsum"] == rec_l["gsum"],
-              f"launch {key} differs from the in-process run")
+              f"launch {key} differs from the in-process run (gsum "
+              f"{rec['gsum']!r} against {rec_l['gsum']!r}; files differing: "
+              f"{differ})")
         out["runs"][f"2048 launch {key}"] = rec
-    proc = launch_world(WORK / "mp_direct2", dat, 2, *args, "--mesh", "2x1",
-                        "--comm", "direct", launch_args=("--max-restarts",
-                                                         "0"))
+    proc = world_result(worlds["2 ranks direct"])
     refused = proc.returncode != 0 and "--comm staged" in proc.stderr
     print(f"  launch 2 ranks direct on one card: rc {proc.returncode}, "
           f"refused naming --comm staged: {refused}")
     check(refused, "launch -n 2 --comm direct did not refuse")
-    # a checkpointed 2-rank world (staged, the ranks sharing the card)
-    # crashed at step 20 by rank 1 and restarted by the supervisor
-    clean, crashed = restarted_world(
-        "2048^2 2 ranks staged", dat, 2,
-        args + ("--mesh", "2x1", "--comm", "staged"),
-        ["soln.dat", "soln00000.dat", "soln00001.dat"])
+    clean, crashed = check_restarted_world(
+        RESTART_KEY, worlds, ["soln.dat", "soln00000.dat", "soln00001.dat"])
     out["runs"]["2048 restarted world"] = crashed
     out["runs"]["2048 clean checkpointed world"] = clean
 
@@ -4724,6 +4943,113 @@ def phase_worlds():
                     ["soln.dat"] + [f"soln{i:05d}.dat" for i in range(cards)])
 
 
+# ``--labs``: each measuring lab of benchmarks/ ported, at its card size,
+# one after another in this process (argv, then the record's name)
+LAB_RUNS = (
+    ("chip_check", ()),
+    ("ckpt_overlap", ("--backend", "cuda", "--n", "4096", "--steps", "256",
+                      "--every", "32")),
+    ("overlap_ab", ()),
+    ("collective_overhead", ()),
+    ("weak_scaling", ("--local-n", "16384")),
+    ("weak_scaling", ("--virtual", "4", "--local-n", "16384", "--steps",
+                      "200")),
+    ("sharded3d_check", ()),
+)
+
+
+def lab_gates(name: str, rc: int, rec: dict) -> str:
+    """Check a lab record's identity gates (a failed one fails the run)
+    and return its headline; speed gates are printed, not checked."""
+    if name == "chip_check":
+        check(rc == 0 and rec["passed"] == 23, f"chip_check rc {rc}")
+        check(min(rec["launches"].values()) > 0, "chip_check launches")
+        return (f"{rec['passed']}/23 rows ok, launches {rec['launches']}, "
+                f"{rec['seconds']:.1f} s")
+    if name == "ckpt_overlap":
+        check(rec["bit_identical"] is True, "ckpt_overlap: async checkpoints "
+                                            "differ from sync")
+        check(rec["launches"]["ftcs2d"] > 0, "ckpt_overlap launched nothing")
+        a = rec["rows"]["ckpt_async"]
+        return (f"{rec['n']}^2 x {rec['steps']} every {rec['every']}: "
+                f"async/baseline {rec['async_vs_baseline']:.4f} (10% gate "
+                f"{'PASS' if rec['async_vs_baseline'] <= 1.10 else 'FAIL'}, "
+                f"printed), sync/baseline {rec['sync_vs_baseline']:.4f}, "
+                f"overlap_s {a['overlap_s']:.4f}, io_wait_s "
+                f"{a['io_wait_s']:.4f}, sink {rec['sink_delay_s'] * 1e3:.2f} "
+                f"ms; bit-identical; launches {rec['launches']}")
+    if name == "overlap_ab":
+        check(rc == 0 and all(rec["fields_equal"].values()),
+              "overlap_ab: overlap and indep fields differ")
+        check(all(r["launches"]["ftcs2d"] > 0 for r in rec["rows"].values()),
+              "overlap_ab: a row launched no ftcs2d")
+        ex = json.loads((ROOT / "heat_tpu_torch/labs/artifacts/"
+                         "exchange_lab.json").read_text())["variants"]
+        n2 = rec["n"] ** 2
+        return ("; ".join(
+            f"fuse {k}: overlap/indep {v:.4f} ("
+            f"{n2 / rec['rows'][f'overlap_fuse{k}']['points_per_s_two_point'] * 1e6:.1f}"
+            f" against "
+            f"{n2 / rec['rows'][f'indep_fuse{k}']['points_per_s_two_point'] * 1e6:.1f}"
+            f" us a step)" for k, v in rec["overlap_vs_indep"].items())
+            + f"; exchange_lab.json at kf 8: "
+              f"{ex['real_advance_overlap_fuse8']['per_step_s'] * 1e6:.1f} "
+              f"against {ex['real_advance_indep_fuse8']['per_step_s'] * 1e6:.1f}"
+              f" us; fields byte-equal")
+    if name == "collective_overhead":
+        ed = rec["exchange_delta"]
+        check(all(ed[f"fuse_{k}"]["launches"]["ftcs2d"] > 0
+                  for k in ed["fit_ks"]), "collective_overhead launches")
+        return (f"per-post dispatch {rec['per_post_dispatch_s'] * 1e6:.2f} us; "
+                f"fitted C (exchange and pass depth together) "
+                f"{ed['per_exchange_s'] * 1e6:.1f} us, t_comp "
+                f"{ed['t_step_compute_s'] * 1e6:.1f} us over k {ed['fit_ks']}; "
+                f"an exchange alone: " + ", ".join(
+                    f"k={k} {ed[f'fuse_{k}']['exchange_alone_s'] * 1e6:.1f} us"
+                    for k in ed["fit_ks"]))
+    if name == "weak_scaling":
+        check(all(r["launches"]["ftcs2d"] > 0 for r in rec["rows"]),
+              "weak_scaling: a row launched no ftcs2d")
+        return (f"{rec['conditions']['mode']}: " + "; ".join(
+            f"{r['devices']} shard(s) {tuple(r['mesh'])} n={r['n']}: "
+            f"{r['points_per_s_total']:.6g} pts/s, efficiency "
+            f"{r['weak_efficiency']:.4f}" for r in rec["rows"]))
+    if name == "sharded3d_check":
+        kfs = {str(r["fuse_steps_requested"]): r["kf"] for r in rec["rows"]}
+        check(kfs == {"auto": 8, "8": 8, "32": 32},
+              f"sharded3d_check fuse depths {kfs}")
+        check(all(r["launches"]["ftcs3d"] > 0 for r in rec["rows"]),
+              "sharded3d_check: a row launched no ftcs3d")
+        return "; ".join(
+            f"fuse {r['fuse_steps_requested']}: kf {r['kf']}, "
+            f"{r['points_per_s_two_point']:.6g} pts/s, "
+            f"{r['launches']['ftcs3d']} ftcs3d launches" for r in rec["rows"])
+    raise KeyError(name)
+
+
+def phase_labs(smi) -> None:
+    """``python3 chip_smoke.py --labs``: each lab of ``LAB_RUNS`` through
+    its ``main`` at its card size, its record written to
+    ``heat_tpu_torch/labs/artifacts/``, its identity gates checked and its
+    headline printed."""
+    import importlib
+
+    from heat_tpu_torch.labs._util import ARTIFACTS
+
+    for name, argv in LAB_RUNS:
+        mod = importlib.import_module(f"heat_tpu_torch.labs.{name}")
+        out = ARTIFACTS / (name + ("_virtual" if "--virtual" in argv else "")
+                           + ".json")
+        print(f"[labs] python -m heat_tpu_torch.labs.{name} "
+              f"{' '.join(argv)}".rstrip(), flush=True)
+        t0 = time.perf_counter()
+        rc = mod.main([*argv, "--out", str(out)])
+        rec = json.loads(out.read_text())
+        line = lab_gates(name, rc, rec)
+        print(f"[labs] {name}: {line} (rc {rc}, {time.perf_counter() - t0:.1f}"
+              f" s) on {smi}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4739,50 +5065,78 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir()
     t0 = time.perf_counter()
-    if sys.argv[1:] == ["--worlds"]:
+    mode = sys.argv[1:]
+    if mode in (["--worlds"], ["--labs"]):
         try:
             phase_build()
-            phase_worlds()
+            if mode == ["--worlds"]:
+                phase_worlds()
+            else:
+                phase_labs(smi)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
-        print(f"chip_smoke --worlds: ok in {time.perf_counter() - t0:.1f} s")
+        print(f"chip_smoke {mode[0]}: ok in {time.perf_counter() - t0:.1f} s")
+        if mode == ["--labs"]:
+            print(smi)
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}))
         return 0
+    walls = {}      # seconds of each phase, printed at the end
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            walls[name] = round(time.perf_counter() - t, 1)
+
     plain = start_plain_serve()
     checks = start_guard_checks()
     perfcheck = start_perfcheck()
     audit = lab_armed = lane_lab = None
+    worlds = {}
     try:
-        phase_build()
-        phase_card_tests()
+        timed("1 build", phase_build)
+        worlds = start_worlds()
+        timed("0 card tests", phase_card_tests)
         audit = start_audit()
-        errs = phase_compare()
-        serve_plain = plain_serve_result(plain)
-        times = phase_times()
-        errs.update(phase_lane_compare())
-        times.update(phase_lane_times())
-        runs = phase_main_path(smi)
-        phase_calibrate(smi, runs)
-        phase_oracle()
-        serve = phase_serve(smi, serve_plain)
-        phase_serve_semantics(smi, serve)
-        phase_serving_front(smi, serve)
-        mega = phase_mega(smi, serve, runs)
-        phase_fleet(smi, serve)
-        _, lab_armed = phase_invariants(smi, serve, checks, audit)
+        errs = timed("2 compare", phase_compare)
+        errs.update(timed("2 lane compare", phase_lane_compare))
+        serve_plain = timed("2 wait plain serve", plain_serve_result, plain)
+        timed("7 wait worlds", finish_worlds, worlds)
+        times = timed("2 times", phase_times)
+        times.update(timed("2 lane times", phase_lane_times))
+        runs = timed("3 run", phase_main_path, smi)
+        timed("3b calibrate", phase_calibrate, smi, runs)
+        timed("4 oracle", phase_oracle)
+        timed("4b chip_check", phase_chip_check, smi)
+        serve = timed("5 serve", phase_serve, smi, serve_plain)
+        timed("5b semantics", phase_serve_semantics, smi, serve)
+        timed("5c front", phase_serving_front, smi, serve)
+        mega = timed("5d mega", phase_mega, smi, serve, runs)
+        timed("5e fleet", phase_fleet, smi, serve)
+        _, lab_armed = timed("5f guard", phase_invariants, smi, serve, checks,
+                             audit)
         t_armed = time.perf_counter()
         lane_lab = start_lane_lab()
-        lab_errs = phase_lab_compare()
-        finish_invariants(lab_armed, t_armed)
-        phase_perfcheck(smi, perfcheck, lane_lab, t_armed)
-        lab_rows, lab_launches = phase_lab(smi)
-        shard = phase_sharded(smi, mega["requests"]["mega-hip"]["digest"])
+        lab_errs = timed("6 lab compare", phase_lab_compare)
+        timed("5f wait armed lab", finish_invariants, lab_armed, t_armed)
+        timed("5g perfcheck", phase_perfcheck, smi, perfcheck, lane_lab,
+              t_armed)
+        lab_rows, lab_launches = timed("6 lab", phase_lab, smi)
+        shard = timed("7 sharded", phase_sharded, smi,
+                      mega["requests"]["mega-hip"]["digest"], worlds)
     finally:
         for child in [plain, audit, lab_armed, perfcheck, lane_lab,
                       *checks.values()]:
             if child is not None and child.poll() is None:
                 child.kill()
                 child.wait()
+        for world in worlds.values():
+            stop_world(world)
         shutil.rmtree(WORK, ignore_errors=True)
+    print(f"chip_smoke: seconds of each phase {json.dumps(walls)}")
     print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
 
     f32, bf16 = torch.float32, torch.bfloat16

@@ -1,7 +1,7 @@
-"""Shared pieces of the serve labs: the committed artifact directory, the
-atomic JSON writer, the serve lab's request populations, the drain of one
-wave through an engine, and the stamp every artifact carries (platform,
-card, commit).
+"""Shared pieces of the labs: the committed artifact directory, the atomic
+JSON writer, the serve lab's request populations, the drain of one wave
+through an engine, one solve in the benchmark mode, and the stamp every
+artifact carries (platform, card, commit).
 
 The populations are those of the JAX package's serve lab (sides 24/32/48,
 two diffusivities, step counts that are chunk multiples), held here as the
@@ -79,6 +79,24 @@ def init_device(device, kernels=()) -> float:
             for name in kernels:
                 _build.load(name)
     return time.perf_counter() - t0
+
+
+def bench_solve(cfg, device, **kw):
+    """One solve of ``cfg`` on ``device`` in the benchmark mode (no final
+    fetch; ``kw`` as ``backends.solve`` takes them, e.g.
+    ``two_point_repeats``), its printing swallowed: (the SolveResult, the
+    ``ftcs2d``/``ftcs3d`` launches it made, its warm-up and protocol
+    included)."""
+    import contextlib
+    import io
+
+    from ..backends import solve
+    from ..ops import cuda_stencil
+
+    before = dict(cuda_stencil.launches)
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = solve(cfg, device=device, fetch=False, **kw)
+    return res, {k: v - before[k] for k, v in cuda_stencil.launches.items()}
 
 
 def work(cfgs) -> int:

@@ -3,6 +3,7 @@ heat_tpu's: every shipped config parses to the same fields, every initial
 condition is the same array, the text files are the same bytes, and each
 package resumes the other's checkpoint."""
 
+import time
 from pathlib import Path
 
 import numpy as np
@@ -122,6 +123,59 @@ def test_native_and_numpy_writers_agree(tmp_path, monkeypatch):
     io.write_soln(tmp_path / "b.dat", grid.coords(cfg), T)
     np.testing.assert_array_equal(io.read_dat(tmp_path / "a.dat")[1],
                                   io.read_dat(tmp_path / "b.dat")[1])
+
+
+# process i imports, waits for the go file and i * 40 ms more (the starts
+# spread over one build, so later ones find a build in progress), then
+# loads the library of argv[1] (building it where it is missing) and writes
+# the table with it
+_BUILD_RACE = """
+import sys, time
+from pathlib import Path
+import numpy as np
+from heat_tpu_torch.io.native import _library
+d = Path(sys.argv[1])
+while not (d / "go").exists():
+    time.sleep(0.005)
+time.sleep(0.04 * int(sys.argv[2]))
+lib = _library(d)
+t = np.load(d / "table.npy")
+sys.exit(3 if lib is None else
+         lib.heat_write_table(str(d / f"out{sys.argv[2]}.dat").encode(), t,
+                              *t.shape))
+"""
+
+
+def test_native_library_builds_whole_beside_other_builds(tmp_path):
+    """Processes that find no library build it at the same moment, as the
+    ranks of a ``launch`` world do: each loads a whole library and writes
+    the native writer's bytes (a torn load would drop it to numpy's), and
+    no temporary file is left."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    from heat_tpu_torch.io import native
+
+    for f in ("Makefile", "fastio.cpp"):
+        shutil.copy(Path(native.__file__).parent / f, tmp_path / f)
+    table = np.random.default_rng(2).uniform(1, 2, (257, 3))
+    np.save(tmp_path / "table.npy", table)
+    assert native.fast_write_triplets(str(tmp_path / "ref.dat"), table)
+    root = str(Path(__file__).resolve().parent.parent)
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_RACE,
+                               str(tmp_path), str(i)], env=env)
+             for i in range(12)]
+    time.sleep(1.0)
+    (tmp_path / "go").touch()
+    assert [p.wait(timeout=120) for p in procs] == [0] * 12
+    ref = (tmp_path / "ref.dat").read_bytes()
+    assert all((tmp_path / f"out{i}.dat").read_bytes() == ref
+               for i in range(12))
+    assert not list(tmp_path.glob("*.tmp"))
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])

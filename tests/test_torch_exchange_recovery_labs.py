@@ -7,7 +7,8 @@ slab writes, bytes), the record carries every row of the reference's lab
 the ``sharded`` backend. ``recovery_lab`` runs its two ``launch -n 2``
 worlds on gloo: the crashed world restarts and its final field is the
 clean one's, byte for byte. Both refuse to run without a card unless
-``--device cpu`` is given.
+``--device cpu`` is given, as do the six labs of
+``tests/test_torch_bench_labs.py``.
 """
 
 import json
@@ -16,7 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from heat_tpu_torch.labs import exchange_lab, recovery_lab
+from heat_tpu_torch.labs import (chip_check, ckpt_overlap, collective_overhead,
+                                 exchange_lab, overlap_ab, recovery_lab,
+                                 sharded3d_check, weak_scaling)
 from heat_tpu_torch.parallel.comm import LocalComm
 from heat_tpu_torch.parallel.mesh import build_mesh
 
@@ -76,7 +79,10 @@ def test_recovery_lab_heals_bit_identically(tmp_path):
     assert rec["recovery_overhead_s"] is not None
 
 
-@pytest.mark.parametrize("lab", [exchange_lab, recovery_lab])
+@pytest.mark.parametrize("lab", [exchange_lab, recovery_lab, chip_check,
+                                 ckpt_overlap, overlap_ab,
+                                 collective_overhead, weak_scaling,
+                                 sharded3d_check])
 def test_labs_refuse_a_missing_card(lab, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

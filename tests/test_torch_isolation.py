@@ -55,7 +55,13 @@ def test_import_loads_no_jax():
                "heat_tpu_torch.runtime.debug, heat_tpu_torch.machine, "
                "heat_tpu_torch.calibrate, heat_tpu_torch.viz, "
                "heat_tpu_torch.labs.exchange_lab, "
-               "heat_tpu_torch.labs.recovery_lab; "
+               "heat_tpu_torch.labs.recovery_lab, "
+               "heat_tpu_torch.labs.chip_check, "
+               "heat_tpu_torch.labs.ckpt_overlap, "
+               "heat_tpu_torch.labs.overlap_ab, "
+               "heat_tpu_torch.labs.collective_overhead, "
+               "heat_tpu_torch.labs.weak_scaling, "
+               "heat_tpu_torch.labs.sharded3d_check; "
                "print(sorted(m for m in sys.modules "
                "if m.split('.')[0] in ('jax', 'jaxlib', 'heat_tpu')))")
     assert out.returncode == 0, out.stderr
