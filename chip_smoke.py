@@ -101,7 +101,13 @@ a checkout of the repository, it exits non-zero and prints no result):
    near its time) held bit for bit against the plain version's over the
    same steps, and against the ``torch`` backend's on the card (the serial
    oracle's f32 arithmetic: same order, two roundings) at the reference's
-   f32 tolerance scaled by steps (5e-6 per 30 steps);
+   f32 tolerance scaled by steps (5e-6 per 30 steps). The plain version's
+   side of these comparisons (the global sums, the 1600-step plain and
+   ``torch`` fields) is computed by a child process started at the top of
+   the script, beside phase 1's build (the card idle) and the card-only
+   tests (plain PyTorch builds and launches no kernel); the script waits
+   for it before phase 2, whose byte comparisons would share the card
+   with it;
 3b. ``calibrate`` on the card, in this process
    (``heat_tpu_torch.calibrate.run``): the memory stream (256 MiB f32, 256
    in-place passes a call), the 2D sweep (4096^2 f32 x 8192, 16 steps a
@@ -115,6 +121,18 @@ a checkout of the repository, it exits non-zero and prints no result):
    mesh and halo lines) and ``viz`` of a small .dat file (the PNG
    written, or, without matplotlib, a non-zero exit naming it and no
    file);
+3c. the headline measurement, ``bench`` through ``cli.main`` at its
+   defaults on the card (4096^2 f32 x 8192, the ``hat`` IC, three
+   repeats of the two-point protocol): the record's ``platform`` is
+   ``cuda``, its ``kernel`` ``cuda ftcs2d``, one call's launches the
+   pass schedule's at 16 steps x 512 calls of ``advance``'s fused pass
+   (512), the counts of the run those of the warm-up and the ten timed
+   calls, ``vs_baseline`` the rate over the card's one-pass bound (the
+   data sheet's 3.35 TB/s over 8 B a point); then the supervised entry,
+   ``python -m heat_tpu_torch.bench`` as a child from the repository root
+   (``HEAT_BENCH_TOTAL_BUDGET_S=300``, its cache in the scratch
+   directory): rc 0, a last line without ``error`` carrying the metric,
+   the cache written with that metric and value;
 4. configs/serial.dat (1024^2, 30 steps) on ``cuda`` in f32, and a 64^3 f32
    solve at sigma 0.15 under edges and ghost BC for 50 steps, each written
    to soln.dat and read back, against the serial numpy oracle at the
@@ -396,7 +414,10 @@ another in this process, the ports of the measuring labs of
 ``collective_overhead`` (post and add chains, the fit over fuse 1, 8, 16
 and 32 beside an exchange alone); ``weak_scaling --local-n 16384`` and
 ``--virtual 4`` (200 steps); ``sharded3d_check`` (512^3 x 960, auto, 8
-and 32). Each lab's identity gates (``lab_gates``: bytes, fuse depths,
+and 32); ``run_all`` (the five BASELINE.json configurations at full size,
+each row in its own child); then the supervised headline entry, ``python
+-m heat_tpu_torch.bench``, its cache ``labs/artifacts/last_bench.json``.
+Each lab's identity gates (``lab_gates``: bytes, fuse depths,
 kernels launched) fail the run; its headline is printed, its speed gates
 with it, not checked. The last lines are the ``nvidia-smi`` line and
 ``{"ok": true, ...}``.
@@ -497,6 +518,19 @@ SERVE_KERNELS = {"lanes2d": r"lanes2d_(stream_)?kernel\b",
                  "lanes_init": r"lanes_init\b"}
 F32_ATOL = 5e-6                 # tests/test_backends.py:33
 SIGMA_3D = 1 / 6                # benchmarks/run_all.py:192
+# phase 3's runs: bench.py's shape (the python/cuda benchmark) and
+# configs/hip.dat's, (n, sigma, nu, dom_len, ntime, dtype); the reference's
+# config 4 at full size in f32 and bf16 and 1024^3 f32 with ntime cut to
+# 160, each with the steps of a shorter run held against the plain version
+MAIN_2D = {"4096 f32": (4096, 0.25, 0.05, 2.0, 8192, "float32"),
+           "32768 f32": (32768, 0.25, 0.05, 1.0, 128, "float32"),
+           "32768 bf16": (32768, 0.25, 0.05, 1.0, 128, "bfloat16")}
+MAIN_3D = {"512^3 f32": (512, SIGMA_3D, 0.05, 2.0, 3200, "float32", 64),
+           "512^3 bf16": (512, SIGMA_3D, 0.05, 2.0, 3200, "bfloat16", 64),
+           "1024^3 f32": (1024, SIGMA_3D, 0.05, 2.0, 160, "float32", 32)}
+# the depth of phase 3's 512^3 f32 bit-for-bit and oracle checks (half the
+# config-4 run)
+CHECK_3D_STEPS = 1600
 ENVELOPE_TOL = 1e-5             # phase 5: rounding past the [1, 2] envelope
 ICS = ("hat", "hat_small", "hat_half", "uniform")
 
@@ -888,6 +922,78 @@ def plain_gsum(n, ndim, sigma, nu, dom_len, ntime, dtype) -> float:
     return ref
 
 
+def check_3d_config():
+    """Phase 3's config-4 run (512^3 f32, sigma 1/6, 3200 steps)."""
+    from heat_tpu_torch import HeatConfig
+
+    return HeatConfig(n=512, ndim=3, sigma=SIGMA_3D, nu=0.05, dom_len=2.0,
+                      ntime=3200, dtype="float32")
+
+
+def start_plain_refs():
+    """Phase 3's plain-version side in a child process, started at the top
+    of the script: the plain PyTorch passes and the ``torch`` backend build
+    and launch no kernel, so they run beside phase 1's build and the
+    card-only tests. ``plain_refs_result`` waits for it."""
+    return start_child("plain-refs", "-c",
+                       "import chip_smoke as c; c.plain_refs_child()")
+
+
+def plain_refs_child() -> None:
+    """The child of ``start_plain_refs``: the plain version's global sum
+    over each phase-3 run's passes (the 3D runs' shorter ones), written to
+    ``plain-refs.json``; the config-4 field after CHECK_3D_STEPS steps in
+    the plain version's passes and through the ``torch`` backend, written
+    to ``plain-512.npy`` and ``torch-512.npy``."""
+    import numpy as np
+
+    from heat_tpu_torch import solve
+    from heat_tpu_torch.backends.common import host_fetch
+    from heat_tpu_torch.grid import initial_condition_device
+    from heat_tpu_torch.ops.cuda_stencil import ftcs_multistep_edges_cuda
+
+    jobs = [(key, n, 2, sigma, nu, dom_len, ntime, dtype) for key, (
+        n, sigma, nu, dom_len, ntime, dtype) in MAIN_2D.items()]
+    jobs += [(f"{key} x{ncmp}", n, 3, sigma, nu, dom_len, ncmp, dtype)
+             for key, (n, sigma, nu, dom_len, _, dtype, ncmp)
+             in MAIN_3D.items()]
+    # the largest fields first: their passes are long kernels that need
+    # little of the host, which the build beside them holds
+    jobs.sort(key=lambda job: -job[1] ** job[2])
+    gsums, seconds = {}, {}
+    t0 = time.perf_counter()
+    for key, *spec in jobs:
+        gsums[key] = plain_gsum(*spec)
+        seconds[key] = round(time.perf_counter() - t0, 1)
+    cfg = check_3d_config().with_(ntime=CHECK_3D_STEPS)
+    T = initial_condition_device(cfg, "cuda")
+    for _ in range(cfg.ntime // 16):
+        T = ftcs_multistep_edges_cuda(T, cfg.r, 16, plain=True)
+    np.save(WORK / "plain-512.npy", host_fetch(T))
+    del T
+    seconds[f"512^3 f32 x{cfg.ntime}"] = round(time.perf_counter() - t0, 1)
+    np.save(WORK / "torch-512.npy",
+            solve(cfg.with_(backend="torch"), device="cuda").T)
+    seconds[f"torch 512^3 f32 x{cfg.ntime}"] = round(
+        time.perf_counter() - t0, 1)
+    (WORK / "plain-refs.json").write_text(json.dumps(dict(
+        gsums=gsums, seconds=seconds)))
+
+
+def plain_refs_result(child, timeout: float = 600.0) -> dict:
+    """Wait for ``child`` (``start_plain_refs``) and return its global
+    sums; a child that fails, or outlasts ``timeout`` (killed then), fails
+    the phase."""
+    t0 = time.perf_counter()
+    wait_child(child, WORK / "plain-refs.log", "the plain-version child",
+               timeout)
+    out = json.loads((WORK / "plain-refs.json").read_text())
+    print(f"[phase 2] the plain-version child (phase 3's comparisons) done, "
+          f"waited {time.perf_counter() - t0:.1f} s for it; its seconds from "
+          f"its start at the end of each part: {json.dumps(out['seconds'])}")
+    return out["gsums"]
+
+
 def main_path_run(key, n, ndim, sigma, nu, dom_len, ntime, dtype, smi):
     """One timed main-path run; checks kernel, launches and finiteness."""
     import torch
@@ -913,25 +1019,21 @@ def main_path_run(key, n, ndim, sigma, nu, dom_len, ntime, dtype, smi):
     return rec
 
 
-def phase_main_path(smi):
+def phase_main_path(smi, plain_gsums):
+    """Phase 3: each run held against the plain version's side of it
+    (``plain_refs_child``: ``plain_gsums`` and the two 512^3 fields)."""
     import numpy as np
     import torch
 
-    from heat_tpu_torch import HeatConfig, solve
-    from heat_tpu_torch.grid import initial_condition_device
-    from heat_tpu_torch.ops.cuda_stencil import ftcs_multistep_edges_cuda
+    from heat_tpu_torch import solve
 
     runs = {}
-    # bench.py's shape (the python/cuda benchmark) and configs/hip.dat's;
-    # each run's field against the plain version run in the same passes
+    # each 2D run's field against the plain version run in the same passes
     # from the same initial field: the global sums must be equal
-    specs2 = {"4096 f32": (4096, 0.25, 0.05, 2.0, 8192, "float32"),
-              "32768 f32": (32768, 0.25, 0.05, 1.0, 128, "float32"),
-              "32768 bf16": (32768, 0.25, 0.05, 1.0, 128, "bfloat16")}
-    for key, spec in specs2.items():
+    for key, spec in MAIN_2D.items():
         runs[key] = main_path_run(key, spec[0], 2, *spec[1:], smi)
-    for key, (n, sigma, nu, dom_len, ntime, dtype) in specs2.items():
-        ref = plain_gsum(n, 2, sigma, nu, dom_len, ntime, dtype)
+    for key in MAIN_2D:
+        ref = plain_gsums[key]
         got = runs[key]["gsum"]
         print(f"  {key}: gsum {got!r}, plain version {ref!r}")
         check(got == ref, f"{key}: main path's field is not the plain version's")
@@ -941,18 +1043,12 @@ def phase_main_path(smi):
     print(f"  32768 bf16 vs f32: mean |dT| bound {diff:.3g}")
     check(diff < 3e-2, "bf16 run drifted from f32")
 
-    # 3D: the reference's config 4 at full size, in f32 and bf16, and
-    # 1024^3 f32 with ntime cut to 160; (n, ..., ntime, dtype, steps of the
-    # shorter run compared with the plain version)
-    specs3 = {"512^3 f32": (512, SIGMA_3D, 0.05, 2.0, 3200, "float32", 64),
-              "512^3 bf16": (512, SIGMA_3D, 0.05, 2.0, 3200, "bfloat16", 64),
-              "1024^3 f32": (1024, SIGMA_3D, 0.05, 2.0, 160, "float32", 32)}
-    for key, (n, sigma, nu, dom_len, ntime, dtype, ncmp) in specs3.items():
+    for key, (n, sigma, nu, dom_len, ntime, dtype, ncmp) in MAIN_3D.items():
         runs[key] = main_path_run(key, n, 3, sigma, nu, dom_len, ntime, dtype,
                                   smi)
         short = main_path_run(f"{key} x{ncmp}", n, 3, sigma, nu, dom_len, ncmp,
                               dtype, smi)
-        ref = plain_gsum(n, 3, sigma, nu, dom_len, ncmp, dtype)
+        ref = plain_gsums[f"{key} x{ncmp}"]
         print(f"  {key} x{ncmp}: gsum {short['gsum']!r}, plain version {ref!r}")
         check(short["gsum"] == ref,
               f"{key}: main path's field is not the plain version's")
@@ -961,32 +1057,27 @@ def phase_main_path(smi):
     check(diff < 3e-2, "bf16 run drifted from f32")
 
     # the config-4 run through solve() gives the CLI run's field; its
-    # field after 1600 steps (half the run: the depth this check runs at,
-    # cut from 3200 to keep the whole script near its time) equals, bit
-    # for bit, the plain version's run in the same passes; and against the
-    # torch backend (the serial oracle's f32 arithmetic: the same order,
-    # two roundings per step, where the kernel rounds the update and
-    # s - 6c once) it stays inside the reference's f32 tolerance of 5e-6
-    # per 30 steps, scaled to its steps: the two forms differ by under an
-    # ulp per step and an FTCS step at r <= 1/6 does not grow a max-norm
-    # difference
-    cfg = HeatConfig(n=512, ndim=3, sigma=SIGMA_3D, nu=0.05, dom_len=2.0,
-                     ntime=3200, dtype="float32")
+    # field after CHECK_3D_STEPS steps equals, bit for bit, the plain
+    # version's run in the same passes; and against the torch backend (the
+    # serial oracle's f32 arithmetic: the same order, two roundings per
+    # step, where the kernel rounds the update and s - 6c once) it stays
+    # inside the reference's f32 tolerance of 5e-6 per 30 steps, scaled to
+    # its steps: the two forms differ by under an ulp per step and an FTCS
+    # step at r <= 1/6 does not grow a max-norm difference
+    cfg = check_3d_config()
     got = solve(cfg.with_(backend="cuda"), device="cuda")
     check(got.timing.kernel == "cuda ftcs3d", f"kernel {got.timing.kernel}")
     gsum = float(np.sum(np.asarray(got.T, np.float64)))
     check(gsum == runs["512^3 f32"]["gsum"], "solve() and run disagree")
-    cfg = cfg.with_(ntime=1600)
+    cfg = cfg.with_(ntime=CHECK_3D_STEPS)
     got = solve(cfg.with_(backend="cuda"), device="cuda")
-    T = initial_condition_device(cfg, "cuda")
-    for _ in range(cfg.ntime // 16):
-        T = ftcs_multistep_edges_cuda(T, cfg.r, 16, plain=True)
+    T = torch.from_numpy(np.load(WORK / "plain-512.npy")).to("cuda")
     ndiff = int((bits(got.T_dev) != bits(T)).sum())
     print(f"  512^3 f32 x{cfg.ntime} vs the plain version in the same "
           f"passes: {ndiff} cells differ")
     check(ndiff == 0, f"512^3 x{cfg.ntime} field is not the plain version's")
     del T
-    oracle = solve(cfg.with_(backend="torch"), device="cuda").T
+    oracle = np.load(WORK / "torch-512.npy")
     check(np.isfinite(got.T).all() and got.T.shape == oracle.shape,
           "bad 512^3 field")
     err = float(np.abs(got.T - oracle).max())
@@ -1128,6 +1219,92 @@ def phase_oracle():
         check(err <= F32_ATOL, f"3D {bc} cuda solve off the serial oracle")
         errs[f"64^3 {bc}"] = err
     return errs
+
+
+def supervised_bench(last_good=None) -> tuple:
+    """``python -m heat_tpu_torch.bench`` as a child from the repository
+    root, its wall budget 300 s, its cache at ``last_good`` (default the
+    committed ``labs/artifacts/last_bench.json``): rc 0, a last line
+    without ``error`` carrying the metric, the cache written with that
+    metric and value. Returns (the record, the child's seconds)."""
+    from heat_tpu_torch import bench
+
+    env = {**os.environ, "HEAT_BENCH_TOTAL_BUDGET_S": "300"}
+    cache = ROOT / "heat_tpu_torch/labs/artifacts/last_bench.json"
+    if last_good is not None:
+        env["HEAT_BENCH_LAST_GOOD"] = str(last_good)
+        cache = Path(last_good)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "heat_tpu_torch.bench"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=330)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    check(out.returncode == 0 and len(lines) >= 1,
+          f"python -m heat_tpu_torch.bench exited {out.returncode}: "
+          f"{out.stdout[-600:]} {out.stderr[-600:]}")
+    rec = json.loads(lines[-1])
+    check("error" not in rec and rec["metric"] == bench.METRIC
+          and rec["value"] > 0, f"supervised bench line {lines[-1][:300]}")
+    cached = json.loads(cache.read_text())
+    check(cached["metric"] == bench.METRIC and cached["value"] == rec["value"],
+          f"{cache} does not hold the line's record")
+    return rec, wall
+
+
+def phase_bench(smi) -> None:
+    """Phase 3c: ``bench`` through the CLI entry point at its card defaults,
+    the launch counts zeroed just before and read just after; then the
+    supervised entry as a child."""
+    import torch
+
+    from heat_tpu_torch import benchmark, cli
+    from heat_tpu_torch.machine import device_model
+    from heat_tpu_torch.ops import cuda_stencil as cs
+    from heat_tpu_torch.ops import pass_schedule
+
+    print("[phase 3c] python -m heat_tpu_torch bench (4096^2 f32 x 8192, "
+          "3 repeats)")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    cs.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench"])
+    launches = dict(cs.launches)
+    out = buf.getvalue()
+    print("".join(f"    | {line}\n" for line in out.splitlines()), end="")
+    check(rc == 0, f"bench exited {rc}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    check(rec["metric"] == benchmark.metric_name(4096)
+          and rec["platform"] == "cuda" and rec["kernel"] == "cuda ftcs2d",
+          f"bench record {rec['metric']} {rec['platform']} {rec['kernel']}")
+    per_pass = len(pass_schedule.passes((4096, 4096), torch.float32, 16))
+    per_call = per_pass * (benchmark.STEPS // 16)
+    check(rec["launches_per_call"] == per_call == 512,
+          f"bench: {rec['launches_per_call']} launches a call, expected "
+          f"{per_call} (512)")
+    # the warm-up's one fused call, then every call of the protocol
+    check(launches["ftcs2d"] == per_pass + rec["calls"] * per_call
+          and launches["ftcs3d"] == 0,
+          f"bench launched {launches}, expected {per_pass} + "
+          f"{rec['calls']} x {per_call} ftcs2d")
+    bound = device_model().peaks.hbm_bytes_per_s / 8
+    check(0 < rec["value"] < float("inf") and rec["raw_single_call"] > 0
+          and rec["vs_baseline"] == rec["value"] / bound,
+          f"bench numbers {rec['value']} {rec['vs_baseline']}")
+    print(f"[phase 3c] headline {rec['value']:.6g} points/s (raw single "
+          f"call {rec['raw_single_call']:.6g}), vs_baseline "
+          f"{rec['vs_baseline']:.6f} of the one-pass-per-step bound "
+          f"{bound:.6g} points/s ({rec['baseline_chip']}), "
+          f"{rec['launches_per_call']} ftcs2d launches a call, "
+          f"{launches['ftcs2d']} in the run on {smi}")
+    t_in = time.perf_counter() - t0
+    child, wall = supervised_bench(WORK / "last_bench.json")
+    print(f"[phase 3c] python -m heat_tpu_torch.bench: rc 0, "
+          f"{child['value']:.6g} points/s (raw {child['raw_single_call']:.6g},"
+          f" vs_baseline {child['vs_baseline']:.6f}), {wall:.1f} s as a "
+          f"child; bench in process {t_in:.1f} s on {smi}")
+    torch.cuda.empty_cache()
 
 
 def phase_chip_check(smi):
@@ -4955,6 +5132,7 @@ LAB_RUNS = (
     ("weak_scaling", ("--virtual", "4", "--local-n", "16384", "--steps",
                       "200")),
     ("sharded3d_check", ()),
+    ("run_all", ("--row-timeout", "900")),
 )
 
 
@@ -5024,6 +5202,21 @@ def lab_gates(name: str, rc: int, rec: dict) -> str:
             f"fuse {r['fuse_steps_requested']}: kf {r['kf']}, "
             f"{r['points_per_s_two_point']:.6g} pts/s, "
             f"{r['launches']['ftcs3d']} ftcs3d launches" for r in rec["rows"])
+    if name == "run_all":
+        rows = {r["name"]: r for r in rec["rows"]}
+        check(rc == 0 and len(rows) == 5
+              and not any("error" in r for r in rows.values()),
+              f"run_all rc {rc}: {[r.get('error') for r in rows.values()]}")
+        for r in rows.values():
+            if r["backend"] in ("cuda", "sharded"):
+                kname = "ftcs2d" if r["ndim"] == 2 else "ftcs3d"
+                check(r["platform"] == "cuda" and r["launches"][kname] > 0,
+                      f"run_all {r['name']}: no {kname} launches on the card")
+        return "; ".join(
+            f"{r['name']} {r['points_per_s']:.6g} pts/s (two-point "
+            f"{r['points_per_s_two_point'] or 0:.6g}, roofline_frac "
+            f"{r['roofline_frac']:.4f}), {r['kernel']}, launches "
+            f"{r['launches']}" for r in rows.values())
     raise KeyError(name)
 
 
@@ -5048,6 +5241,13 @@ def phase_labs(smi) -> None:
         line = lab_gates(name, rc, rec)
         print(f"[labs] {name}: {line} (rc {rc}, {time.perf_counter() - t0:.1f}"
               f" s) on {smi}", flush=True)
+    print("[labs] python -m heat_tpu_torch.bench", flush=True)
+    rec, wall = supervised_bench()
+    print(f"[labs] bench: {rec['value']:.6g} points/s (raw single call "
+          f"{rec['raw_single_call']:.6g}), vs_baseline "
+          f"{rec['vs_baseline']:.6f} ({rec['baseline_chip']}), "
+          f"{rec['launches_per_call']} ftcs2d launches a call; "
+          f"last_bench.json written ({wall:.1f} s) on {smi}", flush=True)
 
 
 def main() -> int:
@@ -5092,6 +5292,7 @@ def main() -> int:
             walls[name] = round(time.perf_counter() - t, 1)
 
     plain = start_plain_serve()
+    refs = start_plain_refs()
     checks = start_guard_checks()
     perfcheck = start_perfcheck()
     audit = lab_armed = lane_lab = None
@@ -5101,14 +5302,16 @@ def main() -> int:
         worlds = start_worlds()
         timed("0 card tests", phase_card_tests)
         audit = start_audit()
+        plain_gsums = timed("3 wait plain refs", plain_refs_result, refs)
         errs = timed("2 compare", phase_compare)
         errs.update(timed("2 lane compare", phase_lane_compare))
         serve_plain = timed("2 wait plain serve", plain_serve_result, plain)
         timed("7 wait worlds", finish_worlds, worlds)
         times = timed("2 times", phase_times)
         times.update(timed("2 lane times", phase_lane_times))
-        runs = timed("3 run", phase_main_path, smi)
+        runs = timed("3 run", phase_main_path, smi, plain_gsums)
         timed("3b calibrate", phase_calibrate, smi, runs)
+        timed("3c bench", phase_bench, smi)
         timed("4 oracle", phase_oracle)
         timed("4b chip_check", phase_chip_check, smi)
         serve = timed("5 serve", phase_serve, smi, serve_plain)
@@ -5128,7 +5331,7 @@ def main() -> int:
         shard = timed("7 sharded", phase_sharded, smi,
                       mega["requests"]["mega-hip"]["digest"], worlds)
     finally:
-        for child in [plain, audit, lab_armed, perfcheck, lane_lab,
+        for child in [plain, refs, audit, lab_armed, perfcheck, lane_lab,
                       *checks.values()]:
             if child is not None and child.poll() is None:
                 child.kill()

@@ -55,7 +55,10 @@ def make_advance(cfg: HeatConfig):
     def multi(T: torch.Tensor, k: int) -> torch.Tensor:
         if cfg.bc == "edges":
             out = spare[0]
-            if out is None or out.shape != T.shape or out.device != T.device:
+            # the spare is the previous call's input: never the live input
+            # (a ``warm`` on the field itself leaves the field there)
+            if out is None or out is T or out.shape != T.shape \
+                    or out.device != T.device:
                 out = torch.empty_like(T)
             res = ftcs_multistep_edges_cuda(T, r, k, out=out)
             spare[0] = T if res is out else None

@@ -19,7 +19,8 @@ per-tenant usage ledger), ``python -m heat_tpu_torch launch -n N -- run
 --backend sharded ...`` (N worker processes in one ``torch.distributed``
 world, the reference's ``mpirun -np N``), ``python -m heat_tpu_torch
 perfcheck`` (the performance regression gate over the labs' committed
-records) and ``python -m heat_tpu_torch info``.
+records), ``python -m heat_tpu_torch bench`` (the headline measurement)
+and ``python -m heat_tpu_torch info``.
 """
 
 from __future__ import annotations
@@ -682,6 +683,22 @@ def build_parser() -> argparse.ArgumentParser:
     plan.add_argument("--bc", choices=["edges", "ghost", "periodic"])
     plan.add_argument("--comm", choices=["direct", "staged"])
 
+    bench = sub.add_parser(
+        "bench",
+        help="headline throughput benchmark (grid points/s/card, f32 "
+             "ftcs2d kernel): prints a human summary, then the JSON "
+             "record that python -m heat_tpu_torch.bench prints")
+    bench.add_argument("--n", type=int, default=0,
+                       help="grid side (default 4096 on the card, 512 on "
+                            "the CPU)")
+    bench.add_argument("--steps", type=int, default=0,
+                       help="timesteps per timed call (default 8192 on the "
+                            "card, 256 on the CPU)")
+    bench.add_argument("--repeats", type=int, default=3)
+    bench.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                       help="where the advance runs (default cuda; cpu "
+                            "times the kernel's plain version)")
+
     cal = sub.add_parser(
         "calibrate",
         help="fit the pass planner's chip model on the card (a memory "
@@ -722,8 +739,11 @@ def _warn_if_unstable(cfg: HeatConfig) -> None:
     """Warn when sigma exceeds the explicit FTCS stability bound 1/(2*ndim)
     (fortran/serial/heat.f90:15-17) — a warning, not an error, as in the
     reference."""
-    lim = 1.0 / (2 * cfg.ndim)
-    if cfg.sigma > lim + 1e-12:
+    from .models import get_model
+
+    model = get_model(cfg)
+    if not model.is_stable(cfg):
+        lim = model.stability_limit()
         master_print(
             f"WARNING: sigma={cfg.sigma:g} exceeds the explicit FTCS "
             f"stability bound 1/(2*ndim)={lim:g} for ndim={cfg.ndim} — "
@@ -2073,6 +2093,40 @@ def cmd_viz(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """The headline measurement inline (``benchmark.py``, shared with the
+    supervised ``python -m heat_tpu_torch.bench``). The defaults shrink on
+    the CPU so the command stays interactive there."""
+    from .backends import resolve_device
+    from .benchmark import N, STEPS, headline_measure
+
+    if args.repeats < 1:
+        print("bench: --repeats must be >= 1", file=sys.stderr)
+        return 2
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:  # no card where one was asked for
+        print(f"bench: {e}", file=sys.stderr)
+        return 2
+    on_card = device.type == "cuda"
+    n = args.n or (N if on_card else 512)
+    steps = args.steps or (STEPS if on_card else 256)
+    rec = headline_measure(n=n, steps=steps, repeats=args.repeats,
+                           device=device)
+    if rec["vs_baseline"] is not None:
+        print(f"{rec['value']:.4g} points/s "
+              f"({100 * rec['vs_baseline']:.0f}% of the one-pass-per-step "
+              f"bound of {rec['device']}; raw single-call "
+              f"{rec['raw_single_call']:.4g}) on {rec['platform']}, "
+              f"{rec['launches_per_call']} {rec['kernel']} launches a call")
+    else:
+        print(f"{rec['value']:.4g} points/s on {rec['platform']} "
+              f"(raw single-call {rec['raw_single_call']:.4g}; "
+              f"{rec['baseline_chip']})")
+    print(json.dumps(rec))
+    return 0
+
+
 def cmd_calibrate(args) -> int:
     from .calibrate import run as calibrate_run
 
@@ -2219,7 +2273,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "fleet": cmd_fleet, "usage": cmd_usage, "trace": cmd_trace,
             "check": cmd_check, "audit": cmd_audit,
             "perfcheck": cmd_perfcheck, "info": cmd_info, "plan": cmd_plan,
-            "viz": cmd_viz, "calibrate": cmd_calibrate}[args.command](args)
+            "viz": cmd_viz, "calibrate": cmd_calibrate,
+            "bench": cmd_bench}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -61,7 +61,9 @@ def test_import_loads_no_jax():
                "heat_tpu_torch.labs.overlap_ab, "
                "heat_tpu_torch.labs.collective_overhead, "
                "heat_tpu_torch.labs.weak_scaling, "
-               "heat_tpu_torch.labs.sharded3d_check; "
+               "heat_tpu_torch.labs.sharded3d_check, "
+               "heat_tpu_torch.benchmark, heat_tpu_torch.bench, "
+               "heat_tpu_torch.models, heat_tpu_torch.labs.run_all; "
                "print(sorted(m for m in sys.modules "
                "if m.split('.')[0] in ('jax', 'jaxlib', 'heat_tpu')))")
     assert out.returncode == 0, out.stderr
