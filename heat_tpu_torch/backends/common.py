@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..config import HeatConfig
-from ..runtime import async_io, checkpoint, debug, faults, prof
+from ..runtime import async_io, checkpoint, debug, faults
 from ..runtime import trace as trace_mod
 from ..runtime.logging import master_print
 from ..runtime.timing import Timing, sync, two_point_rate
@@ -143,31 +143,24 @@ def drive(
     device = T_dev.device
 
     # request-scoped tracing (runtime/trace.py): the solo path records
-    # into the process-global ring, so `run --trace` puts the warm-up, the
-    # chunk launches, checkpoint snapshots and the writer's D2H+publish
-    # spans on one timeline
+    # into the process-global ring, so `run --trace` puts the upload, the
+    # warm-up, the chunk launches, checkpoint snapshots, the writer's
+    # D2H+publish spans and the fetch on one timeline, and a recording
+    # torch.profiler gets each span's markers
     tracer = trace_mod.get_tracer()
     drv_track = tracer.thread_track("solve") if tracer.enabled else None
 
     compile_s = 0.0
     if remaining > 0:
-        t_c0 = time.perf_counter()
+        t_c0 = tracer.begin(trace_mod.WARM)
         sizes = chunk_sizes(cfg, remaining)
-        label = f"solve {cfg.backend} n{cfg.n}^{cfg.ndim} {cfg.dtype}"
         for k in sizes:
-            tk = time.perf_counter()
             warm(T_dev.clone(), k)
             ops.sync(T_dev)
-            # the compile observatory's tap: the port builds no program
-            # per size, so a warm-up (first launches, the library's load)
-            # is its one-time cost per (solve, k)
-            prof.compile_log().note(label, k, time.perf_counter() - tk)
-        compile_s = time.perf_counter() - t_c0
-        if tracer.enabled:
-            tracer.complete("compile", drv_track, t_c0, cat="solve",
-                            args={"sizes": sizes})
+        compile_s = tracer.end(trace_mod.WARM, t_c0,
+                               args={"sizes": sizes}) - t_c0
 
-    t0 = time.perf_counter()
+    t0 = tracer.begin(trace_mod.SOLVE)
     step = start_step
     async_on = cfg.use_async_io() and bool(cfg.checkpoint_every
                                            or cfg.check_numerics)
@@ -258,15 +251,14 @@ def drive(
             while True:
                 while step < cfg.ntime:
                     k = min(chunk, cfg.ntime - step)
-                    t_ch = time.perf_counter() if tracer.enabled else 0.0
+                    t_ch = tracer.begin(trace_mod.CHUNK)
                     T_dev = advance(T_dev, k)
                     step += k
-                    if tracer.enabled:
-                        # dispatch-side span of one launch group: the
-                        # enqueue cost, not the device time (the loop
-                        # never fences)
-                        tracer.complete(f"chunk @{step}", drv_track, t_ch,
-                                        cat="solve", args={"k": k})
+                    # dispatch-side span of one launch group: the enqueue
+                    # cost, not the device time (the loop never fences)
+                    tracer.end(trace_mod.CHUNK, t_ch, args={"k": k},
+                               name=f"chunk @{step}" if tracer.enabled
+                               else None)
                     if plan is not None:
                         plan.maybe_crash(step)
                         T_dev = plan.maybe_nan(step, T_dev)
@@ -308,11 +300,9 @@ def drive(
                 if pending_flag is None or not _settle_pending():
                     break
                 # final boundary flagged and rolled back: resume stepping
-            t_sync = time.perf_counter() if tracer.enabled else 0.0
+            t_sync = tracer.begin(trace_mod.FINAL_SYNC)
             ops.sync(T_dev)
-            if tracer.enabled:
-                tracer.complete("final-sync", drv_track, t_sync,
-                                cat="solve")
+            tracer.end(trace_mod.FINAL_SYNC, t_sync)
     except BaseException:
         # drain-on-exception: every queued snapshot still lands on disk (a
         # blow-up's last good boundary is exactly the state a resume
@@ -320,11 +310,9 @@ def drive(
         if writer is not None:
             writer.drain(raise_errors=False)
         raise
-    solve_s = time.perf_counter() - t0
-    if tracer.enabled:
-        tracer.complete("solve", drv_track, t0, t0 + solve_s, cat="solve",
-                        args={"steps": remaining, "n": cfg.n,
-                              "backend": cfg.backend})
+    solve_s = tracer.end(trace_mod.SOLVE, t0,
+                         args={"steps": remaining, "n": cfg.n,
+                               "backend": cfg.backend}) - t0
     if writer is not None:
         # post-solve flush, deliberately OUTSIDE solve_s: the device has
         # finished stepping, so the remaining writes overlap nothing
@@ -340,18 +328,23 @@ def drive(
                             fence=None if ops is TENSOR else ops.sync)
         tp_rate, tp_fell_back = tp[0], tp.fell_back
 
-    whole = ops.gather(T_dev) if fetch or cfg.report_sum else None
-    T_host = None if whole is None or not fetch else host_fetch(whole)
-    gsum = gsum_dtype = None
-    if cfg.report_sum and whole is not None:
-        # the reference's commented-out global reduction
-        # (mpi+cuda/heat.F90:266-273), accumulated in f64 (on the host, or
-        # where the field lies without a fetch) so every backend reports
-        # the same sum regardless of storage dtype
-        gsum = (float(np.sum(np.asarray(T_host, np.float64)))
-                if T_host is not None
-                else float(torch.sum(whole, dtype=torch.float64)))
-        gsum_dtype = "float64"
+    T_host = gsum = gsum_dtype = None
+    if fetch or cfg.report_sum:
+        t_f = tracer.begin(trace_mod.FETCH)
+        whole = ops.gather(T_dev)
+        if whole is not None:
+            if fetch:
+                T_host = host_fetch(whole)
+            if cfg.report_sum:
+                # the reference's commented-out global reduction
+                # (mpi+cuda/heat.F90:266-273), accumulated in f64 (on the
+                # host, or where the field lies without a fetch) so every
+                # backend reports the same sum regardless of storage dtype
+                gsum = (float(np.sum(np.asarray(T_host, np.float64)))
+                        if T_host is not None
+                        else float(torch.sum(whole, dtype=torch.float64)))
+                gsum_dtype = "float64"
+        tracer.end(trace_mod.FETCH, t_f)
     timing = Timing(total_s=time.perf_counter() - t_all0,
                     compile_s=compile_s, solve_s=solve_s, steps=remaining,
                     points=cfg.points,
@@ -367,16 +360,22 @@ def drive(
 
 def resolve_initial_field(cfg: HeatConfig, T0: Optional[np.ndarray], device):
     """(T on ``device``, start_step): explicit T0 > checkpoint (both host
-    arrays, copied over) > IC built directly on the device."""
+    arrays, copied over) > IC built directly on the device; inside the
+    ``upload`` span."""
+    tracer = trace_mod.get_tracer()
+    t0 = tracer.begin(trace_mod.UPLOAD)
     T0_host, start_step = load_or_init(cfg, T0, default_ic=False)
     if T0_host is None:
         from ..grid import initial_condition_device
 
-        return initial_condition_device(cfg, device), start_step
-    # torch.tensor copies: the drive loop later reuses this buffer, so it must
-    # not alias the caller's array
-    T = torch.tensor(np.asarray(T0_host), device=device)
-    return T.to(torch_dtype(cfg.dtype)), start_step
+        T = initial_condition_device(cfg, device)
+    else:
+        # torch.tensor copies: the drive loop later reuses this buffer, so
+        # it must not alias the caller's array
+        T = torch.tensor(np.asarray(T0_host), device=device).to(
+            torch_dtype(cfg.dtype))
+    tracer.end(trace_mod.UPLOAD, t0)
+    return T, start_step
 
 
 def _agree_resume_step(local_step: Optional[int]) -> Optional[int]:

@@ -53,6 +53,7 @@ from ..ops.stencil import accum_dtype_for, laplacian_interior
 from ..parallel.comm import DistComm, LocalComm
 from ..parallel.halo import halo_exchange, halo_pad, post_axis
 from ..parallel.mesh import build_mesh, validate_divisible
+from ..runtime import trace as trace_mod
 from ..runtime.logging import master_print
 from ..utils import torch_dtype
 from . import SolveResult, register
@@ -351,11 +352,15 @@ def make_overlap_multistep(cfg: HeatConfig, comm):
                                ksteps, keep, dst)
             return outs
         # 2) + 3) each axis's slabs, then the regions whose highest axis
-        # it is, in the next axis's flight window
+        # it is, in the next axis's flight window: their inputs (the
+        # exchange's unpack), then their kernels
+        tracer = trace_mod.get_tracer()
         for d in range(nd):
             recvs[d] = pending()
             if d + 1 < nd:
                 pending = post_axis(shards, recvs, d + 1, comm, bc_value, w)
+            t_u = tracer.begin(trace_mod.HALO_UNPACK)
+            runs = []
             for sigma, _ in regions[1:]:
                 if max(e for e, s in enumerate(sigma) if s) != d:
                     continue
@@ -366,11 +371,30 @@ def make_overlap_multistep(cfg: HeatConfig, comm):
                        for s, L in zip(sigma, Lp)]
                 for i, p in enumerate(shards):
                     recv = {e: recvs[e][i] for e in range(d + 1)}
-                    run_region(outs[i], region_input(p, recv, sigma, w),
-                               origin, bounds[i], ksteps, keep, dst)
+                    runs.append((i, region_input(p, recv, sigma, w), origin,
+                                 keep, dst))
+            tracer.end(trace_mod.HALO_UNPACK, t_u)
+            for i, inp, origin, keep, dst in runs:
+                run_region(outs[i], inp, origin, bounds[i], ksteps, keep,
+                           dst)
         return outs
 
     return padded_multi
+
+
+def _traced_block(padded_multi):
+    """``padded_multi`` inside a ``block`` span: one fused block's host
+    work, its exchange and its kernels' dispatch."""
+
+    def block(shards: Sequence[torch.Tensor], w: int,
+              ksteps: int) -> List[torch.Tensor]:
+        tracer = trace_mod.get_tracer()
+        t0 = tracer.begin(trace_mod.BLOCK)
+        out = padded_multi(shards, w, ksteps)
+        tracer.end(trace_mod.BLOCK, t0)
+        return out
+
+    return block
 
 
 def _put(out, dst, src, keep) -> None:
@@ -386,9 +410,9 @@ def make_local_multistep(cfg: HeatConfig, comm, kernel: str):
     fused steps on each padded shard (input and output padded; the
     output's margins are garbage). With ``--exchange overlap`` the
     exchange flies while the shards compute
-    (``make_overlap_multistep``)."""
+    (``make_overlap_multistep``). Each call is a ``block`` span."""
     if cfg.exchange == "overlap":
-        return make_overlap_multistep(cfg, comm)
+        return _traced_block(make_overlap_multistep(cfg, comm))
     r = cfg.r
     bc_value = cfg.bc_value
     periodic = cfg.bc == "periodic"
@@ -426,7 +450,7 @@ def make_local_multistep(cfg: HeatConfig, comm, kernel: str):
             out.append(p)
         return out
 
-    return padded_multi
+    return _traced_block(padded_multi)
 
 
 def fuse_depth_sharded(cfg: HeatConfig, axis_sizes) -> int:

@@ -18,6 +18,11 @@ the corners). That gives in every cell the bytes of the reference's
 ``seq`` form (axes in sequence with full-extent slabs), so corner ghosts
 hold true diagonal-neighbour data, what fused multi-step updates read;
 ``--exchange seq`` runs it too.
+
+Each axis's exchange is four spans of the solo path's tracer
+(``runtime/trace.py``): ``halo.pack`` (cutting the send slabs),
+``halo.post`` (enqueueing them on the communicator), ``halo.finish``
+(waiting for the receives) and ``halo.unpack`` (the ghost writes).
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from typing import Callable, Dict, List, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from ..runtime import trace as trace_mod
 
 
 def _slab(nd: int, d: int, sl: slice) -> tuple:
@@ -46,6 +53,8 @@ def post_axis(padded: Sequence[torch.Tensor], recvs: Dict[int, List[tuple]],
     slabs span the full padded extent of the other axes, with the earlier
     axes' received corners (``recvs[e]``, e < d) stitched in; a global
     edge's slab holds ``bc_value``."""
+    tracer = trace_mod.get_tracer()
+    t0 = tracer.begin(trace_mod.HALO_PACK)
     nd = padded[0].dim()
     w = width
     lo_sl, hi_sl = slice(w, 2 * w), slice(-2 * w, -w)
@@ -65,11 +74,17 @@ def post_axis(padded: Sequence[torch.Tensor], recvs: Dict[int, List[tuple]],
                 send_hi[_slab(nd, e, slice(0, w))] = ep[_slab(nd, d, hi_sl)]
                 send_hi[_slab(nd, e, slice(-w, None))] = en[_slab(nd, d, hi_sl)]
         sends.append((send_lo, send_hi))
+    tracer.end(trace_mod.HALO_PACK, t0)
+    t0 = tracer.begin(trace_mod.HALO_POST)
     finish = comm.post(d, sends)
+    tracer.end(trace_mod.HALO_POST, t0)
 
     def done() -> list:
-        return [(_or_bc(fp, lo, bc_value), _or_bc(fn, hi, bc_value))
-                for (lo, hi), (fp, fn) in zip(sends, finish())]
+        t0 = tracer.begin(trace_mod.HALO_FINISH)
+        out = [(_or_bc(fp, lo, bc_value), _or_bc(fn, hi, bc_value))
+               for (lo, hi), (fp, fn) in zip(sends, finish())]
+        tracer.end(trace_mod.HALO_FINISH, t0)
+        return out
 
     return done
 
@@ -91,10 +106,13 @@ def apply_recvs(padded: Sequence[torch.Tensor], recvs: Dict[int, List[tuple]],
     corners, and no shard's slab is read after an axis wrote into it."""
     w = width
     nd = padded[0].dim()
+    tracer = trace_mod.get_tracer()
     for d in sorted(recvs):
+        t0 = tracer.begin(trace_mod.HALO_UNPACK)
         for p, (from_prev, from_next) in zip(padded, recvs[d]):
             p[_slab(nd, d, slice(0, w))] = from_prev
             p[_slab(nd, d, slice(-w, None))] = from_next
+        tracer.end(trace_mod.HALO_UNPACK, t0)
     return padded
 
 

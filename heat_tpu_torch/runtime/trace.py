@@ -54,6 +54,17 @@ Event model (Chrome trace-event format, the subset Perfetto renders):
 Tracks are registered names: one *process* row per bucket group with one
 *thread* row per lane (the lane occupancy timeline), plus process rows
 for the scheduler / writer / gateway threads and the admission queues.
+
+Spans of the solo path (``Span``, ``Tracer.begin`` / ``Tracer.end``): the
+drive loop's upload, warm-up, chunks, final sync, solve and fetch, and the
+sharded backend's blocks with the halo exchange's pack, post, finish and
+unpack, are ``X`` spans on the calling thread's ``solve`` track. While a
+``torch.profiler`` records, each span also puts two zero-width ranges into
+the profiler's timeline, ``heat.<span>>`` where it begins and
+``heat.<span><`` where it ends: host events on the device trace's clock,
+which readers pair. A range that enclosed the span's device work would
+also appear on the device's rows as an annotation spanning that work, and
+a reader summing device time would count it as a kernel.
 """
 
 from __future__ import annotations
@@ -93,6 +104,60 @@ def process_uptime_s() -> float:
     return time.monotonic() - PROCESS_START
 
 
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` records. Bound to torch's own check
+    on the first call (this module imports no torch)."""
+    global _profiling
+    import torch
+
+    _profiling = torch._C._autograd._profiler_enabled
+    return _profiling()
+
+
+def _mark(name: str) -> None:
+    """A zero-width range ``name`` in the recording profiler's timeline:
+    entered and left at once, so it encloses no device work. The range is
+    torch's ``_RecordFunctionFast``, several times cheaper than
+    ``record_function``."""
+    global _Range
+    if _Range is None:
+        import torch
+
+        _Range = torch._C._profiler._RecordFunctionFast
+    with _Range(name):
+        pass
+
+
+_Range = None  # the profiler's range type, resolved by the first _mark
+
+
+class Span:
+    """One kind of span: its name in the ring and its two profiler
+    markers, ``heat.<marker>>`` and ``heat.<marker><``, formatted once."""
+
+    __slots__ = ("name", "open", "close")
+
+    def __init__(self, name: str, marker: Optional[str] = None):
+        self.name = name
+        m = f"heat.{marker or name}"
+        self.open, self.close = m + ">", m + "<"
+
+
+# the solo path's spans (``backends/common.py``, ``backends/sharded.py``,
+# ``parallel/halo.py``); the warm-up keeps the reference's ring name
+UPLOAD = Span("upload")
+WARM = Span("compile", "warm")
+CHUNK = Span("chunk")            # ring name ``chunk @<step>``
+FINAL_SYNC = Span("final-sync")
+SOLVE = Span("solve")
+FETCH = Span("fetch")
+BLOCK = Span("block")
+HALO_PACK = Span("halo.pack")
+HALO_POST = Span("halo.post")
+HALO_FINISH = Span("halo.finish")
+HALO_UNPACK = Span("halo.unpack")
+
+
 # Event tuples: (ts, dur, ph, name, cat, pid, tid, xid, args)
 #   ts/dur   seconds on the time.perf_counter clock (the scheduler's
 #            wall_clock seam uses the same clock, so queue-wait spans can
@@ -127,6 +192,8 @@ class Tracer:
                                             # never grep the filesystem)
         self.dropped_hint = False           # ring wrapped at least once
         self._appended = 0
+        # each thread's ``solve`` track, looked up once (``end``)
+        self._solve = threading.local()
         # race sanitizer (no-op unless HEAT_TPU_RACECHECK): the exempt
         # trio is the allow-marked lock-free ring — _append stays a
         # zero-instrumentation hot path even when the sanitizer is armed
@@ -226,6 +293,30 @@ class Tracer:
                       args))
         self._append((t1, None, "e", name, cat, track[0], track[1], xid,
                       None))
+
+    def begin(self, span: Span) -> float:
+        """Open ``span``: its start marker while a profiler records, and
+        its start on the ring's clock, which ``end`` takes back."""
+        if _profiling():
+            _mark(span.open)
+        return time.perf_counter()
+
+    def end(self, span: Span, t0: float, args: Optional[dict] = None,
+            name: Optional[str] = None) -> float:
+        """Close ``span`` opened at ``t0``: its end marker while a
+        profiler records, and an ``X`` event named ``name`` (default the
+        span's) in category ``solve`` on the calling thread's ``solve``
+        track while the ring records. Returns the end time."""
+        t1 = time.perf_counter()
+        if _profiling():
+            _mark(span.close)
+        if self.enabled:
+            track = getattr(self._solve, "track", None)
+            if track is None:
+                track = self._solve.track = self.thread_track("solve")
+            self._append((t0, t1 - t0, "X", name or span.name, "solve",
+                          track[0], track[1], None, args))
+        return t1
 
     def _append(self, ev: tuple) -> None:
         self._appended += 1
