@@ -37,7 +37,7 @@ from ..runtime.debug import LOCK_RANKS
 from .core import Context, Violation, attr_chain, dotted, register
 
 # one table with the dynamic watchdog's: fleet < gateway < engine < writer
-# < cache < observatory
+# < cache < observatory < pinned
 RANKS = dict(LOCK_RANKS)
 
 # lock-expression classification: (path suffix the file must match,
@@ -59,6 +59,7 @@ LOCK_EXPRS: List[Tuple[str, Tuple[str, ...], str]] = [
     ("runtime/prof.py", ("_COMPILE_LOG_LOCK",), "observatory"),
     ("runtime/trace.py", ("_lock",), "observatory"),
     ("runtime/trace.py", ("_GLOBAL_LOCK",), "observatory"),
+    ("backends/pinned.py", ("_lock",), "pinned"),
 ]
 
 # callables known to ACQUIRE a lock when invoked (attr-chain suffixes).

@@ -31,6 +31,7 @@ from ..runtime.logging import master_print
 from ..runtime.timing import Timing, sync, two_point_rate
 from ..utils import torch_dtype
 from . import SolveResult
+from . import pinned
 
 # --on-nan rollback: how many times the same flagged step may be retried
 # before the blow-up is declared deterministic (a genuine CFL violation
@@ -49,6 +50,62 @@ def host_fetch(x) -> np.ndarray:
         t = t.float()
     # heat-tpu: allow[hot-path-purity] the drive loop's D2H seam itself
     return t.numpy()
+
+
+# the host dtypes a field is uploaded from
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                 np.dtype(np.float64): torch.float64,
+                 np.dtype(np.float16): torch.float16}
+
+
+def fetch_field(x, pool: Optional[pinned.PinnedPool] = None):
+    """``drive``'s fetch: ``(host copy, pinned)``. A whole field of at
+    least ``pinned.MIN_BYTES`` on the pool's device is copied by DMA into
+    a buffer lent by ``pool`` (default ``pinned.POOL``) and returned as
+    the array over that buffer, which goes back to the pool when the
+    caller's last reference to the array or a view of it goes; bf16 is
+    widened on the device, exactly, as ``host_fetch`` widens it on the
+    host. Anything else, or a pool that declines, takes ``host_fetch``."""
+    pool = pinned.POOL if pool is None else pool
+    if isinstance(x, torch.Tensor) and x.device.type == pool.device_type:
+        dtype = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+        out = (pool.lend("fetch", x.shape, dtype)
+               if x.numel() * dtype.itemsize >= pinned.MIN_BYTES else None)
+        if out is not None:
+            # blocks until the DMA is done
+            torch.from_numpy(out).copy_(x.detach().to(dtype))
+            pool.count("fetch.pinned")
+            return out, True
+    pool.count("fetch.pageable")
+    return host_fetch(x), False
+
+
+def upload_field(arr: np.ndarray, device,
+                 pool: Optional[pinned.PinnedPool] = None):
+    """``(tensor on device, pinned)``: a copy of ``arr`` in its own dtype,
+    never aliasing it. An array of at least ``pinned.MIN_BYTES`` bound for
+    the pool's device is copied (by PyTorch's threaded copy) into a
+    staging buffer lent by ``pool`` (default ``pinned.POOL``), and from
+    there by one DMA, which the copy waits for, so the staging buffer is
+    free again when this returns. Anything else, or a pool that declines,
+    takes ``torch.tensor``'s pageable copy."""
+    pool = pinned.POOL if pool is None else pool
+    dev = torch.device("cpu" if device is None else device)
+    dtype = _TORCH_DTYPES.get(arr.dtype)
+    stage = (pool.lend("upload", arr.shape, dtype)
+             if dev.type == pool.device_type and dtype is not None
+             and arr.nbytes >= pinned.MIN_BYTES else None)
+    if stage is None:
+        pool.count("upload.pageable")
+        return torch.tensor(arr, device=dev), False
+    if arr.flags.c_contiguous and arr.flags.writeable:
+        torch.from_numpy(stage).copy_(torch.from_numpy(arr))
+    else:
+        np.copyto(stage, arr)
+    T = torch.empty(arr.shape, dtype=dtype, device=dev)
+    T.copy_(torch.from_numpy(stage))
+    pool.count("upload.pinned")
+    return T, True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -332,9 +389,11 @@ def drive(
     if fetch or cfg.report_sum:
         t_f = tracer.begin(trace_mod.FETCH)
         whole = ops.gather(T_dev)
+        fetched = {"pinned": False, "bytes": 0}
         if whole is not None:
             if fetch:
-                T_host = host_fetch(whole)
+                T_host, fetched["pinned"] = fetch_field(whole)
+                fetched["bytes"] = T_host.nbytes
             if cfg.report_sum:
                 # the reference's commented-out global reduction
                 # (mpi+cuda/heat.F90:266-273), accumulated in f64 (on the
@@ -344,7 +403,7 @@ def drive(
                         if T_host is not None
                         else float(torch.sum(whole, dtype=torch.float64)))
                 gsum_dtype = "float64"
-        tracer.end(trace_mod.FETCH, t_f)
+        tracer.end(trace_mod.FETCH, t_f, args=fetched)
     timing = Timing(total_s=time.perf_counter() - t_all0,
                     compile_s=compile_s, solve_s=solve_s, steps=remaining,
                     points=cfg.points,
@@ -360,21 +419,23 @@ def drive(
 
 def resolve_initial_field(cfg: HeatConfig, T0: Optional[np.ndarray], device):
     """(T on ``device``, start_step): explicit T0 > checkpoint (both host
-    arrays, copied over) > IC built directly on the device; inside the
-    ``upload`` span."""
+    arrays, copied over by ``upload_field``) > IC built directly on the
+    device; inside the ``upload`` span."""
     tracer = trace_mod.get_tracer()
     t0 = tracer.begin(trace_mod.UPLOAD)
     T0_host, start_step = load_or_init(cfg, T0, default_ic=False)
+    moved = {"pinned": False, "bytes": 0}
     if T0_host is None:
         from ..grid import initial_condition_device
 
         T = initial_condition_device(cfg, device)
     else:
-        # torch.tensor copies: the drive loop later reuses this buffer, so
-        # it must not alias the caller's array
-        T = torch.tensor(np.asarray(T0_host), device=device).to(
-            torch_dtype(cfg.dtype))
-    tracer.end(trace_mod.UPLOAD, t0)
+        # a copy: the drive loop later reuses this buffer, so it must not
+        # alias the caller's array; converted on the device
+        T, moved["pinned"] = upload_field(np.asarray(T0_host), device)
+        moved["bytes"] = T0_host.nbytes
+        T = T.to(torch_dtype(cfg.dtype))
+    tracer.end(trace_mod.UPLOAD, t0, args=moved)
     return T, start_step
 
 

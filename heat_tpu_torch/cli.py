@@ -806,6 +806,10 @@ def cmd_run(args) -> int:
         master_print(f"wrote trace {trace_path} (open in Perfetto / "
                      f"chrome://tracing; summary: python -m heat_tpu_torch "
                      f"trace {trace_path})")
+        from .backends import pinned
+
+        master_print("field transfers: " + ", ".join(
+            f"{k} {v}" for k, v in pinned.TALLY.items()))
     if res.gsum is not None:
         master_print(f"Sum of Temperature: {res.gsum:.10g}")
 

@@ -68,9 +68,11 @@ from typing import List, Optional
 # holding a fleet lock, never the reverse. "cache" (the solve cache,
 # serve/solvecache.py) sits between writer and observatory: the writer
 # thread publishes entries on its result path, and a cache consult may
-# feed observatory counters — never the reverse.
+# feed observatory counters — never the reverse. "pinned" (the drive
+# loop's pool of page-locked buffers, backends/pinned.py) is a leaf that
+# any thread may take under any other lock, so it ranks last.
 LOCK_RANKS = {"fleet": -10, "gateway": 0, "engine": 10, "writer": 20,
-              "cache": 25, "observatory": 30}
+              "cache": 25, "observatory": 30, "pinned": 40}
 
 
 class LockOrderError(RuntimeError):

@@ -10,6 +10,7 @@ reference. On a host without a card every case skips.
 """
 
 import functools
+import hashlib
 import math
 from unittest import mock
 
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from heat_tpu_torch import config
-from heat_tpu_torch.backends import sharded, solve
+from heat_tpu_torch.backends import common, pinned, sharded, solve
 from heat_tpu_torch.config import HeatConfig
 from heat_tpu_torch.grid import ic_envelope
 from heat_tpu_torch.ops import cuda_lab
@@ -566,3 +567,100 @@ def test_armed_engine_on_the_card_has_no_violation(monkeypatch, tmp_path):
     assert set(locks["taken"]) >= {"engine", "writer", "cache",
                                    "observatory"}
     assert races["instrumented"] >= 4
+
+
+# --- the drive loop's page-locked transfers (backends/pinned.py) -------------
+
+def _pinned_cfg(dtype="float32", ntime=32):
+    return config.variant_config("python_cuda").with_(
+        backend="cuda", n=4096, ntime=ntime, dtype=dtype, sigma=0.2,
+        heartbeat_every=0, write_int=False)
+
+
+def _host_field(seed, n=4096):
+    return np.random.default_rng(seed).random((n, n), dtype=np.float32) + 0.5
+
+
+@pytest.fixture
+def fresh_pool(monkeypatch):
+    """A pool of its own for the drive loop, at the shipped cap."""
+    pool = pinned.PinnedPool()
+    monkeypatch.setattr(pinned, "POOL", pool)
+    return pool
+
+
+def test_pinned_transfers_move_the_pageable_path_s_bytes():
+    pool = pinned.PinnedPool()
+    arr = _host_field(11)
+    first, was_pinned = common.upload_field(arr, "cuda", pool)
+    assert not was_pinned
+    T, was_pinned = common.upload_field(arr, "cuda", pool)
+    assert was_pinned
+    assert torch.equal(T.view(torch.int32), first.view(torch.int32))
+    assert not common.fetch_field(T, pool)[1]      # the first: pageable
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (T * 3 - 2).to(dtype)
+        got, was_pinned = common.fetch_field(x, pool)
+        assert was_pinned and torch.from_numpy(got).is_pinned()
+        want = common.host_fetch(x)
+        assert got.dtype == want.dtype == np.float32
+        assert got.tobytes() == want.tobytes()
+    assert pool.tally == {"upload.pinned": 1, "upload.pageable": 1,
+                          "fetch.pinned": 2, "fetch.pageable": 1}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_solve_through_the_pool_ends_on_the_pageable_path_s_bytes(
+        fresh_pool, dtype):
+    cfg, T0 = _pinned_cfg(dtype), _host_field(12)
+    want = solve(cfg, T0=T0, device="cuda")
+    got = solve(cfg, T0=T0, device="cuda")
+    assert fresh_pool.tally == {"upload.pinned": 1, "upload.pageable": 1,
+                                "fetch.pinned": 1, "fetch.pageable": 1}
+    assert got.T.tobytes() == want.T.tobytes()
+
+
+def test_a_held_result_is_untouched_by_the_next_solve(fresh_pool):
+    cfg = _pinned_cfg()
+    solve(cfg, T0=_host_field(13), device="cuda")
+    a = solve(cfg, T0=_host_field(13), device="cuda").T
+    kept = a.copy()
+    b = solve(cfg, T0=_host_field(14), device="cuda").T
+    assert fresh_pool.tally["fetch.pinned"] == 2
+    assert not np.shares_memory(a, b) and not np.array_equal(a, b)
+    assert a.tobytes() == kept.tobytes()
+
+
+def test_the_pool_keeps_its_cap_over_fifty_held_results(fresh_pool):
+    cfg, base = _pinned_cfg(ntime=8), _host_field(15)
+    field = base.nbytes
+    kept = []
+    for i in range(50):
+        T = solve(cfg, T0=base + np.float32(i), device="cuda").T
+        kept.append((T, hashlib.sha1(T).hexdigest()))
+        assert fresh_pool.held_bytes <= fresh_pool.cap_bytes
+        assert fresh_pool.held_bytes == min(i, 16) * field
+    # the first solve moves its fields pageable; from the second, each
+    # upload stages in the block its solve's fetch then keeps: 16 results
+    # fill the cap, and from the 18th solve both fall back
+    assert fresh_pool.tally == {"upload.pinned": 16, "upload.pageable": 34,
+                                "fetch.pinned": 16, "fetch.pageable": 34}
+    for T, digest in kept:
+        assert hashlib.sha1(T).hexdigest() == digest
+
+
+def test_a_refused_pinned_allocation_leaves_the_next_solve_clean(
+        monkeypatch):
+    def refuse(shape, dtype):
+        # more than a process can address: CUDA refuses it at once
+        return torch.empty(1 << 50, dtype=torch.uint8, pin_memory=True)
+
+    pool = pinned.PinnedPool(cap_bytes=1 << 60, alloc=refuse)
+    monkeypatch.setattr(pinned, "POOL", pool)
+    cfg, T0 = _pinned_cfg(), _host_field(16)
+    runs = [solve(cfg, T0=T0, device="cuda") for _ in range(3)]
+    torch.cuda.synchronize()
+    assert pool.tally == {"upload.pinned": 0, "upload.pageable": 3,
+                          "fetch.pinned": 0, "fetch.pageable": 3}
+    assert pool.held_bytes == 0
+    assert runs[2].T.tobytes() == runs[0].T.tobytes()
