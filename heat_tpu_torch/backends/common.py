@@ -58,6 +58,18 @@ _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.float16): torch.float16}
 
 
+def _transfer(pool: pinned.PinnedPool, path: str, copy: Callable):
+    """``copy()`` inside the span of ``path``, one of ``pinned.PATHS``,
+    counted in ``pool``'s tally."""
+    span = trace_mod.TRANSFER_PATHS[path]
+    tracer = trace_mod.get_tracer()
+    t0 = tracer.begin(span)
+    out = copy()
+    tracer.end(span, t0)
+    pool.count(path)
+    return out
+
+
 def fetch_field(x, pool: Optional[pinned.PinnedPool] = None):
     """``drive``'s fetch: ``(host copy, pinned)``. A whole field of at
     least ``pinned.MIN_BYTES`` on the pool's device is copied by DMA into
@@ -73,11 +85,10 @@ def fetch_field(x, pool: Optional[pinned.PinnedPool] = None):
                if x.numel() * dtype.itemsize >= pinned.MIN_BYTES else None)
         if out is not None:
             # blocks until the DMA is done
-            torch.from_numpy(out).copy_(x.detach().to(dtype))
-            pool.count("fetch.pinned")
+            _transfer(pool, "fetch.pinned",
+                      lambda: torch.from_numpy(out).copy_(x.detach().to(dtype)))
             return out, True
-    pool.count("fetch.pageable")
-    return host_fetch(x), False
+    return _transfer(pool, "fetch.pageable", lambda: host_fetch(x)), False
 
 
 def upload_field(arr: np.ndarray, device,
@@ -96,16 +107,18 @@ def upload_field(arr: np.ndarray, device,
              if dev.type == pool.device_type and dtype is not None
              and arr.nbytes >= pinned.MIN_BYTES else None)
     if stage is None:
-        pool.count("upload.pageable")
-        return torch.tensor(arr, device=dev), False
-    if arr.flags.c_contiguous and arr.flags.writeable:
-        torch.from_numpy(stage).copy_(torch.from_numpy(arr))
-    else:
-        np.copyto(stage, arr)
-    T = torch.empty(arr.shape, dtype=dtype, device=dev)
-    T.copy_(torch.from_numpy(stage))
-    pool.count("upload.pinned")
-    return T, True
+        return _transfer(pool, "upload.pageable",
+                         lambda: torch.tensor(arr, device=dev)), False
+
+    def staged():
+        if arr.flags.c_contiguous and arr.flags.writeable:
+            torch.from_numpy(stage).copy_(torch.from_numpy(arr))
+        else:
+            np.copyto(stage, arr)
+        T = torch.empty(arr.shape, dtype=dtype, device=dev)
+        return T.copy_(torch.from_numpy(stage))
+
+    return _transfer(pool, "upload.pinned", staged), True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -389,10 +402,10 @@ def drive(
     if fetch or cfg.report_sum:
         t_f = tracer.begin(trace_mod.FETCH)
         whole = ops.gather(T_dev)
-        fetched = {"pinned": False, "bytes": 0}
+        fetched = {"bytes": 0}
         if whole is not None:
             if fetch:
-                T_host, fetched["pinned"] = fetch_field(whole)
+                T_host, _ = fetch_field(whole)
                 fetched["bytes"] = T_host.nbytes
             if cfg.report_sum:
                 # the reference's commented-out global reduction
@@ -424,7 +437,7 @@ def resolve_initial_field(cfg: HeatConfig, T0: Optional[np.ndarray], device):
     tracer = trace_mod.get_tracer()
     t0 = tracer.begin(trace_mod.UPLOAD)
     T0_host, start_step = load_or_init(cfg, T0, default_ic=False)
-    moved = {"pinned": False, "bytes": 0}
+    moved = {"bytes": 0}
     if T0_host is None:
         from ..grid import initial_condition_device
 
@@ -432,7 +445,7 @@ def resolve_initial_field(cfg: HeatConfig, T0: Optional[np.ndarray], device):
     else:
         # a copy: the drive loop later reuses this buffer, so it must not
         # alias the caller's array; converted on the device
-        T, moved["pinned"] = upload_field(np.asarray(T0_host), device)
+        T, _ = upload_field(np.asarray(T0_host), device)
         moved["bytes"] = T0_host.nbytes
         T = T.to(torch_dtype(cfg.dtype))
     tracer.end(trace_mod.UPLOAD, t0, args=moved)

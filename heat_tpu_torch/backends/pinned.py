@@ -23,28 +23,89 @@ from __future__ import annotations
 
 import collections
 import math
+import os
 import weakref
+from pathlib import Path, PurePosixPath
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from ..runtime import debug
+from ..runtime import debug, trace
 
-# The most page-locked memory the pool may have pinned: 16 fields of 4096²
-# f32. Memory pinned is taken from what the OS may page out, for the life
-# of the process (the allocator keeps freed blocks cached), so it is a
+# The most page-locked memory the pool may have pinned: an eighth of the
+# host's memory (the smaller of its physical memory and the limit of the
+# process's cgroup, where one is set), and never less than 1 GiB. Memory
+# pinned is taken from what the OS may page out, for the life of the
+# process (the allocator keeps freed blocks cached), so it is a
 # host-memory bound like ``async_io.DEFAULT_DEPTH`` is a device-memory
 # bound, not a knob. A solve needs one staging buffer and one result
-# buffer; the rest is what callers keep of earlier results.
-CAP_BYTES = 1 << 30
+# buffer; the rest is what callers keep of earlier results. The bound is
+# taken from the host, not counted in fields, because a field's size
+# ranges over three orders: a fixed 1 GiB held 16 fields of 4096² f32 but
+# only two of 512³ f32, fewer than a caller that keeps its last three
+# results needs, and the transfers then went pinned or pageable by which
+# results the caller happened to hold. An eighth of an H100 host's 96
+# GiB holds 24 such fields.
+MIN_CAP_BYTES = 1 << 30
+CAP_SHARE = 8
+
+
+def cgroup_limit_bytes(proc: str = "/proc/self/cgroup",
+                       root: str = "/sys/fs/cgroup") -> Optional[int]:
+    """The lowest memory limit set on this process's cgroups or their
+    ancestors (v2 ``memory.max``, v1 ``memory.limit_in_bytes``), or None
+    where none is set or none can be read."""
+    limits = []
+    try:
+        lines = Path(proc).read_text().splitlines()
+    except OSError:
+        return None
+    for line in lines:
+        _, _, rest = line.partition(":")
+        controllers, _, path = rest.partition(":")
+        if controllers == "":
+            base, name = Path(root), "memory.max"
+        elif "memory" in controllers.split(","):
+            base, name = Path(root, "memory"), "memory.limit_in_bytes"
+        else:
+            continue
+        rel = PurePosixPath(path or "/")
+        for d in (rel, *rel.parents):
+            try:
+                text = (base / d.relative_to("/") / name).read_text().strip()
+            except (OSError, ValueError):
+                continue
+            if text.isdigit():
+                limits.append(int(text))
+    return min(limits) if limits else None
+
+
+def host_memory_bytes() -> int:
+    """The host memory this process may use: its physical memory, or its
+    cgroup's limit where that is lower."""
+    physical = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    limit = cgroup_limit_bytes()
+    return physical if limit is None else min(physical, limit)
+
+
+def host_cap_bytes(memory: Optional[int] = None) -> int:
+    """The pool's cap for a host of ``memory`` bytes (default this one's,
+    :func:`host_memory_bytes`): a :data:`CAP_SHARE`-th of it, at least
+    :data:`MIN_CAP_BYTES`."""
+    memory = host_memory_bytes() if memory is None else memory
+    return max(MIN_CAP_BYTES, memory // CAP_SHARE)
+
+
+CAP_BYTES = host_cap_bytes()
 
 # Smaller fields take the pageable path: the pool is for the whole fields
 # a card solves, which its cap counts in, not for small arrays.
 MIN_BYTES = 1 << 20
 
-# the paths a transfer takes, each a key of ``PinnedPool.tally``
-PATHS = ("upload.pinned", "upload.pageable", "fetch.pinned", "fetch.pageable")
+# the paths a transfer takes, each a key of ``PinnedPool.tally`` and the
+# name of the span around the copy
+PATHS = tuple(trace.TRANSFER_PATHS)
 
 
 def _pin(shape: tuple, dtype: torch.dtype) -> torch.Tensor:

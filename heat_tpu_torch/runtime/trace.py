@@ -151,6 +151,10 @@ CHUNK = Span("chunk")            # ring name ``chunk @<step>``
 FINAL_SYNC = Span("final-sync")
 SOLVE = Span("solve")
 FETCH = Span("fetch")
+# the path a whole field's transfer took (``backends/pinned.PATHS``): one
+# around the copy itself, inside the ``upload`` or ``fetch`` span
+TRANSFER_PATHS = {name: Span(name) for name in (
+    "upload.pinned", "upload.pageable", "fetch.pinned", "fetch.pageable")}
 BLOCK = Span("block")
 HALO_PACK = Span("halo.pack")
 HALO_POST = Span("halo.post")

@@ -631,20 +631,23 @@ def test_a_held_result_is_untouched_by_the_next_solve(fresh_pool):
     assert a.tobytes() == kept.tobytes()
 
 
-def test_the_pool_keeps_its_cap_over_fifty_held_results(fresh_pool):
+def test_the_pool_keeps_its_cap_over_fifty_held_results(monkeypatch):
     cfg, base = _pinned_cfg(ntime=8), _host_field(15)
     field = base.nbytes
+    # a cap of 16 fields, below the host's, so 50 held results reach it
+    pool = pinned.PinnedPool(cap_bytes=16 * field)
+    monkeypatch.setattr(pinned, "POOL", pool)
     kept = []
     for i in range(50):
         T = solve(cfg, T0=base + np.float32(i), device="cuda").T
         kept.append((T, hashlib.sha1(T).hexdigest()))
-        assert fresh_pool.held_bytes <= fresh_pool.cap_bytes
-        assert fresh_pool.held_bytes == min(i, 16) * field
+        assert pool.held_bytes <= pool.cap_bytes
+        assert pool.held_bytes == min(i, 16) * field
     # the first solve moves its fields pageable; from the second, each
     # upload stages in the block its solve's fetch then keeps: 16 results
     # fill the cap, and from the 18th solve both fall back
-    assert fresh_pool.tally == {"upload.pinned": 16, "upload.pageable": 34,
-                                "fetch.pinned": 16, "fetch.pageable": 34}
+    assert pool.tally == {"upload.pinned": 16, "upload.pageable": 34,
+                          "fetch.pinned": 16, "fetch.pageable": 34}
     for T, digest in kept:
         assert hashlib.sha1(T).hexdigest() == digest
 

@@ -280,16 +280,22 @@ def test_the_spans_say_which_path_and_how_many_bytes(cpu_pool):
             backends.solve(cfg, T0=T0, device="cpu")
         backends.solve(cfg.with_(n=32), T0=T0[:32, :32].copy(),
                        device="cpu")
-        spans = {}
+        spans, paths = {}, {}
         for ev in tracer.to_chrome()["traceEvents"]:
-            if ev.get("ph") == "X" and ev["name"] in ("upload", "fetch"):
+            if ev.get("ph") != "X":
+                continue
+            if ev["name"] in ("upload", "fetch"):
                 spans.setdefault(ev["name"], []).append(ev["args"])
+            elif ev["name"] in pinned.PATHS:
+                use, _, path = ev["name"].partition(".")
+                paths.setdefault(use, []).append(path)
     finally:
         trace.configure()
+    # the bytes on the outer span, the path in the name of the one inside
     for name in ("upload", "fetch"):
-        assert spans[name] == [{"pinned": False, "bytes": FIELD},
-                               {"pinned": True, "bytes": FIELD},
-                               {"pinned": False, "bytes": 32 * 32 * 4}]
+        assert spans[name] == [{"bytes": FIELD}, {"bytes": FIELD},
+                               {"bytes": 32 * 32 * 4}]
+        assert paths[name] == ["pageable", "pinned", "pageable"]
 
 
 def test_the_pool_s_lock_has_a_rank_of_its_own(monkeypatch):
@@ -351,3 +357,113 @@ def test_lending_from_many_threads_keeps_the_cap_and_lends_once():
     # every buffer came back: only one lent here may be counted
     a = pool.lend("fetch", (SIDE, SIDE), F32)
     assert sum(pool._lent.values()) == (a is not None)
+
+
+GIB = 1 << 30
+
+
+@pytest.mark.parametrize("memory,cap", [
+    (0, GIB), (4 * GIB, GIB), (8 * GIB, GIB), (9 * GIB, 9 * GIB // 8),
+    (96 * GIB, 12 * GIB), (2048 * GIB, 256 * GIB)])
+def test_the_cap_is_a_share_of_the_host_s_memory(memory, cap):
+    assert pinned.host_cap_bytes(memory) == cap
+
+
+def test_the_cap_takes_the_smaller_of_the_host_and_its_cgroup(monkeypatch):
+    monkeypatch.setattr(pinned.os, "sysconf",
+                        {"SC_PAGE_SIZE": 4096,
+                         "SC_PHYS_PAGES": 64 * GIB // 4096}.__getitem__)
+    monkeypatch.setattr(pinned, "cgroup_limit_bytes", lambda: None)
+    assert pinned.host_memory_bytes() == 64 * GIB
+    assert pinned.host_cap_bytes() == 8 * GIB
+    monkeypatch.setattr(pinned, "cgroup_limit_bytes", lambda: 24 * GIB)
+    assert pinned.host_cap_bytes() == 3 * GIB
+    monkeypatch.setattr(pinned, "cgroup_limit_bytes", lambda: 1 << 62)
+    assert pinned.host_cap_bytes() == 8 * GIB
+    assert pinned.POOL.cap_bytes == pinned.CAP_BYTES >= pinned.MIN_CAP_BYTES
+
+
+def test_the_cgroup_limit_is_the_lowest_on_the_path(tmp_path):
+    proc = tmp_path / "cgroup"
+    # v2: the process's cgroup and its parent limited, the root not
+    for d, text in (("", "max"), ("a", "8589934592"), ("a/b", "max\n")):
+        (tmp_path / "v2" / d).mkdir(parents=True, exist_ok=True)
+        (tmp_path / "v2" / d / "memory.max").write_text(text)
+    proc.write_text("0::/a/b\n")
+    assert pinned.cgroup_limit_bytes(str(proc), str(tmp_path / "v2")) == 8 * GIB
+    # v1: the memory controller's own hierarchy; other controllers ignored
+    (tmp_path / "v1" / "memory" / "jobs").mkdir(parents=True)
+    (tmp_path / "v1" / "memory" / "memory.limit_in_bytes").write_text(
+        str(1 << 62))
+    (tmp_path / "v1" / "memory" / "jobs" / "memory.limit_in_bytes").write_text(
+        str(3 * GIB))
+    proc.write_text("5:cpu,cpuacct:/other\n4:memory:/jobs\n")
+    assert pinned.cgroup_limit_bytes(str(proc), str(tmp_path / "v1")) == 3 * GIB
+    # nothing set, nothing readable
+    proc.write_text("4:memory:/gone\n")
+    (tmp_path / "v1" / "memory" / "memory.limit_in_bytes").unlink()
+    assert pinned.cgroup_limit_bytes(str(proc), str(tmp_path / "v1")) is None
+    assert pinned.cgroup_limit_bytes(str(tmp_path / "none")) is None
+
+
+# The benchmark's solves loop on the 512³ f32 deployment at 1/512 scale:
+# 64³ f32 fields (1 MiB, the pool's floor, for 512 MiB), 4 distinct
+# initial fields, set-up's solve, then 24 window solves, 3 results kept by
+# the loop's reservoir draw. The card's host has 96 GiB.
+CUBE = 64
+CUBE_FIELD = CUBE ** 3 * 4
+SCALE = (512 ** 3 * 4) // CUBE_FIELD
+
+
+def _replay(cap_bytes, seed, window=24, keep=3):
+    """The window's transfers by path and the most bytes the pool held."""
+    import random
+
+    pool = pinned.PinnedPool(cap_bytes, alloc=Heap().alloc, device_type="cpu")
+    cfg = HeatConfig(n=CUBE, ndim=3, ntime=1, backend="cuda", sigma=1 / 6)
+    rng = np.random.default_rng(seed)
+    ics = [rng.random((CUBE,) * 3, dtype=np.float32) for _ in range(4)]
+    old = pinned.POOL
+    pinned.POOL = pool
+    try:
+        backends.solve(cfg, T0=ics[0], device="cpu")
+        before = dict(pool.tally)
+        draw = random.Random(f"{seed}:compare_sample")
+        sample, held = [], 0
+        for i in range(window):
+            res = backends.solve(cfg, T0=ics[i % len(ics)], device="cpu")
+            if len(sample) < keep:
+                sample.append(res.T)
+            else:
+                slot = draw.randrange(i + 1)
+                if slot < keep:
+                    sample[slot] = res.T
+            del res
+            held = max(held, pool.held_bytes)
+    finally:
+        pinned.POOL = old
+    return {k: v - before[k] for k, v in pool.tally.items()}, held
+
+
+@pytest.mark.parametrize("seed", [2, 3, 5, 2147500001])
+def test_every_window_transfer_of_the_cube_is_pinned(seed):
+    cap = pinned.host_cap_bytes(96 * GIB) // SCALE
+    paths, held = _replay(cap, seed)
+    assert paths == {"upload.pinned": 24, "upload.pageable": 0,
+                     "fetch.pinned": 24, "fetch.pageable": 0}
+    # three results kept and one in flight
+    assert held <= 4 * CUBE_FIELD
+
+
+def test_a_cap_of_two_cube_fields_mixes_the_paths():
+    """The fixed 1 GiB cap held two 512³ f32 fields: which window solves
+    went pinned depended on the results the reservoir held."""
+    pinned_solves = []
+    for seed in (2, 3, 5, 2147500001):
+        paths, held = _replay(2 * CUBE_FIELD, seed)
+        assert held <= 2 * CUBE_FIELD
+        assert paths["upload.pinned"] + paths["upload.pageable"] == 24
+        assert 0 < paths["fetch.pinned"] < 24
+        assert 0 < paths["upload.pageable"]
+        pinned_solves.append(paths["fetch.pinned"])
+    assert sum(pinned_solves) < 24 * 4 // 2

@@ -20,11 +20,14 @@ from heat_tpu_torch.config import HeatConfig
 from heat_tpu_torch.runtime import trace
 
 CFG = HeatConfig(n=32, ntime=40, backend="cuda", heartbeat_every=16)
-# the markers of one solve of CFG: three chunks of 16, 16 and 8 steps
-MARKERS = (["heat.upload>", "heat.upload<", "heat.warm>", "heat.warm<",
+# the markers of one solve of CFG: three chunks of 16, 16 and 8 steps;
+# on the CPU both transfers take the pageable path
+MARKERS = (["heat.upload>", "heat.upload.pageable>", "heat.upload.pageable<",
+            "heat.upload<", "heat.warm>", "heat.warm<",
             "heat.solve>"] + ["heat.chunk>", "heat.chunk<"] * 3
            + ["heat.final-sync>", "heat.final-sync<", "heat.solve<",
-              "heat.fetch>", "heat.fetch<"])
+              "heat.fetch>", "heat.fetch.pageable>", "heat.fetch.pageable<",
+              "heat.fetch<"])
 
 
 @pytest.fixture
@@ -100,7 +103,9 @@ def test_no_marker_without_a_profiler(ring, monkeypatch):
     with contextlib.redirect_stdout(io.StringIO()):
         backends.solve(CFG, T0=_field(), device="cpu")
     assert seen == []
-    assert len(ring) == 8   # upload, compile, 3 chunks, final-sync, solve, fetch
+    # upload and its path, compile, 3 chunks, final-sync, solve, fetch and
+    # its path
+    assert len(ring) == 10
     _profiled(lambda: backends.solve(CFG, T0=_field(), device="cpu"))
     assert seen == MARKERS
 
@@ -140,3 +145,32 @@ def test_sharded_blocks_hold_each_halo_span_once_per_axis(ring, exchange,
         inside = [e[3] for e in halo
                   if b[0] <= e[0] and e[0] + e[1] <= b[0] + b[1]]
         assert sorted(inside) == sorted(names * 2)
+
+
+def test_each_transfer_has_one_path_span_inside_its_own(ring, monkeypatch):
+    """A CPU pool of plain host tensors: the first solve of a shape moves
+    its fields pageable, the second through the pool; each upload and
+    fetch holds exactly one span of the path the pool chose."""
+    from heat_tpu_torch.backends import pinned
+
+    pool = pinned.PinnedPool(
+        8 << 20, alloc=lambda shape, dtype: torch.empty(shape, dtype=dtype),
+        device_type="cpu")
+    monkeypatch.setattr(pinned, "POOL", pool)
+    cfg = HeatConfig(n=512, ntime=4, backend="cuda")
+    for _ in range(2):
+        backends.solve(cfg, T0=_field(512), device="cpu")
+    evs = [e for e in ring.snapshot() if e[2] == "X"]
+    paths = [e for e in evs if e[3] in pinned.PATHS]
+    want = []
+    for solve, how in enumerate(("pageable", "pinned")):
+        for outer in ("upload", "fetch"):
+            span = [e for e in evs if e[3] == outer][solve]
+            inside = [e[3] for e in paths
+                      if span[0] <= e[0] and e[0] + e[1] <= span[0] + span[1]]
+            assert inside == [f"{outer}.{how}"]
+            want.append(f"{outer}.{how}")
+    assert sorted(e[3] for e in paths) == sorted(want)
+    assert pool.tally == {
+        "upload.pinned": 1, "upload.pageable": 1,
+        "fetch.pinned": 1, "fetch.pageable": 1}
